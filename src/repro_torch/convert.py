@@ -1,0 +1,78 @@
+"""What crosses from the reference package into the port: weights and draws.
+
+``params_from_jax`` takes the reference engine's ``template`` (or any
+``{b1, b2, w1, w2}`` dict of arrays) and returns the port's params and flat
+vector in the same order, so a port run can start from the reference's
+init.
+
+The draw provider is the one place the round takes random numbers from:
+``gumbel(round_idx, n)`` for selection and ``normal(round_idx, n)`` for the
+latency jitter.  ``GeneratorDraws`` serves standalone runs from seeded
+``torch.Generator``s; ``ReplayDraws`` replays draws made elsewhere, which is
+how the parity tests feed the port the reference's threefry draws (torch
+cannot reproduce those bits).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_jax(tree, device="cpu"):
+    """``{b1, b2, w1, w2}`` arrays (numpy or JAX) -> (params dict of float32
+    tensors, (D,) flat vector in sorted-key order ``b1, b2, w1, w2``)."""
+    params = {
+        k: torch.as_tensor(np.array(tree[k], dtype=np.float32), device=device)
+        for k in sorted(tree)
+    }
+    flat = torch.cat([params[k].reshape(-1) for k in sorted(params)])
+    return params, flat
+
+
+def params_to_numpy(params) -> dict:
+    """The inverse of ``params_from_jax``: a dict of float32 numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+class GeneratorDraws:
+    """Per-round draws from CPU ``torch.Generator``s seeded by
+    ``(seed, round, stream)``, so a round's draws do not depend on how many
+    rounds ran before it or on the device; moved to ``device``."""
+
+    def __init__(self, seed: int, device="cpu"):
+        self.seed, self.device = seed, torch.device(device)
+
+    def _generator(self, round_idx: int, stream: int) -> torch.Generator:
+        state = np.random.SeedSequence([self.seed, round_idx, stream])
+        return torch.Generator().manual_seed(int(state.generate_state(1)[0]))
+
+    def gumbel(self, round_idx: int, n: int) -> torch.Tensor:
+        u = torch.rand(n, generator=self._generator(round_idx, 0))
+        u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+        return (-torch.log(-torch.log(u))).to(self.device)
+
+    def normal(self, round_idx: int, n: int) -> torch.Tensor:
+        return torch.randn(n, generator=self._generator(round_idx, 1)).to(self.device)
+
+
+class ReplayDraws:
+    """Replays (rounds, N) arrays of Gumbel and standard-normal draws,
+    row ``round_idx`` for round ``round_idx``."""
+
+    def __init__(self, gumbel, normal, device="cpu"):
+        self._gumbel = torch.as_tensor(np.asarray(gumbel, np.float32), device=device)
+        self._normal = torch.as_tensor(np.asarray(normal, np.float32), device=device)
+
+    def _row(self, table, round_idx: int, n: int) -> torch.Tensor:
+        if round_idx >= table.shape[0] or table.shape[1] != n:
+            raise IndexError(
+                f"no replayed draw for round {round_idx} of {n} clients "
+                f"(have {tuple(table.shape)})"
+            )
+        return table[round_idx]
+
+    def gumbel(self, round_idx: int, n: int) -> torch.Tensor:
+        return self._row(self._gumbel, round_idx, n)
+
+    def normal(self, round_idx: int, n: int) -> torch.Tensor:
+        return self._row(self._normal, round_idx, n)

@@ -1,0 +1,112 @@
+"""FedAR end-to-end simulation: Algorithm 2 as a server object.
+
+Simulates the robot fleet of §IV (heterogeneous resources, stragglers,
+poisoners, trust evolution) through :class:`repro_torch.core.engine
+.FedAREngine`.  ``FedARServer`` keeps the reference's public API
+(``run_round`` / ``run`` and a ``history`` dict of per-round rows) and runs
+the resident engine on the card unless ``device="cpu"`` is passed.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, List
+
+import numpy as np
+
+from repro_torch.common.config import FedConfig
+from repro_torch.core.engine import FedAREngine, RoundOutputs, unflatten
+from repro_torch.core.resources import TaskRequirement
+
+
+@dataclass
+class FedARServer:
+    """Holds server-side state and runs communication rounds.
+
+    ``cfg`` is an ``MnistConfig`` (the paper's MLP client) or any
+    ``ClientModel``; ``device`` ``None`` means the card; ``draws`` and
+    ``init_params`` pass through to the engine."""
+
+    cfg: Any
+    fed: FedConfig
+    req: TaskRequirement
+    lr: float = 0.1
+    device: Any = None
+    draws: Any = None
+    init_params: Any = None
+
+    def __post_init__(self):
+        # cohort_size >= N: the "cohort" is the whole fleet, the resident
+        # engine exactly
+        if (self.fed.cohort_size is not None
+                and self.fed.cohort_size >= self.fed.num_clients):
+            self.fed = dataclasses.replace(self.fed, cohort_size=None)
+        self.engine = FedAREngine(
+            self.cfg, self.fed, self.req, lr=self.lr, device=self.device,
+            draws=self.draws, init_params=self.init_params,
+        )
+        self.state = self.engine.init_state()
+        self.template = self.engine.template
+        self.dim = self.engine.dim
+        self.poison_mask = self.engine.poison_mask
+        self.history: Dict[str, List[Any]] = {
+            "trust": [], "selected": [], "on_time": [], "loss": [], "acc": [],
+            "round_time": [],
+        }
+
+    @property
+    def params(self):
+        return unflatten(self.state.params, self.template)
+
+    @property
+    def trust(self):
+        return self.state.trust
+
+    @property
+    def resources(self):
+        return self.state.resources
+
+    @property
+    def fg_history(self):
+        return self.state.fg_history
+
+    @property
+    def round_idx(self) -> int:
+        return self.state.round_idx
+
+    def _append(self, out: RoundOutputs, rounds: int, with_eval: bool):
+        """Fold stacked (or single-round) outputs into the history dict
+        (one device-to-host copy per field)."""
+        trust = np.atleast_2d(out.trust.cpu().numpy())
+        selected = np.atleast_2d(out.selected.cpu().numpy())
+        on_time = np.atleast_2d(out.on_time.cpu().numpy())
+        round_time = out.round_time.cpu().numpy().reshape(rounds)
+        loss = out.loss.cpu().numpy().reshape(rounds)
+        acc = out.acc.cpu().numpy().reshape(rounds)
+        for r in range(rounds):
+            self.history["trust"].append(trust[r])
+            self.history["selected"].append(selected[r])
+            self.history["on_time"].append(on_time[r])
+            self.history["round_time"].append(float(round_time[r]))
+            if with_eval:
+                self.history["loss"].append(float(loss[r]))
+                self.history["acc"].append(float(acc[r]))
+
+    def run_round(self, data, *, eval_set=None, force_straggler=None):
+        """One communication round.  ``data``: dict of stacked per-client
+        arrays x (N, n, 784), y (N, n), sizes (N,), activations (N,)
+        (0=relu, 1=softmax, Table II), optionally mask (N, n)."""
+        self.state, out = self.engine.step(
+            self.state, data, eval_set=eval_set, force_straggler=force_straggler
+        )
+        self._append(out, 1, eval_set is not None)
+        return out.selected.cpu().numpy(), out.on_time.cpu().numpy()
+
+    def run(self, data, rounds: int, eval_set=None, force_straggler=None):
+        """Run ``rounds`` communication rounds; returns ``history``."""
+        self.state, outs = self.engine.run(
+            self.state, data, rounds=rounds, eval_set=eval_set,
+            force_straggler=force_straggler,
+        )
+        self._append(outs, rounds, eval_set is not None)
+        return self.history

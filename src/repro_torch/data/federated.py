@@ -1,0 +1,91 @@
+"""Federated fleets over the synthetic digit source (numpy, bit-identical to
+the reference builders).
+
+``table2_fleet`` reproduces the paper's Table II: 12 robots, per-robot
+label subsets / sample counts / activation functions, with the two
+poisoners label-flipping.  ``scaled_fleet`` tiles Table II out to any fleet
+size for engine-scale runs.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core.resources import POISON_FRAC
+from repro_torch.data.synthetic import make_digits
+
+# Table II: (labels, activation, n_samples); softmax=1, relu=0
+TABLE_II = [
+    (list(range(10)), 1, 1000),  # Robot 1
+    (list(range(10)), 0, 1000),  # Robot 2
+    ([0, 1, 2, 3], 1, 400),  # Robot 3  (resource-starved)
+    (list(range(10)), 1, 1000),  # Robot 4
+    ([4, 5, 6], 0, 300),  # Robot 5  (resource-starved)
+    ([7, 8, 9], 0, 300),  # Robot 6  (unreliable)
+    (list(range(10)), 1, 1000),  # Robot 7
+    (list(range(10)), 0, 1000),  # Robot 8
+    ([5, 6, 8], 1, 300),  # Robot 9  (unreliable)
+    (list(range(10)), 1, 1000),  # Robot 10
+    (list(range(10)), 0, 1000),  # Robot 11
+    (list(range(10)), 1, 1000),  # Robot 12
+]
+
+
+def _build_fleet(profiles, poisoners, *, flip_frac: float, seed: int,
+                 samples_per_client: int | None):
+    """Stack per-client digit shards for a list of (labels, act, n)
+    profiles, padded to the max sample count by wrap-around so the client
+    block is rectangular; ``sizes`` holds the real n_u."""
+    xs, ys, sizes, acts = [], [], [], []
+    n_max = 0
+    for i, (labels, act, n) in enumerate(profiles):
+        if samples_per_client:
+            n = min(n, samples_per_client)
+        flip = flip_frac if i in poisoners else 0.0
+        x, y = make_digits(n, labels, seed=seed * 101 + i, flip_frac=flip)
+        xs.append(x)
+        ys.append(y)
+        sizes.append(n)
+        acts.append(act)
+        n_max = max(n_max, n)
+    for i in range(len(xs)):
+        n = xs[i].shape[0]
+        if n < n_max:
+            reps = int(np.ceil(n_max / n))
+            xs[i] = np.tile(xs[i], (reps, 1))[:n_max]
+            ys[i] = np.tile(ys[i], reps)[:n_max]
+    return {
+        "x": np.stack(xs),
+        "y": np.stack(ys),
+        "sizes": np.asarray(sizes, np.float32),
+        "activations": np.asarray(acts, np.int32),
+    }
+
+
+def table2_fleet(*, seed: int = 0, poisoners=(10, 11), flip_frac: float = 0.6,
+                 samples_per_client: int | None = None):
+    """The paper's exact 12-robot fleet (Table II); ``poisoners`` are
+    0-indexed robots whose labels are flipped, ``samples_per_client`` caps
+    the Table II counts."""
+    return _build_fleet(TABLE_II, set(poisoners), flip_frac=flip_frac,
+                        seed=seed, samples_per_client=samples_per_client)
+
+
+def scaled_fleet(num_clients: int, *, seed: int = 0,
+                 num_poisoners: int | None = None,
+                 poison_frac: float = POISON_FRAC, flip_frac: float = 0.6,
+                 samples_per_client: int | None = 200,
+                 return_poisoners: bool = False):
+    """Table II tiled out to ``num_clients`` robots: client ``i`` inherits
+    profile ``TABLE_II[i % 12]`` and the LAST ``num_poisoners`` clients
+    label-flip (the poisoner positions of ``resources.make_fleet``)."""
+    if num_poisoners is None:
+        num_poisoners = int(round(num_clients * poison_frac))
+    profiles = [TABLE_II[i % len(TABLE_II)] for i in range(num_clients)]
+    poisoners = set(range(num_clients - num_poisoners, num_clients))
+    data = _build_fleet(profiles, poisoners, flip_frac=flip_frac, seed=seed,
+                        samples_per_client=samples_per_client)
+    if return_poisoners:
+        mask = np.zeros(num_clients, bool)
+        mask[list(poisoners)] = True
+        return data, mask
+    return data

@@ -1,0 +1,95 @@
+"""Plain PyTorch versions of the kernels on the main path.
+
+The CPU path and the tests use them; ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.  Each mirrors the reference package's
+oracle of the same name (``repro/kernels/ref.py``).
+
+Flat parameter layout shared with the engine: one client's params are one
+``(D,)`` float32 row with the MLP's leaves in sorted-key order
+``b1 (H), b2 (C), w1 (I, H), w2 (H, C)``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def fedavg_agg_ref(deltas, weights, staleness=None):
+    """Trust-weighted (optionally staleness-decayed) server aggregation.
+    deltas: (N, D); weights: (N,) -> (D,) float32."""
+    w = weights.to(torch.float32)
+    if staleness is not None:
+        w = w * (1.0 + staleness.to(torch.float32)) ** -0.5
+    return torch.einsum("n,nd->d", w, deltas.to(torch.float32))
+
+
+def split_flat(flat, input_dim: int, hidden: int, classes: int) -> dict:
+    """(..., D) flat rows -> dict of (..., leaf shape) views in the flat
+    order ``b1, b2, w1, w2``."""
+    lead = flat.shape[:-1]
+    shapes = {"b1": (hidden,), "b2": (classes,), "w1": (input_dim, hidden),
+              "w2": (hidden, classes)}
+    out, off = {}, 0
+    for k in ("b1", "b2", "w1", "w2"):
+        n = 1
+        for s in shapes[k]:
+            n *= s
+        out[k] = flat[..., off:off + n].reshape(*lead, *shapes[k])
+        off += n
+    return out
+
+
+def local_sgd_ref(g_flat, x, y, act, mask, *, hidden: int, classes: int,
+                  lr: float, batch_size: int, epochs: int):
+    """Every client's masked local SGD from the shared global row
+    ``g_flat`` (D,): E epochs of batch SGD with the hand-written gradient of
+    the masked softmax cross-entropy through the Table II hidden activation
+    (the fused kernel's arithmetic).  x (R, n, I), y (R, n), act (R,) int
+    (0=relu, 1=softmax), mask (R, n) bool/float validity.  The sample axis
+    is zero-padded to whole batches (mask-False), and a batch whose mask
+    count is zero is skipped.  Returns the (R, D) post-SGD flat rows."""
+    R, n, I = x.shape
+    B = batch_size
+    nb = -(-n // B)
+    pad = nb * B - n
+    x = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, pad))
+    y = torch.nn.functional.pad(y.to(torch.int64), (0, pad))
+    m = torch.nn.functional.pad(mask.to(torch.float32), (0, pad))
+    p = split_flat(g_flat.to(torch.float32), I, hidden, classes)
+    w1 = p["w1"].expand(R, I, hidden).clone()
+    b1 = p["b1"].expand(R, hidden).clone()
+    w2 = p["w2"].expand(R, hidden, classes).clone()
+    b2 = p["b2"].expand(R, classes).clone()
+    soft = (act == 1).view(R, 1, 1)
+    for _ in range(epochs):
+        for b in range(nb):
+            xb, yb, mb = (t[:, b * B:(b + 1) * B] for t in (x, y, m))
+            cnt = mb.sum(1)  # (R,)
+            hpre = torch.bmm(xb, w1) + b1[:, None, :]
+            h = torch.where(soft, torch.softmax(hpre, -1), torch.relu(hpre))
+            logits = torch.bmm(h, w2) + b2[:, None, :]
+            onehot = torch.nn.functional.one_hot(yb, classes).to(torch.float32)
+            scale = (mb / torch.clamp(cnt, min=1.0)[:, None])[..., None]
+            gl = (torch.softmax(logits, -1) - onehot) * scale
+            dw2 = torch.bmm(h.transpose(1, 2), gl)
+            db2 = gl.sum(1)
+            dh = torch.bmm(gl, w2.transpose(1, 2))
+            dsoft = h * (dh - (dh * h).sum(-1, keepdim=True))
+            dhp = torch.where(soft, dsoft, dh * (hpre > 0.0))
+            dw1 = torch.bmm(xb.transpose(1, 2), dhp)
+            db1 = dhp.sum(1)
+            # an all-padding batch is skipped (exact no-op), as in the kernel
+            live = (cnt > 0.0).to(torch.float32)
+            w1 = w1 - (lr * live)[:, None, None] * dw1
+            b1 = b1 - (lr * live)[:, None] * db1
+            w2 = w2 - (lr * live)[:, None, None] * dw2
+            b2 = b2 - (lr * live)[:, None] * db2
+    return torch.cat(
+        [b1, b2, w1.reshape(R, -1), w2.reshape(R, -1)], dim=1
+    )
+
+
+def sketch_similarity_ref(unit_loc, unit_full):
+    """Defense similarity block: (M, K) @ (N, K).T -> (M, N) float32."""
+    return torch.einsum(
+        "mk,nk->mn", unit_loc.to(torch.float32), unit_full.to(torch.float32)
+    )

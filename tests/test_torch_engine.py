@@ -1,0 +1,219 @@
+"""The port's FedAR round as a whole against a live reference run.
+
+The golden config of ``tests/test_golden_numerics.py`` (12 robots, Table II
+with 60 samples each, ``small_model(32)``, 5 rounds of fedar +
+``foolsgold_sketch``) runs through the reference engine in this process;
+its init params cross over through ``convert.params_from_jax`` and its
+threefry draws (``fold_in(PRNGKey(seed), round)``, then a 3-way split for
+selection / latency) replay into the port through ``ReplayDraws``.  Trust
+and the masks must match exactly; params and the defense history within
+atol = rtol = 2e-4, the reference goldens' band for fp32 reduction order
+over 5 rounds x 15 local steps.
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.fedar_mnist import fleet_fed as jfleet_fed
+from repro.configs.fedar_mnist import small_model as jsmall_model
+from repro.core.engine import FedAREngine as JEngine
+from repro.core.resources import TaskRequirement as JReq
+from repro.data.datasets import make_federated
+from repro_torch.configs.fedar_mnist import fleet_fed, small_model
+from repro_torch.convert import (
+    GeneratorDraws,
+    ReplayDraws,
+    params_from_jax,
+    params_to_numpy,
+)
+from repro_torch.core.engine import FedAREngine, flatten, unflatten
+from repro_torch.core.fedar import FedARServer
+from repro_torch.core.resources import TaskRequirement
+from repro_torch.data.federated import table2_fleet
+
+ROUNDS = 5
+SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+
+
+def _reference_draws(seed, rounds, n):
+    g, z = [], []
+    for r in range(rounds):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), r)
+        k_sel, k_lat, _ = jax.random.split(key, 3)
+        g.append(np.asarray(jax.random.gumbel(k_sel, (n,))))
+        z.append(np.asarray(jax.random.normal(k_lat, (n,))))
+    return np.stack(g), np.stack(z)
+
+
+@pytest.mark.parametrize("aggregation,defense", [
+    ("fedar", "foolsgold_sketch"),  # the golden config
+    ("fedavg", "none"),
+])
+def test_golden_config_matches_live_reference(aggregation, defense):
+    jfed = jfleet_fed(12, defense=defense, aggregation=aggregation)
+    jeng = JEngine(jsmall_model(32), jfed, JReq())
+    ds = make_federated("table2", 12, samples_per_client=60)
+    ev = (ds.x[0, :50], ds.y[0, :50])
+    jstate, jouts = jeng.run(
+        jeng.init_state(), {k: jnp.asarray(v) for k, v in ds.arrays().items()},
+        rounds=ROUNDS, eval_set=(jnp.asarray(ev[0]), jnp.asarray(ev[1])),
+    )
+
+    data = table2_fleet(samples_per_client=60)
+    for k, v in ds.arrays().items():
+        np.testing.assert_array_equal(data[k], v)
+    params, _ = params_from_jax(jeng.template)
+    server = FedARServer(
+        small_model(32), fleet_fed(12, defense=defense, aggregation=aggregation),
+        TaskRequirement(), device="cpu",
+        draws=ReplayDraws(*_reference_draws(0, ROUNDS, 12)), init_params=params,
+    )
+    hist = server.run(data, rounds=ROUNDS, eval_set=ev)
+
+    np.testing.assert_array_equal(np.stack(hist["trust"]), np.asarray(jouts.trust))
+    np.testing.assert_array_equal(np.stack(hist["selected"]),
+                                  np.asarray(jouts.selected))
+    np.testing.assert_array_equal(np.stack(hist["on_time"]),
+                                  np.asarray(jouts.on_time))
+    np.testing.assert_array_equal(server.trust.participations.numpy(),
+                                  np.asarray(jstate.trust.participations))
+    np.testing.assert_array_equal(server.trust.failures.numpy(),
+                                  np.asarray(jstate.trust.failures))
+    np.testing.assert_allclose(server.state.params.numpy(),
+                               np.asarray(jstate.params), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(server.fg_history.numpy(),
+                               np.asarray(jstate.fg_history), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(hist["acc"], np.asarray(jouts.acc), atol=2e-4)
+    np.testing.assert_allclose(hist["round_time"], np.asarray(jouts.round_time),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(server.resources.battery.numpy(),
+                                  np.asarray(jstate.resources.battery))
+    assert server.round_idx == ROUNDS
+
+
+def test_imports_leave_out_jax_and_reference():
+    """Importing every module of the port pulls in neither JAX nor the
+    reference package."""
+    code = (
+        "import pkgutil, sys, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_the_card():
+    """No ``device`` means ``cuda``; without a CUDA device that raises
+    instead of falling back to the CPU."""
+    fed = fleet_fed(12, defense="none")
+    if torch.cuda.is_available():
+        assert FedAREngine(small_model(8), fed, TaskRequirement()).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FedAREngine(small_model(8), fed, TaskRequirement())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FedARServer(small_model(8), fed, TaskRequirement())
+
+
+@pytest.mark.parametrize("knob", ["sgd_impl", "agg_impl", "defense_impl"])
+def test_kernel_route_on_cpu_raises(knob):
+    fed = fleet_fed(12, defense="foolsgold_sketch", **{knob: "kernel"})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FedAREngine(small_model(8), fed, TaskRequirement(), device="cpu")
+
+
+@pytest.mark.parametrize("override", [
+    dict(aggregation="async"), dict(aggregation="async_seq"),
+    dict(compress="qsgd"), dict(faults="chaos"), dict(mesh_shape=4),
+    dict(cohort_size=4), dict(select_frac=0.5),
+])
+def test_later_slice_features_raise(override):
+    fed = fleet_fed(12, defense="none", **override)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FedAREngine(small_model(8), fed, TaskRequirement(), device="cpu")
+
+
+@pytest.mark.parametrize("key", ["packed", "round_mask", "cohort_valid"])
+def test_later_slice_data_keys_raise(key):
+    eng = FedAREngine(small_model(8), fleet_fed(12, defense="none"),
+                      TaskRequirement(), device="cpu")
+    data = dict(table2_fleet(samples_per_client=20), **{key: np.zeros(3)})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.step(eng.init_state(), data)
+
+
+def test_server_strips_whole_fleet_cohort():
+    """cohort_size >= N is the resident engine, as in the reference."""
+    server = FedARServer(small_model(8), fleet_fed(12, defense="none",
+                                                   cohort_size=12),
+                         TaskRequirement(), device="cpu")
+    assert server.fed.cohort_size is None
+
+
+def test_weight_converter_round_trip():
+    jeng = JEngine(jsmall_model(16), jfleet_fed(12, defense="none"), JReq())
+    params, flat = params_from_jax(jeng.template)
+    assert list(params) == ["b1", "b2", "w1", "w2"]
+    back = params_to_numpy(params)
+    for k, v in jeng.template.items():
+        np.testing.assert_array_equal(back[k], np.asarray(v))
+    from repro.core.engine import flatten as jflatten
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jflatten(jeng.template)))
+    assert torch.equal(flatten(unflatten(flat, params)), flat)
+
+
+def test_masked_round_and_standalone_draws():
+    """A ragged fleet (mask) runs through the engine, the all-False client
+    keeps an exactly-zero delta (never contributes), and the default
+    generator draws depend only on (seed, round)."""
+    draws = GeneratorDraws(3)
+    assert torch.equal(draws.gumbel(2, 12), GeneratorDraws(3).gumbel(2, 12))
+    assert not torch.equal(draws.gumbel(2, 12), draws.gumbel(3, 12))
+    data = table2_fleet(samples_per_client=40)
+    mask = np.ones((12, 40), bool)
+    mask[0, 30:] = False
+    mask[4, :] = False
+    data["mask"] = mask
+    fed = fleet_fed(12, defense="foolsgold_sketch")
+    eng = FedAREngine(small_model(8), fed, TaskRequirement(), device="cpu")
+    state, outs = eng.run(eng.init_state(), data, rounds=2)
+    assert torch.isfinite(state.params).all()
+    assert outs.trust.shape == (2, 12)
+    assert eng.defense.history_dim(eng.dim) == 256
+    g = flatten(eng.template)
+    fields = eng.device_data(data)
+    rows = eng._block_sgd(g, {k: fields[k] for k in eng.model.data_keys},
+                          fields["mask"])
+    assert torch.equal(rows[4], g)
+
+
+def test_dense_foolsgold_round_on_cpu():
+    """The dense strategy (the quickstart's 12-robot default) runs the
+    similarity block with K = D."""
+    fed = fleet_fed(12, defense="foolsgold")
+    eng = FedAREngine(small_model(8), fed, TaskRequirement(), device="cpu")
+    state, _ = eng.run(eng.init_state(), table2_fleet(samples_per_client=20),
+                       rounds=2)
+    assert state.fg_history.shape == (12, eng.dim)
+    assert torch.isfinite(state.params).all()
+
+
+def test_flatten_rows_matches_rowwise():
+    p = {"w": torch.randn(3, 2, 2), "b": torch.randn(3, 2)}
+    rows = flatten(p, rows=True)
+    for r in range(3):
+        assert torch.equal(rows[r], flatten({k: v[r] for k, v in p.items()}))
+

@@ -1,0 +1,186 @@
+"""The port's kernels (``repro_torch.kernels``) against the reference package.
+
+On the CPU every wrapper runs its plain PyTorch version; those are held
+against the reference's jnp oracles (``repro.kernels.ref``) and its Pallas
+kernels in interpret mode, on the same numpy inputs made from a seed.  The
+CUDA kernels themselves are held against the plain versions on the card by
+``tests/test_torch_cuda.py`` and by ``chip_smoke.py``.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.defense_sim import sketch_similarity as jax_sim_kernel
+from repro.kernels.fedavg_agg import fedavg_agg as jax_agg_kernel
+from repro.kernels.local_sgd import local_sgd_fused as jax_sgd_kernel
+from repro.models import mnist as jmnist
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.defense_sim import sketch_similarity, split_chunk
+from repro_torch.kernels.fedavg_agg import fedavg_agg
+from repro_torch.kernels.local_sgd import local_sgd
+from repro_torch.models import mnist as tmnist
+
+I, H, C, B = 16, 8, 10, 20  # tiny MLP for the CPU
+
+
+def sgd_inputs(R=4, n=37, seed=0):
+    rng = np.random.default_rng(seed)
+    D = H + C + I * H + H * C
+    g = (rng.standard_normal(D) * 0.3).astype(np.float32)
+    x = rng.random((R, n, I), dtype=np.float32)
+    y = rng.integers(0, C, (R, n)).astype(np.int32)
+    act = (np.arange(R) % 2).astype(np.int32)  # mixed ReLU / softmax
+    mask = np.ones((R, n), bool)
+    mask[1, 25:] = False  # ragged client
+    mask[2, :] = False  # all-False client
+    mask[3, :20] = False  # one all-padding batch
+    return g, x, y, act, mask
+
+
+def _jax_leaves(g):
+    p = ref.split_flat(torch.as_tensor(g), I, H, C)
+    return {k: jnp.asarray(v.numpy()) for k, v in p.items()}
+
+
+def _jax_flat(new):
+    R = new["b1"].shape[0]
+    return np.concatenate(
+        [np.asarray(new[k]).reshape(R, -1) for k in ("b1", "b2", "w1", "w2")], 1
+    )
+
+
+# ------------------------------------------------------------- fedavg_agg
+@pytest.mark.parametrize("stale", [False, True])
+def test_fedavg_agg_plain_matches_reference(stale):
+    """fp32 sums over N in another order: atol = rtol = 1e-6."""
+    rng = np.random.default_rng(1)
+    d = rng.standard_normal((9, 517)).astype(np.float32)
+    w = rng.random(9).astype(np.float32)
+    tau = rng.integers(0, 5, 9).astype(np.float32) if stale else None
+    got = ref.fedavg_agg_ref(torch.as_tensor(d), torch.as_tensor(w),
+                             None if tau is None else torch.as_tensor(tau))
+    want = jref.fedavg_agg_ref(jnp.asarray(d), jnp.asarray(w),
+                               None if tau is None else jnp.asarray(tau))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    kern = jax_agg_kernel(jnp.asarray(d), jnp.asarray(w),
+                          staleness=None if tau is None else jnp.asarray(tau),
+                          interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), rtol=1e-6, atol=1e-6)
+
+
+# --------------------------------------------------------------- local_sgd
+def test_local_sgd_plain_matches_reference_oracle():
+    """Against ``repro.kernels.ref.local_sgd_ref`` (jax.grad), per client:
+    mixed activations, ragged n under a mask, an all-False client and an
+    all-padding batch.  fp32, a few steps: atol = rtol = 1e-5."""
+    g, x, y, act, mask = sgd_inputs()
+    got = ref.local_sgd_ref(torch.as_tensor(g), torch.as_tensor(x),
+                            torch.as_tensor(y), torch.as_tensor(act),
+                            torch.as_tensor(mask), hidden=H, classes=C,
+                            lr=0.1, batch_size=B, epochs=2).numpy()
+    p = _jax_leaves(g)
+    one = functools.partial(jref.local_sgd_ref, lr=0.1, batch_size=B, epochs=2)
+    for r in range(x.shape[0]):
+        new = one(p["w1"], p["b1"], p["w2"], p["b2"], jnp.asarray(x[r]),
+                  jnp.asarray(y[r]), jnp.asarray(act[r]), jnp.asarray(mask[r]))
+        want = _jax_flat({k: np.asarray(v)[None] for k, v in new.items()})[0]
+        np.testing.assert_allclose(got[r], want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[2], g)  # all-False client: unchanged
+
+
+def test_local_sgd_plain_matches_pallas_interpret():
+    """Against the Pallas ``local_sgd_fused`` in interpret mode at
+    I = 16, H = 8, n = 40: atol = rtol = 1e-5 (fp32 reassociation)."""
+    g, x, y, act, mask = sgd_inputs(n=40, seed=2)
+    p = _jax_leaves(g)
+    new = jax_sgd_kernel(p["w1"], p["b1"], p["w2"], p["b2"], jnp.asarray(x),
+                         jnp.asarray(y), jnp.asarray(act), jnp.asarray(mask),
+                         lr=0.1, batch_size=B, epochs=3, interpret=True)
+    got = local_sgd(torch.as_tensor(g), torch.as_tensor(x), torch.as_tensor(y),
+                    torch.as_tensor(act), torch.as_tensor(mask), hidden=H,
+                    classes=C, lr=0.1, batch_size=B, epochs=3)
+    np.testing.assert_allclose(got.numpy(), _jax_flat(new), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_model_local_sgd_matches_reference(masked):
+    """``models.mnist.local_sgd`` (autograd) against the reference's
+    ``models.mnist.local_sgd`` (jax.grad): the dense path floors the batch
+    count (n = 50 -> 2 batches, the last 10 samples never train) and the
+    masked path rounds it up (R5 in ROADMAP.md).  atol = rtol = 1e-5."""
+    g, x, y, act, mask = sgd_inputs(n=50, seed=3)
+    mask[2, :] = True  # keep every client live on this path
+    params = {k: torch.as_tensor(v) for k, v in ref.split_flat(
+        torch.as_tensor(g), I, H, C).items()}
+    m = torch.as_tensor(mask) if masked else None
+    got = tmnist.local_sgd(params, torch.as_tensor(x), torch.as_tensor(y),
+                           lr=0.1, batch_size=B, epochs=2,
+                           activation=torch.as_tensor(act), sample_mask=m)
+    jp = {k: jnp.asarray(v.numpy()) for k, v in params.items()}
+    for r in range(x.shape[0]):
+        want = jmnist.local_sgd(
+            jp, jnp.asarray(x[r]), jnp.asarray(y[r]), lr=0.1, batch_size=B,
+            epochs=2, activation=int(act[r]),
+            sample_mask=jnp.asarray(mask[r]) if masked else None,
+        )
+        for k in want:
+            np.testing.assert_allclose(got[k][r].numpy(), np.asarray(want[k]),
+                                       rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------- sketch_similarity
+def test_sketch_similarity_plain_matches_reference():
+    """M != N and K = 300, not a multiple of 128: fp32 dot products,
+    atol = rtol = 1e-5; the Pallas kernel (interpret) pads and slices."""
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((5, 300)).astype(np.float32)
+    b = rng.standard_normal((7, 300)).astype(np.float32)
+    got = ref.sketch_similarity_ref(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    assert got.shape == (5, 7)
+    np.testing.assert_allclose(got, np.asarray(jref.sketch_similarity_ref(a, b)),
+                               rtol=1e-5, atol=1e-5)
+    kern = jax_sim_kernel(jnp.asarray(a), jnp.asarray(b), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(kern), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("m,n,k,splits", [
+    (12, 12, 256, 1), (512, 512, 256, 1), (12, 12, 101770, 255), (5, 7, 300, 2),
+])
+def test_split_chunk_plan(m, n, k, splits):
+    """The K split the similarity kernel uses: whole tiles, no slice under
+    256 wide, about two blocks per SM for a small output."""
+    chunk = split_chunk(m, n, k)
+    assert chunk % 16 == 0 and chunk >= 256
+    assert -(-k // chunk) == splits
+
+
+# ----------------------------------------------------------------- routing
+def test_resolve_impl_routes_by_device():
+    assert ops.resolve_impl("auto", "sgd", "cpu") == "einsum"
+    assert ops.resolve_impl("einsum", "agg", "cpu") == "einsum"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.resolve_impl("kernel", "defense", "cpu")
+    with pytest.raises(ValueError):
+        ops.resolve_impl("pallas", "agg", "cpu")
+    with pytest.raises(ValueError):
+        ops.resolve_impl("auto", "attention", "cpu")
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    """On CPU tensors each wrapper returns its plain version's result and
+    launches nothing."""
+    before = (local_sgd.launches, fedavg_agg.launches, sketch_similarity.launches)
+    g, x, y, act, mask = (torch.as_tensor(a) for a in sgd_inputs(seed=5))
+    kw = dict(hidden=H, classes=C, lr=0.05, batch_size=B, epochs=1)
+    assert torch.equal(local_sgd(g, x, y, act, mask, **kw),
+                       ref.local_sgd_ref(g, x, y, act, mask, **kw))
+    d, w = torch.randn(6, 40), torch.rand(6)
+    assert torch.equal(fedavg_agg(d, w), ref.fedavg_agg_ref(d, w))
+    assert torch.equal(sketch_similarity(d, d), ref.sketch_similarity_ref(d, d))
+    assert (local_sgd.launches, fedavg_agg.launches,
+            sketch_similarity.launches) == before
