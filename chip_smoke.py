@@ -21,6 +21,18 @@ Phases (any failure raises and the script exits non-zero):
    is warm-up), with the same launch-count check; each round is held
    against one plain-route round from the same state, and ``local_sgd``
    against its plain version at this path's shape.
+5. Buffered async with 4-bit QSGD at full width, 512 clients: the same
+   fleet, ``aggregation="async"``, ``compress="qsgd"``, ``compress_bits=4``,
+   foolsgold_sketch, every 10th client forced to straggle; 6 rounds (round
+   1 warm-up).  ``local_sgd``, ``fedavg_agg``, ``sketch_similarity``,
+   ``pack_codes`` and ``unpack_codes`` must each launch; each round is then
+   run again from the same state on the kernel route and with
+   ``compress_impl="einsum"``, under deterministic algorithms (the count
+   sketch's ``index_add_`` otherwise adds in a varying order), and every
+   carried tensor must be identical.
+6. Top-k at full width, 12 robots: the Table II fleet, fedar + ``compress=
+   "topk"`` (k = D // 32 = 3180); ``topk_decode`` must launch, and the same
+   route check.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -245,6 +257,95 @@ def kernel_phase(ref, kernels, fleet):
     return entries
 
 
+def compare_exact(name, got, want):
+    """Bit-equality of a kernel's output with its plain version."""
+    ok = got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
+    err = ((got.to(torch.float64) - want.to(torch.float64)).abs().max().item()
+           if got.shape == want.shape and got.numel() else 0.0)
+    print(f"  {name}: bit-equal {'ok' if ok else 'FAIL'} (max_abs_err={err:.3e})")
+    if not ok:
+        raise AssertionError(f"{name}: kernel output differs from its plain version")
+    return err
+
+
+def codec_phase(ref, codecs):
+    """Phase 2, the uplink codecs: each kernel vs its plain version on the
+    card, bit-equal, at the shapes of phases 5 (pack and unpack, N = 512) and
+    6 (top-k decode, N = 12), plus N = 12 / 512 beside them, an odd D,
+    duplicate indices and k = 0.  Returns the JSON entries of those
+    main-path shapes."""
+    pack_codes, unpack_codes, topk_decode = codecs
+    gen = torch.Generator().manual_seed(1)
+    entries = {}
+    D = 101770  # 784 -> 128 -> 10
+    print("pack_codes / unpack_codes, 4 bits (integer ops: bit-equal)")
+    for N, dim in ((12, D), (512, D), (12, D + 1), (512, D + 1)):
+        codes = torch.randint(0, 15, (N, dim), generator=gen, dtype=torch.int32).to(DEV)
+        packed = pack_codes(codes, bits=4)
+        p_err = compare_exact(f"pack N={N}, D={dim}", packed,
+                              ref.pack_codes_ref(codes, bits=4))
+        back = unpack_codes(packed, bits=4, dim=dim)
+        u_err = compare_exact(f"unpack N={N}, D={dim}", back,
+                              ref.unpack_codes_ref(packed, bits=4, dim=dim))
+        compare_exact(f"unpack(pack) N={N}, D={dim}", back, codes)
+        P = packed.shape[1]
+        nbytes = 4 * N * dim + N * P  # int32 codes one way, bytes the other
+        b_ms, b_by = bound_ms(nbytes, 0)
+        timings = {}
+        for name, kern, plain in (
+                ("pack_codes", lambda: pack_codes(codes, bits=4),
+                 lambda: ref.pack_codes_ref(codes, bits=4)),
+                ("unpack_codes", lambda: unpack_codes(packed, bits=4, dim=dim),
+                 lambda: ref.unpack_codes_ref(packed, bits=4, dim=dim))):
+            timings[name] = (time_ms(kern, reps=20), time_ms(plain, reps=20))
+            print(f"    {name}: kernel {timings[name][0]:.4f} ms, plain "
+                  f"{timings[name][1]:.4f} ms, bound {b_ms:.3g} ms ({b_by})")
+        if N == 512 and dim == D:
+            for name, line, err in (("pack_codes", 55, p_err), ("unpack_codes", 88, u_err)):
+                entries[name] = dict(
+                    name=name, route="cuda", source="src/repro_torch/csrc/compress.cu",
+                    replaces=f"src/repro/kernels/compress.py:{line}",
+                    max_abs_err=err, ms=timings[name][0], plain_ms=timings[name][1],
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    print("topk_decode (distinct indices and pairs: bit-equal; triples: fp32 "
+          "sums of three in another order, tolerance 1e-6 + 1e-6 * max|plain|)")
+    k = D // 32
+    for N in (12, 512):
+        vals = torch.randn(N, k, generator=gen).to(DEV)
+        idx = torch.stack([torch.randperm(D, generator=gen)[:k] for _ in range(N)])
+        idx64 = idx.to(DEV)
+        idx = idx64.to(torch.int32)
+        err = compare_exact(f"N={N}, k={k}, distinct", topk_decode(vals, idx, D),
+                            ref.topk_decode_ref(vals, idx, D))
+        pairs = torch.cat([idx[:, :k // 2], idx[:, :k - k // 2]], dim=1).contiguous()
+        compare_exact(f"N={N}, k={k}, every index twice", topk_decode(vals, pairs, D),
+                      ref.topk_decode_ref(vals, pairs, D))
+        triples = torch.randint(0, k // 3, (N, k), generator=gen, dtype=torch.int32).to(DEV)
+        compare(f"N={N}, k={k}, ~3 per index", topk_decode(vals, triples, D),
+                ref.topk_decode_ref(vals, triples, D), atol=1e-6, rtol=1e-6)
+        before = topk_decode.launches
+        empty = torch.empty(N, 0, device=DEV)
+        zero = topk_decode(empty, empty.to(torch.int32), D)
+        if topk_decode.launches != before or not torch.equal(
+                zero, torch.zeros(N, D, device=DEV)):
+            raise AssertionError("topk_decode with k = 0 must give zeros without a launch")
+        print(f"  N={N}, k=0: zeros, no launch ok")
+        k_ms = time_ms(lambda: topk_decode(vals, idx, D), reps=20)
+        p_ms = time_ms(lambda: ref.topk_decode_ref(vals, idx, D), reps=20)
+        lib_ms = time_ms(lambda: torch.zeros(N, D, device=DEV).scatter_add_(1, idx64, vals),
+                         reps=20)
+        b_ms, b_by = bound_ms(4 * N * D + 8 * N * k, 0)
+        print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms (zeros + scatter_add_), bound {b_ms:.3g} ms ({b_by})")
+        if N == 12:
+            entries["topk_decode"] = dict(
+                name="topk_decode", route="cuda", source="src/repro_torch/csrc/compress.cu",
+                replaces="src/repro/kernels/compress.py:139", max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return entries
+
+
 def check_routes(server, plain, steps: int) -> None:
     """The kernel route against the plain route on the same data: trust and
     the selected / on-time masks identical, params and the defense history
@@ -287,19 +388,20 @@ def check_each_round(server, plain_engine, data, starts) -> None:
           f"identical to the plain route from the same state")
 
 
-def timed_rounds(server, data, eval_set, rounds: int, kernels) -> tuple:
-    """Sets every launch count to 0, runs ``rounds`` rounds, reads the
-    counts; fails if a kernel of the path never launched.  Returns the
-    per-round wall seconds, the counts and the state each round started
-    from."""
-    for k in kernels:
+def timed_rounds(server, data, eval_set, rounds: int, kernels, every,
+                 force=None) -> tuple:
+    """Sets every launch count (``every`` kernel of the port) to 0, runs
+    ``rounds`` rounds, reads the counts; fails if a kernel of this path
+    (``kernels``) never launched.  Returns the per-round wall seconds, the
+    counts of this path's kernels and the state each round started from."""
+    for k in every:
         k.launches = 0
     torch.cuda.synchronize()
     times, starts = [], []
     for _ in range(rounds):
         starts.append(server.state)
         t0 = time.perf_counter()
-        server.run_round(data, eval_set=eval_set)
+        server.run_round(data, eval_set=eval_set, force_straggler=force)
         times.append(time.perf_counter() - t0)
     launches = {k.__name__: k.launches for k in kernels}
     print(f"round seconds: {[round(t, 6) for t in times]}; rounds/s over all "
@@ -312,12 +414,38 @@ def timed_rounds(server, data, eval_set, rounds: int, kernels) -> tuple:
     return times, launches, starts
 
 
-def profile_round(server, data, eval_set, path: Path, label: str):
+def check_codec_routes(kernel_engine, plain_engine, data, starts, force) -> None:
+    """Each round run again from its starting state on the kernel route and
+    with ``compress_impl="einsum"`` (the only difference), under
+    deterministic algorithms: every carried tensor must be identical."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for r, start in enumerate(starts):
+            got, out = kernel_engine.step(start, data, force_straggler=force)
+            want, want_out = plain_engine.step(start, data, force_straggler=force)
+            for name in ("params", "fg_history", "pending_delta", "pending_weight",
+                         "pending_issued", "pending_arrival", "pending_valid",
+                         "compress_residual"):
+                if not torch.equal(getattr(got, name), getattr(want, name)):
+                    raise AssertionError(f"round {r}: {name} differs between the "
+                                         "codec kernels and their plain versions")
+            for a, b, name in ((got.trust.score, want.trust.score, "trust"),
+                               (out.selected, want_out.selected, "selected"),
+                               (out.on_time, want_out.on_time, "on_time")):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"round {r}: {name} differs between routes")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"  rounds 0-{len(starts) - 1}: params, residual, pending buffer, defense "
+          f"history, trust and masks identical with compress_impl='einsum'")
+
+
+def profile_round(server, data, eval_set, path: Path, label: str, force=None):
     """One round under ``torch.profiler``: writes the full table by device
     time and prints the device busy share of the round's wall time."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.run_round(data, eval_set=eval_set)
+        server.run_round(data, eval_set=eval_set, force_straggler=force)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -352,6 +480,7 @@ def main() -> int:
     from repro_torch.data.federated import scaled_fleet, table2_fleet
     from repro_torch.data.synthetic import make_digits
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
     from repro_torch.kernels.defense_sim import sketch_similarity
     from repro_torch.kernels.fedavg_agg import fedavg_agg
     from repro_torch.kernels.local_sgd import local_sgd
@@ -359,6 +488,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = (local_sgd, fedavg_agg, sketch_similarity)
+    codecs = (pack_codes, unpack_codes, topk_decode)
+    every = kernels + codecs
 
     # --- phase 1: environment and build
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -377,6 +508,7 @@ def main() -> int:
     # --- phase 2: each kernel vs its plain version on the card
     fleet = table2_fleet()
     entries = kernel_phase(ref, kernels, fleet)
+    entries.update(codec_phase(ref, codecs))
 
     # --- phase 3: the main path, 12 robots at full width
     fed = fleet_fed(12, defense="foolsgold_sketch")
@@ -386,7 +518,7 @@ def main() -> int:
     server = FedARServer(MnistConfig(), fed, req, device=DEV)
     data = server.engine.device_data(fleet)
     print("\n[main path] 12 robots, 784 -> 128 -> 10, fedar + foolsgold_sketch")
-    _, launches, _ = timed_rounds(server, data, eval_set, rounds, kernels)
+    _, launches, _ = timed_rounds(server, data, eval_set, rounds, kernels, every)
     hist = server.history
     print("round  acc     loss    selected  trust")
     for r in range(rounds):
@@ -424,7 +556,7 @@ def main() -> int:
     big_dev = server.engine.device_data(big)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _, _, starts = timed_rounds(server, big_dev, eval_set, rounds512, kernels)
+    _, _, starts = timed_rounds(server, big_dev, eval_set, rounds512, kernels, every)
     print(f"acc {[round(a, 4) for a in server.history['acc']]}")
     print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if not torch.isfinite(server.state.params).all():
@@ -471,7 +603,66 @@ def main() -> int:
     if args.profile:
         profile_round(server, big_dev, eval_set, Path(args.profile), "n512")
 
-    order = ("local_sgd", "fedavg_agg", "sketch_similarity")
+    # --- phase 5: buffered async + 4-bit QSGD, 512 clients at full width
+    fed_async = fleet_fed(512, aggregation="async", compress="qsgd", compress_bits=4,
+                          defense="foolsgold_sketch")
+    force = torch.as_tensor(np.arange(512) % 10 == 0, device=DEV)  # 52 clients, lag 3
+    print(f"\n[async + qsgd-4] 512 clients, {int(force.sum())} forced stragglers, "
+          f"foolsgold_sketch")
+    server = FedARServer(MnistConfig(), fed_async, req, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, launches5, starts = timed_rounds(
+        server, big_dev, eval_set, rounds512, kernels + codecs[:2], every, force)
+    st = server.state
+    print(f"acc {[round(a, 4) for a in server.history['acc']]}")
+    print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"buffer: {int(st.pending_valid.sum())} slots in flight; residual L2 "
+          f"{torch.linalg.vector_norm(st.compress_residual).item():.6f}")
+    for t in (st.params, st.pending_delta, st.compress_residual):
+        if not torch.isfinite(t).all():
+            raise AssertionError("async + qsgd run produced non-finite state")
+    if int(st.pending_issued.max()) == 0 or not (st.compress_residual != 0).any():
+        raise AssertionError("the async buffer or the residual never moved")
+    plain = FedARServer(MnistConfig(), dataclasses.replace(fed_async, compress_impl="einsum"),
+                        req, device=DEV)
+    check_codec_routes(server.engine, plain.engine, big_dev, starts, force)
+    g = st.params
+    w = torch.where(st.pending_valid, st.pending_weight, 0.0)
+    tau = torch.clamp(server.round_idx - st.pending_issued, min=0).to(torch.float32)
+    agg_ms = time_ms(lambda: fedavg_agg(st.pending_delta, w, staleness=tau), reps=10)
+    unit = st.fg_history
+    unit = unit / torch.clamp(torch.linalg.vector_norm(unit, dim=1, keepdim=True), min=1e-9)
+    sim_ms = time_ms(lambda: sketch_similarity(unit, unit), reps=10)
+    sgd_ms = time_ms(lambda: local_sgd(g, *sgd_args, **sgd_kw), reps=3)
+    print(f"per-round kernel ms in this phase: local_sgd {sgd_ms:.3f}, fedavg_agg "
+          f"(pending buffer, with staleness) {agg_ms:.4f}, sketch_similarity {sim_ms:.4f}")
+    if args.profile:
+        profile_round(server, big_dev, eval_set, Path(args.profile), "n512_async_qsgd4",
+                      force=force)
+    for name in ("pack_codes", "unpack_codes"):
+        entries[name]["launches"] = launches5[name]
+
+    # --- phase 6: top-k at full width, 12 robots
+    fed_topk = fleet_fed(12, compress="topk", defense="foolsgold_sketch")
+    print("\n[fedar + topk] 12 robots, k = D // 32")
+    server = FedARServer(MnistConfig(), fed_topk, req, device=DEV)
+    print(f"k = {server.engine.compression.k}")
+    _, launches6, starts = timed_rounds(
+        server, data, eval_set, rounds, kernels + codecs[2:], every)
+    print(f"acc {[round(a, 4) for a in server.history['acc']]}")
+    if not torch.isfinite(server.state.params).all():
+        raise AssertionError("topk run produced non-finite params")
+    if not server.history["acc"][-1] > 0.5:
+        raise AssertionError(f"topk accuracy after {rounds} rounds is "
+                             f"{server.history['acc'][-1]}")
+    plain = FedARServer(MnistConfig(), dataclasses.replace(fed_topk, compress_impl="einsum"),
+                        req, device=DEV)
+    check_codec_routes(server.engine, plain.engine, data, starts, None)
+    entries["topk_decode"]["launches"] = launches6["topk_decode"]
+
+    order = ("local_sgd", "fedavg_agg", "sketch_similarity", "pack_codes",
+             "unpack_codes", "topk_decode")
     print(smi)
     print(json.dumps({"kernels": [entries[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

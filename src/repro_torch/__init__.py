@@ -2,8 +2,9 @@
 is the reference it is held against).
 
 The entry points run on the card (``cuda``) and raise without one; pass
-``device="cpu"`` to run on the CPU.  The three kernels of the round
-(local SGD, aggregation, the defense similarity block) are CUDA C++ under
+``device="cpu"`` to run on the CPU.  The kernels of the round (local SGD,
+aggregation, the defense similarity block, and the uplink codecs: 4-bit
+code packing, its inverse and the top-k decode) are CUDA C++ under
 ``csrc/``, built with ``nvcc`` at first use (``kernels/ops.py``).
 """
 from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed, small_model

@@ -6,8 +6,9 @@ vector in the same order, so a port run can start from the reference's
 init.
 
 The draw provider is the one place the round takes random numbers from:
-``gumbel(round_idx, n)`` for selection and ``normal(round_idx, n)`` for the
-latency jitter.  ``GeneratorDraws`` serves standalone runs from seeded
+``gumbel(round_idx, n)`` for selection, ``normal(round_idx, n)`` for the
+latency jitter and ``uniform(round_idx, n, d)`` for QSGD's stochastic
+rounding.  ``GeneratorDraws`` serves standalone runs from seeded
 ``torch.Generator``s; ``ReplayDraws`` replays draws made elsewhere, which is
 how the parity tests feed the port the reference's threefry draws (torch
 cannot reproduce those bits).
@@ -35,16 +36,27 @@ def params_to_numpy(params) -> dict:
 
 
 class GeneratorDraws:
-    """Per-round draws from CPU ``torch.Generator``s seeded by
+    """Per-round draws from ``torch.Generator``s seeded by
     ``(seed, round, stream)``, so a round's draws do not depend on how many
-    rounds ran before it or on the device; moved to ``device``."""
+    rounds ran before it.
+
+    The (n,) Gumbel and normal draws come from CPU generators and are moved
+    to ``device``, so they are the same on every device.  The (n, d) QSGD
+    uniforms (stream 2) are drawn on ``device`` itself by a generator of
+    that device: at 512 clients and full width they are 52 M numbers a
+    round, which the host should neither draw nor copy.  A CUDA generator
+    gives other numbers than a CPU one from the same seed, so the
+    standalone uniforms, and with them a compressed run, differ between CPU
+    and CUDA runs."""
 
     def __init__(self, seed: int, device="cpu"):
         self.seed, self.device = seed, torch.device(device)
 
-    def _generator(self, round_idx: int, stream: int) -> torch.Generator:
+    def _generator(self, round_idx: int, stream: int,
+                   device="cpu") -> torch.Generator:
         state = np.random.SeedSequence([self.seed, round_idx, stream])
-        return torch.Generator().manual_seed(int(state.generate_state(1)[0]))
+        seed = int(state.generate_state(1)[0])
+        return torch.Generator(device=device).manual_seed(seed)
 
     def gumbel(self, round_idx: int, n: int) -> torch.Tensor:
         u = torch.rand(n, generator=self._generator(round_idx, 0))
@@ -54,14 +66,22 @@ class GeneratorDraws:
     def normal(self, round_idx: int, n: int) -> torch.Tensor:
         return torch.randn(n, generator=self._generator(round_idx, 1)).to(self.device)
 
+    def uniform(self, round_idx: int, n: int, d: int) -> torch.Tensor:
+        gen = self._generator(round_idx, 2, self.device)
+        return torch.rand((n, d), generator=gen, device=self.device)
+
 
 class ReplayDraws:
-    """Replays (rounds, N) arrays of Gumbel and standard-normal draws,
-    row ``round_idx`` for round ``round_idx``."""
+    """Replays (rounds, N) arrays of Gumbel and standard-normal draws and,
+    optionally, a (rounds, N, D) array of uniforms, row ``round_idx`` for
+    round ``round_idx``."""
 
-    def __init__(self, gumbel, normal, device="cpu"):
+    def __init__(self, gumbel, normal, uniform=None, device="cpu"):
         self._gumbel = torch.as_tensor(np.asarray(gumbel, np.float32), device=device)
         self._normal = torch.as_tensor(np.asarray(normal, np.float32), device=device)
+        self._uniform = (None if uniform is None else
+                         torch.as_tensor(np.asarray(uniform, np.float32),
+                                         device=device))
 
     def _row(self, table, round_idx: int, n: int) -> torch.Tensor:
         if round_idx >= table.shape[0] or table.shape[1] != n:
@@ -76,3 +96,11 @@ class ReplayDraws:
 
     def normal(self, round_idx: int, n: int) -> torch.Tensor:
         return self._row(self._normal, round_idx, n)
+
+    def uniform(self, round_idx: int, n: int, d: int) -> torch.Tensor:
+        if self._uniform is None:
+            raise IndexError("no replayed uniforms were given")
+        row = self._row(self._uniform, round_idx, n)
+        if row.shape[1] != d:
+            raise IndexError(f"replayed uniforms are {row.shape[1]} wide, not {d}")
+        return row

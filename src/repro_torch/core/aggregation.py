@@ -1,19 +1,29 @@
 """Server-side aggregation (§III.B.7, Algorithm 2 lines 13-14) over stacked
 flat client updates (N, D).
 
-Modes on this slice:
-  fedavg -- synchronous FedAvg: wait for everyone (stragglers included);
-            round time = max(latency).
-  fedar  -- the paper: aggregate arrivals within timeout t, skip
-            stragglers; round time = t.
+Modes:
+  fedavg    -- synchronous FedAvg: wait for everyone (stragglers
+               included); round time = max(latency).
+  fedar     -- the paper: aggregate arrivals within timeout t, skip
+               stragglers; round time = t.
+  async     -- buffered no-wait (FedBuff-style): straggler updates wait in
+               a per-client buffer and merge in a later round with a
+               staleness-discounted weight; round time = t.  The buffer
+               lives in ``core/engine.py``; the discounted reduction is
+               ``fedavg_aggregate`` with ``staleness``.
+  async_seq -- legacy FedAsync-style: fold local models one by one in
+               arrival order (``async_aggregate``, O(N) sequential).
 
-The weighted reduction routes through the ``fedavg_agg`` CUDA kernel on the
-card (``impl`` = ``FedConfig.agg_impl``).
+With compression on, the engine decodes each uplink before this boundary,
+so every reduction here consumes the decoded rows.  The weighted reduction
+routes through the ``fedavg_agg`` CUDA kernel on the card (``impl`` =
+``FedConfig.agg_impl``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.common.config import FedConfig
 from repro_torch.kernels import ref
 from repro_torch.kernels.fedavg_agg import fedavg_agg
 from repro_torch.kernels.ops import resolve_impl
@@ -32,9 +42,28 @@ def deviation_mask(deltas: torch.Tensor, active: torch.Tensor, gamma: float):
     return active & (dist > mu + gamma * sd)
 
 
-def staleness_weight(staleness):
-    """FedAsync poly decay: s(tau) = (1 + tau)^-0.5."""
+def staleness_weight(staleness, fed: FedConfig | None = None):
+    """FedAsync poly decay: s(tau) = (1 + tau)^-0.5; all ones when
+    ``fed.staleness_decay`` is ``"const"``."""
+    if fed is not None and fed.staleness_decay == "const":
+        return torch.ones_like(staleness)
     return (1.0 + staleness) ** -0.5
+
+
+def async_aggregate(global_flat, models, weights, mask, order, fed: FedConfig):
+    """Fold client MODELS (not deltas) in arrival order:
+        w <- (1 - a_m) w + a_m w_m,  a_m = alpha * weight_m / max(weight).
+    ``order``: (N,) permutation by arrival time; masked-out entries mix
+    with weight 0.  The models are the raw local models, not the
+    quarantined deltas, so a non-finite model poisons the fold even at
+    weight 0 (0 * NaN = NaN), as in the reference (R6 in ROADMAP.md)."""
+    wnorm = weights / torch.clamp(weights.max(), min=1e-9)
+    a_all = fed.staleness_alpha * wnorm * mask.to(torch.float32)
+    g = global_flat
+    for idx in order.tolist():
+        a = a_all[idx]
+        g = (1.0 - a) * g + a * models[idx]
+    return g
 
 
 def fedavg_aggregate(global_flat, deltas, weights, mask, *, staleness=None,

@@ -3,10 +3,12 @@
 Each communication round runs, in order: CheckResource and trust-sorted
 selection, ClientUpdate (E epochs of local SGD for every client of the
 fleet; non-participants are masked out of the aggregate), virtual latency
-and the straggler mask, the always-on non-finite quarantine, the deviation
-ban, the defense weights, aggregation, and the Algorithm 1 trust and
-battery updates.  Where the reference scans rounds inside one XLA program,
-``run`` is a Python loop over ``step``.
+and the straggler mask, uplink compression with error feedback, the
+always-on non-finite quarantine, the deviation ban, the defense weights,
+aggregation (``fedar``, ``fedavg``, buffered ``async`` or the legacy
+``async_seq`` fold), and the Algorithm 1 trust and battery updates.
+Where the reference scans rounds inside one XLA program, ``run`` is a
+Python loop over ``step``.
 
 Carried state (``EngineState``) -> Algorithm 2 of the paper:
 
@@ -15,14 +17,21 @@ Carried state (``EngineState``) -> Algorithm 2 of the paper:
   ``resources``   per-robot (M, B, E, F); battery drains with participation
   ``fg_history``  defense history block (N, d): d = D for dense FoolsGold,
                   the sketch width r for ``foolsgold_sketch``, 0 without
+  ``pending_*``   the buffered-async slot of each client: the in-flight
+                  (decoded) delta (N, D), its weight, issue and arrival
+                  rounds and a valid bit; the delta block is (N, 0)
+                  unless ``aggregation="async"``
+  ``compress_residual``  error-feedback residual (N, D), (N, 0) with
+                  ``compress="none"``
   ``round_idx``   the round counter i
 
 Per-round outputs (``RoundOutputs``): post-update trust, the selected and
 on-time masks, virtual round time, and eval loss/accuracy.
 
-The three kernels of the round run on the card through the routing knobs
-``FedConfig.sgd_impl`` (local SGD), ``agg_impl`` (aggregation) and
-``defense_impl`` (the similarity block); see ``kernels/ops.resolve_impl``.
+The kernels of the round run on the card through the routing knobs
+``FedConfig.sgd_impl`` (local SGD), ``agg_impl`` (aggregation),
+``defense_impl`` (the similarity block) and ``compress_impl`` (the uplink
+codecs); see ``kernels/ops.resolve_impl``.
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``, and
 raises when there is no CUDA device: it never falls back to the CPU.
 """
@@ -36,6 +45,7 @@ from repro_torch.common.config import FedConfig
 from repro_torch.configs.fedar_mnist import MnistConfig
 from repro_torch.convert import GeneratorDraws
 from repro_torch.core import aggregation as agg
+from repro_torch.core.compress import make_compression, make_residual
 from repro_torch.core.defense import make_defense
 from repro_torch.core.resources import (
     ResourceState,
@@ -97,6 +107,12 @@ class EngineState(NamedTuple):
     trust: TrustState  # (N,) score / participations / failures
     resources: ResourceState  # (N,) memory / bandwidth / battery / compute
     fg_history: torch.Tensor  # (N, d) defense history
+    pending_delta: torch.Tensor  # (N, D) async in-flight deltas, else (N, 0)
+    pending_weight: torch.Tensor  # (N,) float32 aggregation weight
+    pending_issued: torch.Tensor  # (N,) int32 round the update was made
+    pending_arrival: torch.Tensor  # (N,) int32 round it reaches the server
+    pending_valid: torch.Tensor  # (N,) bool slot holds an undelivered update
+    compress_residual: torch.Tensor  # (N, D) error feedback, else (N, 0)
     round_idx: int  # communication round i
 
 
@@ -121,13 +137,9 @@ _LATER_DATA_KEYS = {
 
 def _check_slice(fed: FedConfig) -> None:
     """Reject the features a later port slice brings, naming its item."""
-    later = []
-    if fed.aggregation in ("async", "async_seq"):
-        later.append(f"aggregation={fed.aggregation!r}: Queue 1 item 7")
-    elif fed.aggregation not in ("fedar", "fedavg"):
+    if fed.aggregation not in ("fedar", "fedavg", "async", "async_seq"):
         raise ValueError(f"unknown aggregation {fed.aggregation!r}")
-    if fed.compress != "none":
-        later.append(f"compress={fed.compress!r}: Queue 1 item 9")
+    later = []
     if fed.faults != "none":
         later.append(f"faults={fed.faults!r}: Queue 1 item 10")
     if fed.mesh_shape is not None and fed.mesh_shape > 1:
@@ -175,6 +187,7 @@ class FedAREngine:
             )
         resolve_impl(fed.agg_impl, "agg", self.device)
         resolve_impl(fed.defense_impl, "defense", self.device)
+        resolve_impl(fed.compress_impl, "compress", self.device)
         if init_params is None:
             gen = torch.Generator().manual_seed(fed.seed)
             self.template = model.init(gen, self.device)
@@ -184,6 +197,7 @@ class FedAREngine:
                              for k, v in init_params.items()}
         self.dim = flatten(self.template).shape[0]
         self.defense = make_defense(fed, self.dim, self.device)
+        self.compression = make_compression(fed, self.dim)
         self.resources0, self.poison_mask = make_fleet(
             fed.num_clients,
             num_starved=fed.num_starved,
@@ -195,13 +209,20 @@ class FedAREngine:
 
     # ------------------------------------------------------------------
     def init_state(self) -> EngineState:
-        N, D = self.fed.num_clients, self.dim
+        N, D, dev = self.fed.num_clients, self.dim, self.device
+        buf_d = D if self.fed.aggregation == "async" else 0
         return EngineState(
             params=flatten(self.template),
-            trust=init_trust(N, self.fed, self.device),
+            trust=init_trust(N, self.fed, dev),
             resources=self.resources0,
-            fg_history=torch.zeros((N, self.defense.history_dim(D)),
-                                   device=self.device),
+            fg_history=torch.zeros((N, self.defense.history_dim(D)), device=dev),
+            pending_delta=torch.zeros((N, buf_d), device=dev),
+            pending_weight=torch.zeros((N,), device=dev),
+            pending_issued=torch.zeros((N,), dtype=torch.int32, device=dev),
+            pending_arrival=torch.zeros((N,), dtype=torch.int32, device=dev),
+            pending_valid=torch.zeros((N,), dtype=torch.bool, device=dev),
+            compress_residual=make_residual(
+                N, self.compression.residual_dim(D), dev),
             round_idx=0,
         )
 
@@ -281,8 +302,37 @@ class FedAREngine:
         if force_straggler is not None:
             lat = torch.where(force_straggler, fed.timeout * 3.0, lat)
         on_time = lat <= fed.timeout
-        # rows visible server-side: fedavg waits for stragglers, fedar skips
-        seen = selected if fed.aggregation == "fedavg" else selected & on_time
+        # the rows the server can ever receive this round (the faults slice,
+        # ROADMAP Queue 1 item 10, takes crashed clients out of it)
+        uplinked = selected
+        # rows visible server-side: fedavg waits for stragglers and async
+        # buffers them; fedar and async_seq skip on timeout
+        if fed.aggregation in ("fedavg", "async"):
+            seen = uplinked
+        else:
+            seen = uplinked & on_time
+
+        # --- uplink compression: transmitting clients send the encoded
+        # payload, and everything downstream (deviation, defense,
+        # aggregation) consumes the DECODED rows.  Per-mode transmit window:
+        # fedavg's stragglers transmit too; fedar's never upload; async
+        # transmits when its slot can admit (lag 0 or a free slot), the
+        # client-side-knowable superset of _buffered_async's admit gate.
+        residual = state.compress_residual
+        if self.compression.active:
+            if fed.aggregation == "fedavg":
+                transmit = uplinked
+            elif fed.aggregation == "async":
+                lag0 = torch.floor(lat / fed.timeout).to(torch.int32) == 0
+                transmit = uplinked & (lag0 | ~state.pending_valid)
+            else:
+                transmit = uplinked & on_time
+            unif = (self.draws.uniform(r, N, self.dim)
+                    if self.compression.needs_uniforms else None)
+            deltas_raw = deltas
+            deltas, residual, _ = self.compression.roundtrip(
+                deltas, residual, transmit, unif
+            )
 
         # --- non-finite quarantine (always on): a NaN/Inf row, or one past
         # the magnitude cap, contributes exact zeros and is branded deviated
@@ -292,9 +342,26 @@ class FedAREngine:
             row_ok = row_ok & (deltas.abs() <= cap)
         quarantined = ~row_ok.all(dim=-1)
         deltas = torch.where(quarantined[:, None], 0.0, deltas)
+        if self.compression.active:
+            # dropped-uplink retry: a quarantined transmission consumed its
+            # residual for nothing, so the full raw value (delta + pre-round
+            # residual) goes back into the residual; a non-finite raw value
+            # cannot be recovered and the pre-round residual stays
+            v = deltas_raw + state.compress_residual
+            v_el = torch.isfinite(v)
+            if cap is not None:
+                v_el = v_el & (v.abs() <= cap)
+            v_ok = v_el.all(dim=-1)
+            retry = quarantined & transmit
+            residual = torch.where(
+                retry[:, None],
+                torch.where(v_ok[:, None], v, state.compress_residual),
+                residual,
+            )
 
-        # --- line 11: deviation ban + defense weights
-        active = selected & on_time
+        # --- line 11: deviation ban + defense weights; in async mode every
+        # participant's update eventually lands, so all of them are screened
+        active = uplinked if fed.aggregation == "async" else selected & on_time
         deviated = agg.deviation_mask(
             deltas, active & ~quarantined, fed.deviation_gamma
         )
@@ -309,16 +376,32 @@ class FedAREngine:
             weights = weights * fgw
 
         # --- lines 13-14: aggregate
+        pending = dict(
+            delta=state.pending_delta, weight=state.pending_weight,
+            issued=state.pending_issued, arrival=state.pending_arrival,
+            valid=state.pending_valid,
+        )
+        round_time = torch.full((), fed.timeout, device=self.device)
         if fed.aggregation == "fedavg":
             g_new = agg.fedavg_aggregate(
-                g_flat, deltas, weights, selected & ~deviated, impl=fed.agg_impl
+                g_flat, deltas, weights, uplinked & ~deviated, impl=fed.agg_impl
             )
-            round_time = torch.where(selected, lat, 0.0).max()
+            round_time = torch.where(uplinked, lat, 0.0).max()
+        elif fed.aggregation == "async":
+            g_new, pending = self._buffered_async(
+                g_flat, deltas, weights, contributing, lat, pending, r
+            )
+        elif fed.aggregation == "async_seq":
+            order = torch.argsort(
+                torch.where(contributing, lat, torch.inf), stable=True
+            )
+            g_new = agg.async_aggregate(
+                g_flat, locals_flat, weights, contributing, order, fed
+            )
         else:  # fedar (timeout skip)
             g_new = agg.fedavg_aggregate(
                 g_flat, deltas, weights, contributing, impl=fed.agg_impl
             )
-            round_time = torch.full((), fed.timeout, device=self.device)
 
         # --- line 15 + Algorithm 1: trust and battery evolution
         trust = update_trust(
@@ -334,13 +417,51 @@ class FedAREngine:
 
         new_state = EngineState(
             params=g_new, trust=trust, resources=resources,
-            fg_history=fg_history, round_idx=r + 1,
+            fg_history=fg_history,
+            pending_delta=pending["delta"], pending_weight=pending["weight"],
+            pending_issued=pending["issued"],
+            pending_arrival=pending["arrival"], pending_valid=pending["valid"],
+            compress_residual=residual, round_idx=r + 1,
         )
         outputs = RoundOutputs(
             trust=trust.score, selected=selected, on_time=on_time,
             round_time=round_time, loss=loss, acc=acc,
         )
         return new_state, outputs
+
+    def _buffered_async(self, g_flat, deltas, weights, contributing, lat,
+                        pending, round_idx: int):
+        """FedBuff-style no-wait merge with one buffer slot per client.
+        Updates admitted this round land at once when the client beat the
+        timeout; a straggler's update waits in its slot and merges
+        ``floor(lat / t)`` rounds later with a ``(1 + tau)^-0.5`` staleness
+        discount (none with ``staleness_decay="const"``).  One masked
+        weighted reduction per round."""
+        fed = self.fed
+        # rounds until the update reaches the server (0 = within timeout)
+        lag = torch.floor(lat / fed.timeout).to(torch.int32)
+        # admit into a free slot, or supersede an in-flight update with a
+        # fresh on-time one: a straggler selected again must not clobber
+        # its own upload still in transit, or it would never arrive
+        admit = contributing & ((lag == 0) | ~pending["valid"])
+        delta_buf = torch.where(admit[:, None], deltas, pending["delta"])
+        weight_buf = torch.where(admit, weights, pending["weight"])
+        issued = torch.where(admit, round_idx, pending["issued"])
+        arrival = torch.where(admit, round_idx + lag, pending["arrival"])
+        valid = admit | pending["valid"]
+
+        delivered = valid & (arrival <= round_idx)
+        staleness = None
+        if fed.staleness_decay != "const":
+            staleness = torch.clamp(round_idx - issued, min=0).to(torch.float32)
+        g_new = agg.fedavg_aggregate(
+            g_flat, delta_buf, weight_buf, delivered, staleness=staleness,
+            impl=fed.agg_impl,
+        )
+        return g_new, dict(
+            delta=delta_buf, weight=weight_buf, issued=issued,
+            arrival=arrival, valid=valid & ~delivered,
+        )
 
     # ------------------------------------------------------------------
     def _train_flops(self, data) -> float:

@@ -2,7 +2,7 @@
 
 ``resolve_impl`` keeps the reference's routing vocabulary
 (``auto | kernel | einsum``) for ``FedConfig.sgd_impl`` / ``agg_impl`` /
-``defense_impl``, but the device decides, never a fallback:
+``defense_impl`` / ``compress_impl``, but the device decides, never a fallback:
 
   ``auto``   -- the CUDA kernel for tensors on the card, the plain PyTorch
                 version for tensors on the CPU (which exist only when the
@@ -39,7 +39,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("local_sgd.cu", "fedavg_agg.cu", "defense_sim.cu")
+SOURCES = ("local_sgd.cu", "fedavg_agg.cu", "defense_sim.cu", "compress.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -47,7 +47,7 @@ NVCC_FLAGS = (
 # dynamic shared memory one block may opt into on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 
-_IMPL_KINDS = ("sgd", "agg", "defense")
+_IMPL_KINDS = ("sgd", "agg", "defense", "compress")
 _IMPL_VALUES = ("auto", "kernel", "einsum")
 
 
@@ -122,6 +122,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_fedavg_agg.restype = I
     lib.fedar_sketch_similarity.argtypes = [P, P, P, P, I, I, I, I, P]
     lib.fedar_sketch_similarity.restype = I
+    lib.fedar_pack_codes4.argtypes = [P, P, L, L, P]
+    lib.fedar_pack_codes4.restype = I
+    lib.fedar_unpack_codes4.argtypes = [P, P, L, L, L, P]
+    lib.fedar_unpack_codes4.restype = I
+    lib.fedar_topk_decode.argtypes = [P, P, P, L, L, L, P]
+    lib.fedar_topk_decode.restype = I
     lib.fedar_cuda_error_string.argtypes = [I]
     lib.fedar_cuda_error_string.restype = ctypes.c_char_p
 

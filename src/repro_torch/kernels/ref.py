@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the main path.
+"""Plain PyTorch versions of the port's kernels.
 
 The CPU path and the tests use them; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  Each mirrors the reference package's
@@ -93,3 +93,36 @@ def sketch_similarity_ref(unit_loc, unit_full):
     return torch.einsum(
         "mk,nk->mn", unit_loc.to(torch.float32), unit_full.to(torch.float32)
     )
+
+
+def pack_codes_ref(codes, *, bits: int):
+    """Offset-encoded quantization codes (n, D) int in [0, 2^bits) ->
+    packed uint8.  bits=8: one code per byte (a cast).  bits=4: the row is
+    zero-padded to the even width 2P, P = ceil(D / 2), and byte j holds
+    code j in its low nibble and code P + j in its high nibble (half-split,
+    not an even/odd interleave)."""
+    c = codes.to(torch.int32)
+    if bits == 8:
+        return c.to(torch.uint8)
+    d = c.shape[1]
+    p = (d + 1) // 2
+    c = torch.nn.functional.pad(c, (0, 2 * p - d))
+    return (c[:, :p] | (c[:, p:] << 4)).to(torch.uint8)
+
+
+def unpack_codes_ref(packed, *, bits: int, dim: int):
+    """Inverse of ``pack_codes_ref``: (n, P) uint8 -> (n, dim) int32."""
+    p32 = packed.to(torch.int32)
+    if bits == 8:
+        return p32[:, :dim]
+    return torch.cat([p32 & 0xF, (p32 >> 4) & 0xF], dim=1)[:, :dim]
+
+
+def topk_decode_ref(vals, idx, dim: int):
+    """Sparse (n, k) value/index pairs -> dense (n, dim) float32 by
+    scatter-ADD: duplicate indices accumulate; k = 0 gives zeros."""
+    out = torch.zeros((vals.shape[0], dim), dtype=torch.float32,
+                      device=vals.device)
+    if vals.shape[1] == 0:
+        return out
+    return out.scatter_add_(1, idx.to(torch.int64), vals.to(torch.float32))

@@ -18,6 +18,7 @@ from repro_torch.core.fedar import FedARServer
 from repro_torch.core.resources import TaskRequirement
 from repro_torch.data.federated import table2_fleet
 from repro_torch.kernels import ref
+from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
 from repro_torch.kernels.defense_sim import sketch_similarity
 from repro_torch.kernels.fedavg_agg import fedavg_agg
 from repro_torch.kernels.local_sgd import local_sgd
@@ -90,6 +91,76 @@ def test_wrappers_validate_arguments(cuda_device):
     with pytest.raises(ValueError, match="dtype"):
         local_sgd(g, x, y.long(), act, mask, hidden=8, classes=10, lr=0.1,
                   batch_size=20, epochs=1)
+
+
+@pytest.mark.parametrize("n,dim", [(5, 97), (12, 101770), (3, 1)])
+def test_pack_unpack_kernels_match_plain(cuda_device, n, dim):
+    """Integer codecs: bit-equal to the plain versions, odd D included."""
+    gen = torch.Generator().manual_seed(dim)
+    codes = torch.randint(0, 16, (n, dim), generator=gen, dtype=torch.int32)
+    codes = codes.to(cuda_device)
+    n0, u0 = pack_codes.launches, unpack_codes.launches
+    packed = pack_codes(codes, bits=4)
+    assert torch.equal(packed, ref.pack_codes_ref(codes, bits=4))
+    back = unpack_codes(packed, bits=4, dim=dim)
+    assert torch.equal(back, ref.unpack_codes_ref(packed, bits=4, dim=dim))
+    assert torch.equal(back, codes)
+    assert (pack_codes.launches, unpack_codes.launches) == (n0 + 1, u0 + 1)
+    # 8 bits is a cast on both sides: no kernel
+    assert torch.equal(unpack_codes(pack_codes(codes, bits=8), bits=8, dim=dim), codes)
+    assert (pack_codes.launches, unpack_codes.launches) == (n0 + 1, u0 + 1)
+
+
+def test_topk_decode_kernel_matches_plain(cuda_device):
+    """Distinct indices (the path's case) and pairs of duplicates are exact;
+    triples may sum in another order, within a few ulp of the sum."""
+    dev, dim = cuda_device, 101770
+    gen = torch.Generator().manual_seed(1)
+    vals = torch.randn(12, 3180, generator=gen).to(dev)
+    idx = torch.stack([torch.randperm(dim, generator=gen)[:3180] for _ in range(12)])
+    idx = idx.to(torch.int32).to(dev)
+    assert torch.equal(topk_decode(vals, idx, dim), ref.topk_decode_ref(vals, idx, dim))
+    pairs = torch.cat([idx[:, :1590], idx[:, :1590]], dim=1).contiguous()
+    assert torch.equal(topk_decode(vals, pairs, dim), ref.topk_decode_ref(vals, pairs, dim))
+    triples = torch.randint(0, 1000, (12, 3180), generator=gen, dtype=torch.int32).to(dev)
+    torch.testing.assert_close(topk_decode(vals, triples, dim),
+                               ref.topk_decode_ref(vals, triples, dim),
+                               rtol=1e-5, atol=1e-5)
+    n0 = topk_decode.launches
+    empty = torch.empty(12, 0, device=dev)
+    out = topk_decode(empty, empty.to(torch.int32), dim)
+    assert torch.equal(out, torch.zeros(12, dim, device=dev))
+    assert topk_decode.launches == n0
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(aggregation="async", compress="qsgd", compress_bits=4),
+    dict(aggregation="fedar", compress="topk"),
+], ids=["async-qsgd4", "fedar-topk"])
+def test_compressed_rounds_on_the_card_match_plain_codecs(cuda_device, overrides):
+    """Only ``compress_impl`` differs: the codec kernels are integer ops and
+    a scatter of distinct indices, so every carried tensor is identical."""
+    data = table2_fleet(samples_per_client=60)
+    force = np.isin(np.arange(12), [2, 7])
+    fed = fleet_fed(12, defense="none", **overrides)
+    runs = []
+    for impl in ("auto", "einsum"):
+        server = FedARServer(small_model(32), dataclasses.replace(fed, compress_impl=impl),
+                             TaskRequirement(), device=cuda_device)
+        counts = [k.launches for k in (pack_codes, unpack_codes, topk_decode)]
+        server.run(data, rounds=4, force_straggler=force)
+        runs.append((server, [k.launches - c for k, c in zip(
+            (pack_codes, unpack_codes, topk_decode), counts)]))
+    (kern, launched), (plain, plain_launched) = runs
+    assert plain_launched == [0, 0, 0]
+    if overrides["compress"] == "qsgd":
+        assert launched[0] > 0 and launched[1] > 0
+    else:
+        assert launched[2] > 0
+    for name in ("params", "compress_residual", "pending_delta", "pending_weight",
+                 "pending_valid", "fg_history"):
+        assert torch.equal(getattr(kern.state, name), getattr(plain.state, name)), name
+    assert torch.equal(kern.state.trust.score, plain.state.trust.score)
 
 
 def test_round_on_the_card_matches_plain_route(cuda_device):

@@ -14,11 +14,11 @@ import os
 import subprocess
 import sys
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import reference_draws
 
 from repro.configs.fedar_mnist import fleet_fed as jfleet_fed
 from repro.configs.fedar_mnist import small_model as jsmall_model
@@ -39,16 +39,6 @@ from repro_torch.data.federated import table2_fleet
 
 ROUNDS = 5
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
-
-
-def _reference_draws(seed, rounds, n):
-    g, z = [], []
-    for r in range(rounds):
-        key = jax.random.fold_in(jax.random.PRNGKey(seed), r)
-        k_sel, k_lat, _ = jax.random.split(key, 3)
-        g.append(np.asarray(jax.random.gumbel(k_sel, (n,))))
-        z.append(np.asarray(jax.random.normal(k_lat, (n,))))
-    return np.stack(g), np.stack(z)
 
 
 @pytest.mark.parametrize("aggregation,defense", [
@@ -72,7 +62,7 @@ def test_golden_config_matches_live_reference(aggregation, defense):
     server = FedARServer(
         small_model(32), fleet_fed(12, defense=defense, aggregation=aggregation),
         TaskRequirement(), device="cpu",
-        draws=ReplayDraws(*_reference_draws(0, ROUNDS, 12)), init_params=params,
+        draws=ReplayDraws(*reference_draws(0, ROUNDS, 12)), init_params=params,
     )
     hist = server.run(data, rounds=ROUNDS, eval_set=ev)
 
@@ -136,8 +126,7 @@ def test_kernel_route_on_cpu_raises(knob):
 
 
 @pytest.mark.parametrize("override", [
-    dict(aggregation="async"), dict(aggregation="async_seq"),
-    dict(compress="qsgd"), dict(faults="chaos"), dict(mesh_shape=4),
+    dict(faults="chaos"), dict(mesh_shape=4),
     dict(cohort_size=4), dict(select_frac=0.5),
 ])
 def test_later_slice_features_raise(override):
