@@ -33,11 +33,30 @@ Phases (any failure raises and the script exits non-zero):
 6. Top-k at full width, 12 robots: the Table II fleet, fedar + ``compress=
    "topk"`` (k = D // 32 = 3180); ``topk_decode`` must launch, and the same
    route check.
+7. Gated packed at full width, 512 clients: a quantity-skewed digits fleet
+   (``make_federated("digits", 512, scenario="quantity_skew", seed=7)``,
+   1-1394 samples per client), ``prepare_data`` picks the packed layout,
+   fedar + foolsgold_sketch with ``select_frac=0.5``, 6 rounds (round 1
+   warm-up).  ``local_sgd_ragged``, ``fedavg_agg`` and ``sketch_similarity``
+   must each launch once a round and ``local_sgd`` never.  Each round is
+   held against one plain-route round from the same state, and against the
+   dense, ungated kernel route from the same state (trust and masks
+   identical, params within 1e-5).  The dense ungated run is timed in the
+   same call.
+8. Drift on the packed layout: a 64-client ``robot_drift`` fleet (4
+   windows) forced onto the packed layout, fedar + foolsgold_sketch, 4
+   rounds so that every window trains; ``local_sgd_ragged`` must launch,
+   and the plain-route check of phase 4.
+
+Phase 2 also holds ``local_sgd_ragged`` on phase 7's tile buffer against its
+plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
+(N, n_max) rectangle.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.  ``--profile DIR`` also writes a
-``torch.profiler`` table of one 12-robot round and one 512-client round.
+``torch.profiler`` table of one round of phases 3, 4, 5, 7 (both layouts)
+and 8.
 """
 from __future__ import annotations
 
@@ -257,6 +276,72 @@ def kernel_phase(ref, kernels, fleet):
     return entries
 
 
+def ragged_phase(ref, local_sgd_ragged, local_sgd, packed, dense):
+    """Phase 2, the ragged local-SGD kernel at phase 7's shapes: every row
+    of the 512-client fleet's tile buffer (H = 128, B = 20, E = 5) against
+    its plain version (phase 4's per-row rule), and bit-equal to the dense
+    kernel on the fleet's (N, n_max) rectangle for the same clients and
+    global row.  Returns the kernel's JSON entry."""
+    H, C, E, lr = 128, 10, 5, 0.1
+    xt, yt = packed.tiles["x"], packed.tiles["y"]
+    T, B, I = xt.shape
+    D = H + C + I * H + H * C
+    g = (torch.randn(D, generator=torch.Generator().manual_seed(2)) * 0.05).to(DEV)
+    args = (xt, yt, packed.tile_mask, packed.act, packed.nb, packed.off)
+    kw = dict(hidden=H, classes=C, lr=lr, epochs=E)
+    R = packed.act.shape[0]
+    print(f"local_sgd_ragged ({R} clients, {T} tiles of B = {B}, batch counts "
+          f"{sorted(set(packed.nb.tolist()))}; tolerance: fp32 sums in another "
+          f"order over up to {E * int(packed.nb.max())} sequential SGD steps)")
+    got = local_sgd_ragged(g, *args, **kw)
+    want = ref.local_sgd_ragged_ref(g, *args, **kw)
+    torch.cuda.synchronize()
+    err = compare_rows("vs plain", got, want, atol=1e-4, rtol=1e-4, kink_atol=2e-3)
+    rect = local_sgd(g, dense["x"], dense["y"], dense["activations"], dense["mask"],
+                     batch_size=B, **kw)
+    real = packed.valid  # fill rows (none at one shard) have no dense twin
+    compare_exact(f"vs local_sgd on the dense ({dense['x'].shape[0]}, "
+                  f"{dense['x'].shape[1]}) rectangle", got[real],
+                  rect[packed.perm[real]])
+    k_ms = time_ms(lambda: local_sgd_ragged(g, *args, **kw), reps=3)
+    p_ms = time_ms(lambda: ref.local_sgd_ragged_ref(g, *args, **kw), reps=2)
+    d_ms = time_ms(lambda: local_sgd(g, dense["x"], dense["y"], dense["activations"],
+                                     dense["mask"], batch_size=B, **kw), reps=3)
+    b_ms, b_by = ragged_bound(packed, packed.tile_mask, None, D, H, C, E)
+    print(f"  kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3g} ms "
+          f"({b_by}); local_sgd on the dense rectangle {d_ms:.3f} ms")
+    # what the block order and the longest chain cost (for a later perf PR):
+    # the same launch with the rows widest first, and the longest row alone
+    desc = packed.desc_rows
+    order = (packed.act[desc], packed.nb[desc], packed.off[desc])
+    o_ms = time_ms(lambda: local_sgd_ragged(g, *args[:3], *order, **kw), reps=3)
+    top = desc[:1]
+    one = (packed.act[top], packed.nb[top], packed.off[top])
+    l_ms = time_ms(lambda: local_sgd_ragged(g, *args[:3], *one, **kw), reps=3)
+    print(f"  the same rows widest first: {o_ms:.3f} ms; the longest client alone "
+          f"({E * int(packed.nb[top])} steps): {l_ms:.3f} ms")
+    return dict(name="local_sgd_ragged", route="cuda",
+                source="src/repro_torch/csrc/local_sgd.cu",
+                replaces="src/repro/kernels/local_sgd.py:243", max_abs_err=err,
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+def ragged_bound(packed, tile_mask, rows, D, H, C, E):
+    """The ragged kernel's bound for the clients ``rows`` (None: all): the
+    bytes of their tiles, the global row, their output rows and row tables,
+    and the FLOPs of their tiles with at least one real sample."""
+    nb, off = packed.nb, packed.off
+    if rows is not None:
+        nb, off = nb[rows], off[rows]
+    B, I = packed.tiles["x"].shape[1:]
+    tiles = torch.cat([torch.arange(o, o + n) for o, n in zip(off.tolist(), nb.tolist())])
+    R = nb.numel()
+    nbytes = 4 * (tiles.numel() * B * (I + 2) + D * (1 + R) + 3 * R)
+    # one (1, B) row per tile: sgd_flops counts the tiles with a real sample
+    return bound_ms(nbytes, sgd_flops(tile_mask[tiles.to(DEV)], B, I, H, C, E))
+
+
 def compare_exact(name, got, want):
     """Bit-equality of a kernel's output with its plain version."""
     ok = got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
@@ -388,6 +473,28 @@ def check_each_round(server, plain_engine, data, starts) -> None:
           f"identical to the plain route from the same state")
 
 
+def check_against_dense(server, dense_engine, dense_data, starts) -> None:
+    """Each round of the gated packed run against the dense, ungated kernel
+    route from the same state on the same fleet: the selected clients' SGD
+    rows are bit-equal by construction, and only the compact cohort sums
+    shift fp32 order, so trust and masks are identical and params within
+    1e-5 (the reference's band for gated against full)."""
+    ends = starts[1:] + [server.state]
+    worst = 0.0
+    for r, (start, end) in enumerate(zip(starts, ends)):
+        got, out = dense_engine.step(start, dense_data)
+        for key, want in (("selected", out.selected), ("on_time", out.on_time)):
+            if not np.array_equal(server.history[key][r], want.cpu().numpy()):
+                raise AssertionError(f"round {r}: {key} differs from the dense route")
+        if not torch.equal(end.trust.score, got.trust.score):
+            raise AssertionError(f"round {r}: trust differs from the dense route")
+        compare(f"round {r} params vs dense ungated", end.params, got.params,
+                atol=1e-5, rtol=1e-5)
+        worst = max(worst, (end.fg_history - got.fg_history).abs().max().item())
+    print(f"  rounds 0-{len(starts) - 1}: trust, selected and on-time masks identical "
+          f"to the dense ungated route; fg_history max_abs_err={worst:.3e}")
+
+
 def timed_rounds(server, data, eval_set, rounds: int, kernels, every,
                  force=None) -> tuple:
     """Sets every launch count (``every`` kernel of the port) to 0, runs
@@ -474,22 +581,24 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
-    from repro_torch.core.engine import flatten, unflatten
+    from repro_torch.core.engine import PackedLayout, flatten, unflatten
     from repro_torch.core.fedar import FedARServer
     from repro_torch.core.resources import TaskRequirement
+    from repro_torch.data.datasets import make_federated
     from repro_torch.data.federated import scaled_fleet, table2_fleet
     from repro_torch.data.synthetic import make_digits
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
     from repro_torch.kernels.defense_sim import sketch_similarity
     from repro_torch.kernels.fedavg_agg import fedavg_agg
-    from repro_torch.kernels.local_sgd import local_sgd
+    from repro_torch.kernels.local_sgd import local_sgd, local_sgd_ragged
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = (local_sgd, fedavg_agg, sketch_similarity)
     codecs = (pack_codes, unpack_codes, topk_decode)
-    every = kernels + codecs
+    packed_kernels = (local_sgd_ragged, fedavg_agg, sketch_similarity)
+    every = kernels + codecs + (local_sgd_ragged,)
 
     # --- phase 1: environment and build
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -509,10 +618,38 @@ def main() -> int:
     fleet = table2_fleet()
     entries = kernel_phase(ref, kernels, fleet)
     entries.update(codec_phase(ref, codecs))
+    # phase 7's fleet on both layouts, for the ragged kernel's check; moved
+    # to the card again in phase 7, so that phases 3-6 measure their peak
+    # memory without it
+    req = TaskRequirement()
+    t0 = time.perf_counter()
+    skew = make_federated("digits", 512, scenario="quantity_skew",
+                          samples_per_client=200, seed=7)
+    fed_gated = fleet_fed(512, defense="foolsgold_sketch", select_frac=0.5)
+    gated = FedARServer(MnistConfig(), fed_gated, req, device=DEV)
+
+    def prepare_skew():
+        packed = gated.engine.prepare_data(skew)
+        if not isinstance(packed["packed"], PackedLayout):
+            raise AssertionError("prepare_data did not pick the packed layout for "
+                                 "the quantity-skewed fleet")
+        return packed, gated.engine.prepare_data(skew, layout="dense")
+
+    skew_packed, skew_dense = prepare_skew()
+    torch.cuda.synchronize()
+    lay = skew_packed["packed"]
+    sizes = skew.sizes
+    print(f"\n[set-up] quantity_skew fleet: 512 clients, {int(sizes.sum())} samples, "
+          f"sizes {int(sizes.min())}-{int(sizes.max())} (median {np.median(sizes):g}), "
+          f"n_max {skew.samples}; packed: {len(lay.buckets)} buckets, "
+          f"{lay.tile_mask.shape[0]} tiles against {512 * -(-skew.samples // 20)} for "
+          f"the rectangle; built and moved in {time.perf_counter() - t0:.2f} s")
+    entries["local_sgd_ragged"] = ragged_phase(ref, local_sgd_ragged, local_sgd,
+                                               lay, skew_dense)
+    del skew_packed, skew_dense, lay
 
     # --- phase 3: the main path, 12 robots at full width
     fed = fleet_fed(12, defense="foolsgold_sketch")
-    req = TaskRequirement()
     eval_set = make_digits(500, seed=99)
     rounds = 5
     server = FedARServer(MnistConfig(), fed, req, device=DEV)
@@ -661,8 +798,90 @@ def main() -> int:
     check_codec_routes(server.engine, plain.engine, data, starts, None)
     entries["topk_decode"]["launches"] = launches6["topk_decode"]
 
-    order = ("local_sgd", "fedavg_agg", "sketch_similarity", "pack_codes",
-             "unpack_codes", "topk_decode")
+    # --- phase 7: gated packed at full width, 512 quantity-skewed clients
+    skew_packed, skew_dense = prepare_skew()
+    lay = skew_packed["packed"]
+    print("\n[gated packed] 512 clients, quantity_skew, select_frac=0.5, "
+          f"cohort cap {gated.engine.cohort_cap}, fedar + foolsgold_sketch")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times7, launches7, starts = timed_rounds(gated, skew_packed, eval_set, rounds512,
+                                             packed_kernels, every)
+    peak7 = torch.cuda.max_memory_allocated()
+    for name, count in launches7.items():
+        if count != rounds512:
+            raise AssertionError(f"{name} launched {count} times in {rounds512} rounds")
+    if local_sgd.launches != 0:
+        raise AssertionError("the dense local_sgd kernel launched on the packed path")
+    print(f"acc {[round(a, 4) for a in gated.history['acc']]}; selected per round "
+          f"{[int(m.sum()) for m in gated.history['selected']]}")
+    print(f"max_memory_allocated: {peak7 / 2**30:.3f} GiB (resident before the "
+          f"run, both layouts of the fleet: {resident / 2**30:.3f} GiB)")
+    if not torch.isfinite(gated.state.params).all():
+        raise AssertionError("gated packed run produced non-finite params")
+    plain = FedARServer(MnistConfig(), plain_route(fed_gated), req, device=DEV)
+    check_each_round(gated, plain.engine, skew_packed, starts)
+    fed_dense = fleet_fed(512, defense="foolsgold_sketch")
+    dense = FedARServer(MnistConfig(), fed_dense, req, device=DEV)
+    check_against_dense(gated, dense.engine, skew_dense, starts)
+    # the kernel at the main path's own call: this round's cohort rows
+    g = gated.state.params
+    sel = torch.as_tensor(gated.history["selected"][-1], device=DEV)
+    desc = lay.desc_rows
+    sel_d = sel[lay.perm[desc]] & lay.valid[desc]
+    rows = desc[torch.argsort((~sel_d).to(torch.int32), stable=True)[:gated.engine.cohort_cap]]
+    call = (lay.tiles["x"], lay.tiles["y"], lay.tile_mask, lay.act[rows], lay.nb[rows],
+            lay.off[rows])
+    kw = dict(hidden=128, classes=10, lr=0.1, epochs=5)
+    c_ms = time_ms(lambda: local_sgd_ragged(g, *call, **kw), reps=3)
+    c_plain = time_ms(lambda: ref.local_sgd_ragged_ref(g, *call, **kw), reps=2)
+    c_bound, c_by = ragged_bound(lay, lay.tile_mask, rows, gated.dim, 128, 10, 5)
+    print(f"local_sgd_ragged at the cohort's {rows.numel()} rows (batch counts up to "
+          f"{int(lay.nb[rows].max())}): kernel {c_ms:.3f} ms, plain {c_plain:.3f} ms, "
+          f"bound {c_bound:.3g} ms ({c_by})")
+    entries["local_sgd_ragged"]["launches"] = launches7["local_sgd_ragged"]
+    if args.profile:
+        profile_round(gated, skew_packed, eval_set, Path(args.profile),
+                      "n512_gated_packed")
+
+    print("\n[dense ungated] the same fleet on the (512, 1394) rectangle, no gating")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times7d, _, _ = timed_rounds(dense, skew_dense, eval_set, rounds512, kernels, every)
+    peak7d = torch.cuda.max_memory_allocated()
+    print(f"max_memory_allocated: {peak7d / 2**30:.3f} GiB (resident before the "
+          f"run: {resident / 2**30:.3f} GiB)")
+    print(f"steady rounds/s (rounds 2-{rounds512}): gated packed "
+          f"{(rounds512 - 1) / sum(times7[1:]):.3f}, dense ungated "
+          f"{(rounds512 - 1) / sum(times7d[1:]):.3f}")
+    if args.profile:
+        profile_round(dense, skew_dense, eval_set, Path(args.profile),
+                      "n512_skew_dense")
+    del skew_dense, dense
+
+    # --- phase 8: drift windows on the packed layout, 64 clients
+    drift = make_federated("digits", 64, scenario="robot_drift",
+                           samples_per_client=200, seed=7)
+    fed_drift = fleet_fed(64, defense="foolsgold_sketch")
+    server = FedARServer(MnistConfig(), fed_drift, req, device=DEV)
+    drift_packed = server.engine.prepare_data(drift, layout="packed")
+    W = drift_packed["packed"].tile_round_mask.shape[0]
+    print(f"\n[drift, packed] 64 clients, robot_drift with {W} windows, "
+          f"fedar + foolsgold_sketch, {W} rounds")
+    _, _, starts = timed_rounds(server, drift_packed, eval_set, W, packed_kernels, every)
+    print(f"acc {[round(a, 4) for a in server.history['acc']]}")
+    if not torch.isfinite(server.state.params).all():
+        raise AssertionError("drift run produced non-finite params")
+    plain = FedARServer(MnistConfig(), plain_route(fed_drift), req, device=DEV)
+    check_each_round(server, plain.engine, drift_packed, starts)
+    if args.profile:
+        profile_round(server, drift_packed, eval_set, Path(args.profile),
+                      "n64_drift_packed")
+
+    order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",
+             "pack_codes", "unpack_codes", "topk_decode")
     print(smi)
     print(json.dumps({"kernels": [entries[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

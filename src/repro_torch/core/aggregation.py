@@ -29,13 +29,37 @@ from repro_torch.kernels.fedavg_agg import fedavg_agg
 from repro_torch.kernels.ops import resolve_impl
 
 
-def deviation_mask(deltas: torch.Tensor, active: torch.Tensor, gamma: float):
+def _cohort_rows(per_client, cohort):
+    """(N,) per-client values -> the cohort rows' values; a slot that holds
+    no genuinely selected client (``valid`` False) reads zero."""
+    canon, valid = cohort
+    return per_client[canon] * valid
+
+
+def deviation_mask(deltas: torch.Tensor, active: torch.Tensor, gamma: float,
+                   *, cohort=None):
     """The paper's ban trigger ``G^i - D_m^i > gamma``: robust z-score of
     each client's update distance from the active-population mean.
-    deltas (N, D), active (N,) bool -> (N,) bool deviated."""
-    w = active.to(torch.float32)[:, None]
+    deltas (N, D), active (N,) bool -> (N,) bool deviated.
+
+    ``cohort=(canon, valid)``: selection-gated mode.  ``deltas`` holds only
+    the gated cohort's rows, ``canon`` (C,) maps each row to its client and
+    ``valid`` (C,) marks the slots of genuinely selected clients.  Every
+    other client's delta is an exact zero and never active, so the
+    statistics are over the same population; only the fp32 summation order
+    shifts."""
+    act_rows = active if cohort is None else _cohort_rows(active, cohort)
+    w = act_rows.to(torch.float32)[:, None]
     mean = (deltas * w).sum(0) / torch.clamp(w.sum(), min=1.0)
     dist = torch.linalg.vector_norm(deltas - mean, dim=1)
+    if cohort is not None:
+        # back to client order: fill slots drop into a spare last entry,
+        # clients outside the cohort read 0 (inactive, so never counted)
+        canon, valid = cohort
+        n = active.shape[0]
+        full = torch.zeros(n + 1, dtype=dist.dtype, device=dist.device)
+        full[torch.where(valid, canon, n)] = dist
+        dist = full[:n]
     act_dist = torch.where(active, dist, torch.nan)
     mu = torch.nanmean(act_dist)
     sd = torch.sqrt(torch.nanmean((act_dist - mu) ** 2) + 1e-12)
@@ -67,15 +91,22 @@ def async_aggregate(global_flat, models, weights, mask, order, fed: FedConfig):
 
 
 def fedavg_aggregate(global_flat, deltas, weights, mask, *, staleness=None,
-                     impl: str = "einsum"):
+                     impl: str = "einsum", cohort=None):
     """w <- w + sum_m mask_m * weight_m * s(tau_m) * delta_m / sum(...).
 
     ``staleness``: optional (N,) rounds-late per update, poly-decayed as
     ``(1 + tau)^-0.5``.  ``impl`` picks the reduction: the ``fedavg_agg``
-    kernel or its plain version (``kernels.ops.resolve_impl``)."""
+    kernel or its plain version (``kernels.ops.resolve_impl``).
+    ``cohort=(canon, valid)``: ``deltas`` holds only the gated cohort's rows
+    (see ``deviation_mask``); the numerator skips the known-zero rows, the
+    denominator stays on the full (N,) vectors."""
     w = weights * mask.to(weights.dtype)
     decay = 1.0 if staleness is None else staleness_weight(staleness)
     denom = torch.clamp((w * decay).sum(), min=1e-9)
+    if cohort is not None:
+        w = _cohort_rows(w, cohort)
+        if staleness is not None:
+            staleness = staleness[cohort[0]]
     if resolve_impl(impl, "agg", deltas.device) == "kernel":
         num = fedavg_agg(deltas, w, staleness=staleness)
     else:

@@ -28,6 +28,18 @@ Carried state (``EngineState``) -> Algorithm 2 of the paper:
 Per-round outputs (``RoundOutputs``): post-update trust, the selected and
 on-time masks, virtual round time, and eval loss/accuracy.
 
+Padding-free, selection-gated hot path: ``data["packed"]`` (built by
+``FederatedDataset.packed_arrays``, or picked per fleet by
+``prepare_data``) swaps the rectangular sample slab for size buckets, and
+``FedConfig.select_frac`` gates local SGD down to a statically capped
+cohort (unselected clients contribute exact zeros).  ``device_data`` turns
+the packed dict into a ``PackedLayout`` once per ``step`` / ``run`` call:
+the buckets become one batch-tile buffer that the ragged local-SGD kernel
+walks, each client reading its own tiles, and every round-invariant table
+(tile addresses, the descending-width row order, the gated slot plan) is
+built there.  A drift schedule ``round_mask`` (W, N, n) trains round t on
+window ``t mod W``, on the dense and on the packed layout.
+
 The kernels of the round run on the card through the routing knobs
 ``FedConfig.sgd_impl`` (local SGD), ``agg_impl`` (aggregation),
 ``defense_impl`` (the similarity block) and ``compress_impl`` (the uplink
@@ -37,8 +49,9 @@ raises when there is no CUDA device: it never falls back to the CPU.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.common.config import FedConfig
@@ -56,6 +69,7 @@ from repro_torch.core.resources import (
 )
 from repro_torch.core.selection import select_clients
 from repro_torch.core.trust import TrustState, init_trust, update_trust
+from repro_torch.data.datasets import FederatedDataset
 from repro_torch.kernels.ops import resolve_impl
 from repro_torch.models.client import ClientModel
 from repro_torch.models.mnist import MnistClientModel
@@ -127,10 +141,34 @@ class RoundOutputs(NamedTuple):
     acc: torch.Tensor  # () eval accuracy (nan when no eval set)
 
 
+class PackedLayout(NamedTuple):
+    """The packed data on the device, with everything a round reuses.
+
+    The buckets live in one batch-tile buffer: bucket b (rows_b clients of
+    width L_b) pads each row to nb_b = ceil(L_b / B) whole batches with
+    mask-False samples and lays its rows' tiles end to end.  Per packed row
+    (the bucket concatenation order ``inv`` refers to): the activation id,
+    the batch count ``nb``, the first tile ``off``, the canonical client
+    ``perm`` and the real-row bit ``valid``."""
+
+    tiles: dict  # "x" (T, B, I) float32, "y" (T, B) int32
+    tile_mask: torch.Tensor  # (T, B) bool static validity
+    tile_round_mask: Optional[torch.Tensor]  # (W, T, B) bool drift windows
+    act: torch.Tensor  # (R,) int32
+    nb: torch.Tensor  # (R,) int32 batches per row
+    off: torch.Tensor  # (R,) int32 first tile per row
+    perm: torch.Tensor  # (R,) int64 canonical client per row
+    valid: torch.Tensor  # (R,) bool
+    inv: torch.Tensor  # (N,) int64 canonical client -> packed row
+    buckets: tuple  # ((first tile, rows, nb), ...) in packed order
+    desc_rows: torch.Tensor  # (R,) int64 packed rows, widest bucket first
+    desc_buckets: tuple  # ((nb, rows), ...) widest bucket first
+    plan: tuple  # this engine's gated slot plan ((slot nb, slots), ...)
+    n_max: int  # the dense rectangle width (latency model)
+
+
 # data keys a later slice reads, with the ROADMAP item that ports them
 _LATER_DATA_KEYS = {
-    "packed": "Queue 1 item 8 (packed layout)",
-    "round_mask": "Queue 1 item 8 (drift windows)",
     "cohort_valid": "Queue 1 item 11 (cohort engine)",
 }
 
@@ -146,8 +184,6 @@ def _check_slice(fed: FedConfig) -> None:
         later.append(f"mesh_shape={fed.mesh_shape}: Queue 1 item 12")
     if fed.cohort_size is not None:
         later.append(f"cohort_size={fed.cohort_size}: Queue 1 item 11")
-    if fed.select_frac is not None:
-        later.append(f"select_frac={fed.select_frac}: Queue 1 item 8")
     if later:
         raise NotImplementedError(
             "not ported yet (see ROADMAP.md): " + "; ".join(later)
@@ -206,6 +242,25 @@ class FedAREngine:
             device=self.device,
         )
         self.draws = draws if draws is not None else GeneratorDraws(fed.seed, self.device)
+        # selection-gated local SGD: static cohort cap C = ceil(frac * N),
+        # which must cover the selection count k
+        self.cohort_cap = None
+        if fed.select_frac is not None:
+            if not 0.0 < fed.select_frac <= 1.0:
+                raise ValueError(
+                    f"select_frac must be in (0, 1], got {fed.select_frac}"
+                )
+            self.cohort_cap = max(
+                1, int(np.ceil(fed.select_frac * fed.num_clients))
+            )
+            k = max(1, int(fed.num_clients * fed.client_fraction))
+            if self.cohort_cap < k:
+                raise ValueError(
+                    f"select_frac={fed.select_frac} caps the SGD cohort at "
+                    f"C={self.cohort_cap} < the {k} clients selection can "
+                    f"pick (client_fraction={fed.client_fraction}); raise "
+                    f"select_frac to at least client_fraction"
+                )
 
     # ------------------------------------------------------------------
     def init_state(self) -> EngineState:
@@ -229,7 +284,9 @@ class FedAREngine:
     def device_data(self, data) -> dict:
         """The round's data dict as tensors on the engine's device, in the
         dtypes the kernels take (x float32, y / activations int32, sizes
-        float32, mask bool); numpy arrays are copied over once."""
+        float32, masks bool); numpy arrays are copied over once.  A packed
+        dict (``data["packed"]``) becomes a ``PackedLayout``; one that
+        already is passes through."""
         for key, item in _LATER_DATA_KEYS.items():
             if key in data:
                 raise NotImplementedError(
@@ -237,12 +294,107 @@ class FedAREngine:
                 )
         dtypes = {"x": torch.float32, "y": torch.int32,
                   "activations": torch.int32, "sizes": torch.float32,
-                  "mask": torch.bool}
+                  "mask": torch.bool, "round_mask": torch.bool}
         out = {}
         for k, v in data.items():
+            if k == "packed":
+                lay = v if isinstance(v, PackedLayout) else self._pack(v)
+                if lay.tiles["x"].shape[1] != self.fed.local_batch_size:
+                    raise ValueError(
+                        f"packed layout tiled for batch size "
+                        f"{lay.tiles['x'].shape[1]}, the engine trains with "
+                        f"{self.fed.local_batch_size}"
+                    )
+                # the slot plan depends on this engine's cohort cap
+                out[k] = lay._replace(
+                    plan=self._packed_cohort_plan(lay.desc_buckets))
+                continue
             t = torch.as_tensor(v, device=self.device)
             out[k] = t.to(dtypes[k]).contiguous() if k in dtypes else t
         return out
+
+    def _check_packed(self, packed) -> None:
+        """A packed dict is built for one shard count (its ``perm`` is
+        shard-local), and only ``packed_supported`` families take it."""
+        if not self.model.packed_supported:
+            raise ValueError(
+                f"model family {self.model.family!r} does not support the "
+                f"bucketed packed layout; pass the dense per-client arrays "
+                f"(FederatedDataset.arrays()) instead"
+            )
+        built = int(np.asarray(packed["shards"]))
+        if built != 1:
+            raise ValueError(
+                f"packed data was built for {built} shard(s) "
+                f"(FederatedDataset.packed_arrays(shards=...)) but the "
+                f"engine runs 1; rebuild the packed layout with shards=1"
+            )
+
+    def _pack(self, packed) -> PackedLayout:
+        """Move a ``packed_arrays`` dict to the device as one batch-tile
+        buffer plus the round-invariant row tables (``PackedLayout``)."""
+        self._check_packed(packed)
+        dev, B = self.device, self.fed.local_batch_size
+        xs = [np.asarray(x) for x in packed["x"]]
+        rows = [x.shape[0] for x in xs]
+        widths = [x.shape[1] for x in xs]
+        nbs = [-(-w // B) for w in widths]
+        starts = np.cumsum([0] + [r * n for r, n in zip(rows, nbs)])
+        T, I = int(starts[-1]), xs[0].shape[2]
+        rms = packed.get("round_mask")
+        xt = torch.zeros((T, B, I), dtype=torch.float32, device=dev)
+        yt = torch.zeros((T, B), dtype=torch.int32, device=dev)
+        mt = torch.zeros((T, B), dtype=torch.bool, device=dev)
+        rmt = (None if rms is None else torch.zeros(
+            (rms[0].shape[0], T, B), dtype=torch.bool, device=dev))
+        for b, (r, w, n) in enumerate(zip(rows, widths, nbs)):
+            s, e = int(starts[b]), int(starts[b + 1])
+            xt[s:e].view(r, n * B, I)[:, :w] = torch.as_tensor(xs[b])
+            yt[s:e].view(r, n * B)[:, :w] = torch.as_tensor(
+                np.asarray(packed["y"][b], np.int32))
+            mt[s:e].view(r, n * B)[:, :w] = torch.as_tensor(
+                np.asarray(packed["mask"][b], bool))
+            if rmt is not None:
+                rmt[:, s:e].view(-1, r, n * B)[:, :, :w] = torch.as_tensor(
+                    np.asarray(rms[b], bool))
+
+        def cat(key, dtype):
+            return torch.as_tensor(np.concatenate(
+                [np.asarray(v) for v in packed[key]]).astype(dtype), device=dev)
+
+        nb = np.repeat(nbs, rows).astype(np.int32)
+        off = np.concatenate([s + n * np.arange(r) for s, r, n
+                              in zip(starts[:-1], rows, nbs)]).astype(np.int32)
+        # the gated cohort walks rows widest bucket first
+        desc = sorted(range(len(xs)), key=lambda b: -widths[b])
+        row0 = np.cumsum([0] + rows)
+        desc_rows = np.concatenate([np.arange(row0[b], row0[b + 1]) for b in desc])
+        return PackedLayout(
+            tiles={"x": xt, "y": yt}, tile_mask=mt, tile_round_mask=rmt,
+            act=cat("act", np.int32),
+            nb=torch.as_tensor(nb, device=dev),
+            off=torch.as_tensor(off, device=dev),
+            perm=cat("perm", np.int64), valid=cat("valid", bool),
+            inv=torch.as_tensor(np.asarray(packed["inv"], np.int64), device=dev),
+            buckets=tuple((int(s), r, n) for s, r, n in zip(starts[:-1], rows, nbs)),
+            desc_rows=torch.as_tensor(desc_rows, device=dev),
+            desc_buckets=tuple((nbs[b], rows[b]) for b in desc), plan=(),
+            n_max=int(np.asarray(packed["n_max"])),
+        )
+
+    def prepare_data(self, ds: FederatedDataset, layout: str = "auto") -> dict:
+        """This engine's data dict from a ``FederatedDataset``, on the
+        device: dense or packed picked per fleet (``layout="auto"``, the
+        ``scenarios.pick_layout`` estimate with the local batch size as the
+        width quantum), or forced with ``"dense"`` / ``"packed"``."""
+        if ds.num_clients != self.fed.num_clients:
+            raise ValueError(
+                f"dataset has {ds.num_clients} clients but FedConfig.num_"
+                f"clients={self.fed.num_clients}; build the config from the "
+                f"fleet's client count"
+            )
+        return self.device_data(ds.engine_arrays(
+            shards=1, quantum=self.fed.local_batch_size, layout=layout))
 
     def _eval_set(self, eval_set):
         if eval_set is None:
@@ -271,6 +423,145 @@ class FedAREngine:
         )
         return flatten(new, rows=True)
 
+    def _gated_block_locals(self, g_flat, fields, m, sel_rows):
+        """Selection-gated ClientUpdate on the dense layout: local SGD over
+        the (statically capped) selected rows only.  Returns ``(idx,
+        locals_c, valid)``: the client each cohort slot came from, the
+        cohort's post-SGD rows, and which slots hold a selected client."""
+        cap = min(sel_rows.shape[0], self.cohort_cap)
+        # stable: selected rows first, in client order (ROADMAP trap 1)
+        order = torch.argsort((~sel_rows).to(torch.int32), stable=True)
+        idx = order[:cap]
+        m_c = None if m is None else m[idx]
+        locals_c = self._block_sgd(g_flat, {k: v[idx] for k, v in fields.items()},
+                                   m_c)
+        return idx, locals_c, sel_rows[idx]
+
+    @staticmethod
+    def _expand_cohort(vals, canon, valid, rows: int, fill_row):
+        """(C, D) cohort rows -> (rows, D) in client order: one int scatter
+        builds the client -> slot map (invalid slots drop into a spare
+        entry, clients outside the cohort point at the appended
+        ``fill_row``), then one row gather."""
+        cap = vals.shape[0]
+        aug = torch.cat([vals, fill_row[None, :]])
+        inv = torch.full((rows + 1,), cap, dtype=torch.int64, device=vals.device)
+        inv[torch.where(valid, canon, rows)] = torch.arange(cap, device=vals.device)
+        return aug[inv[:rows]]
+
+    def _ragged_block_sgd(self, g_flat, lay: PackedLayout, rows, tile_mask,
+                          blocks):
+        """Local SGD of packed rows -> (R, D) post-SGD rows in ``rows``
+        order.  ``rows`` is None (every packed row) or an index tensor into
+        the layout's row tables.  The kernel route launches the model's
+        ragged kernel once over the layout's tile buffer, each row reading
+        its own tiles; the plain route runs ``_block_sgd`` over each
+        rectangular block of ``blocks()``, a generator of (fields, mask)."""
+        if self.sgd_route == "kernel":
+            row_tables = (lay.act, lay.nb, lay.off)
+            if rows is not None:
+                row_tables = tuple(t[rows] for t in row_tables)
+            return self.model.fused_ragged_update(
+                g_flat, lay.tiles, tile_mask, row_tables, lr=self.lr,
+                epochs=self.fed.local_epochs,
+            )
+        return torch.cat([self._block_sgd(g_flat, f, m) for f, m in blocks()])
+
+    def _packed_cohort_plan(self, desc_buckets) -> tuple:
+        """Static slot plan of the gated cohort over the buckets, given
+        widest first as ((nb, rows), ...): ONE allocation of ``min(C, sum
+        rows)`` slots, widest bucket first, as ((slot batch count, slots),
+        ...).  At most C clients are selected and slots are granted widest
+        first, so the j-th widest selected row lands on a slot at least as
+        wide as its own bucket."""
+        if self.cohort_cap is None:
+            return ()
+        plan, remaining = [], self.cohort_cap
+        for nb, r in desc_buckets:
+            take = min(r, remaining)
+            if take > 0:
+                plan.append((nb, take))
+                remaining -= take
+        return tuple(plan)
+
+    @staticmethod
+    def _packed_round_mask(lay: PackedLayout, round_idx: int):
+        """This round's (T, B) tile validity: the static mask & the drift
+        schedule's active window."""
+        if lay.tile_round_mask is None:
+            return lay.tile_mask
+        rm = lay.tile_round_mask
+        return lay.tile_mask & rm[round_idx % rm.shape[0]]
+
+    def _packed_fields(self, lay: PackedLayout, x, y, rows):
+        return dict(zip(self.model.data_keys, (x, y, lay.act[rows])))
+
+    def _packed_gated_locals(self, g_flat, lay: PackedLayout, selected,
+                             tile_mask):
+        """Selection-gated ClientUpdate over the packed layout.  One stable
+        argsort over every packed row, widest bucket first, keyed selected
+        first; the first ``min(C, rows)`` entries are the cohort's slots.
+        The kernel route trains each slot's row on its own tiles of the
+        invariant tile buffer (no per-round sample gather); the plain route
+        gathers each plan group's rows into slot-wide blocks, as the
+        reference does (a narrower row in a wider slot runs extra
+        all-masked batches, exact no-ops).  Returns ``(locals_c, cohort)``,
+        cohort = (client of each slot, slot holds a selected client)."""
+        B = self.fed.local_batch_size
+        desc = lay.desc_rows
+        sel_d = selected[lay.perm[desc]] & lay.valid[desc]
+        order = torch.argsort((~sel_d).to(torch.int32), stable=True)
+        slots = order[:sum(take for _, take in lay.plan)]
+        rows = desc[slots]
+
+        def blocks():
+            o = 0
+            for nb_slot, take in lay.plan:
+                r = rows[o:o + take]
+                o += take
+                j = torch.arange(nb_slot, device=r.device)
+                own = lay.nb[r].to(torch.int64)[:, None]
+                tiles = lay.off[r].to(torch.int64)[:, None] + torch.minimum(j, own - 1)
+                m = tile_mask[tiles] & (j < own)[..., None]
+                x = lay.tiles["x"][tiles].reshape(take, nb_slot * B, -1)
+                y = lay.tiles["y"][tiles].reshape(take, nb_slot * B)
+                yield (self._packed_fields(lay, x, y, r),
+                       m.reshape(take, nb_slot * B))
+
+        locals_c = self._ragged_block_sgd(g_flat, lay, rows, tile_mask, blocks)
+        return locals_c, (lay.perm[rows], sel_d[slots])
+
+    def _packed_locals(self, g_flat, lay: PackedLayout, selected, round_idx):
+        """ClientUpdate over the bucketed packed layout -> ``(locals_flat,
+        locals_c, cohort)``: the canonical (N, D) post-SGD rows, and in
+        gated mode the compact cohort rows with their ``(canon, valid)``
+        map, so that deviation and aggregation skip the known-zero rows
+        (``None, None`` ungated).  Ungated, every packed row trains and one
+        gather through ``inv`` restores client order; gated, unselected
+        clients take the untouched global row (delta exactly zero)."""
+        B = self.fed.local_batch_size
+        tile_mask = self._packed_round_mask(lay, round_idx)
+        if self.cohort_cap is None:
+            def blocks():
+                r0 = 0
+                for s, r, nb in lay.buckets:
+                    e = s + r * nb
+                    x = lay.tiles["x"][s:e].view(r, nb * B, -1)
+                    y = lay.tiles["y"][s:e].view(r, nb * B)
+                    rows = torch.arange(r0, r0 + r, device=x.device)
+                    r0 += r
+                    yield (self._packed_fields(lay, x, y, rows),
+                           tile_mask[s:e].reshape(r, nb * B))
+
+            locals_cat = self._ragged_block_sgd(g_flat, lay, None, tile_mask,
+                                                blocks)
+            return locals_cat[lay.inv], None, None
+        locals_c, cohort = self._packed_gated_locals(g_flat, lay, selected,
+                                                     tile_mask)
+        locals_flat = self._expand_cohort(locals_c, cohort[0], cohort[1],
+                                          selected.shape[0], g_flat)
+        return locals_flat, locals_c, cohort
+
     # ------------------------------------------------------------------
     def _round_step(self, state: EngineState, data, eval_set, force_straggler,
                     train_flops: float):
@@ -287,12 +578,34 @@ class FedAREngine:
             self.draws.gumbel(r, N), state.trust, state.resources, self.req, fed
         )
 
-        # --- lines 16-21 (ClientUpdate) over the whole block;
-        # non-participants are masked out of the aggregate
+        # --- lines 16-21 (ClientUpdate); non-participants are masked out
+        # of the aggregate, or with select_frac not trained at all
         g_flat = state.params
-        fields = {k: data[k] for k in self.model.data_keys}
-        locals_flat = self._block_sgd(g_flat, fields, data.get("mask"))
+        locals_c = cohort = None  # the compact gated-cohort view
+        if "packed" in data:
+            locals_flat, locals_c, cohort = self._packed_locals(
+                g_flat, data["packed"], selected, r)
+        else:
+            # ragged / drifting shards: this round's sample mask
+            sample_mask = data.get("mask")
+            if "round_mask" in data:
+                rm = data["round_mask"]
+                window = rm[r % rm.shape[0]]
+                sample_mask = (window if sample_mask is None
+                               else sample_mask & window)
+            fields = {k: data[k] for k in self.model.data_keys}
+            if self.cohort_cap is None:
+                locals_flat = self._block_sgd(g_flat, fields, sample_mask)
+            else:
+                idx, locals_c, valid = self._gated_block_locals(
+                    g_flat, fields, sample_mask, selected)
+                cohort = (idx, valid)
+                locals_flat = self._expand_cohort(locals_c, idx, valid, N,
+                                                  g_flat)
         deltas = locals_flat - g_flat[None, :]
+        # deviation and the fedar / fedavg reduction only need the cohort
+        # rows (the rest are exact zeros)
+        delta_c = None if locals_c is None else locals_c - g_flat[None, :]
 
         # --- virtual time: latency per client, straggler = late vs timeout
         lat = round_latency(
@@ -327,6 +640,9 @@ class FedAREngine:
                 transmit = uplinked & (lag0 | ~state.pending_valid)
             else:
                 transmit = uplinked & on_time
+            # the compact view is a compute shortcut: after the decode the
+            # canonical rows are what every later op must see
+            delta_c = cohort = None
             unif = (self.draws.uniform(r, N, self.dim)
                     if self.compression.needs_uniforms else None)
             deltas_raw = deltas
@@ -342,6 +658,8 @@ class FedAREngine:
             row_ok = row_ok & (deltas.abs() <= cap)
         quarantined = ~row_ok.all(dim=-1)
         deltas = torch.where(quarantined[:, None], 0.0, deltas)
+        if cohort is not None:
+            delta_c = torch.where(quarantined[cohort[0]][:, None], 0.0, delta_c)
         if self.compression.active:
             # dropped-uplink retry: a quarantined transmission consumed its
             # residual for nothing, so the full raw value (delta + pre-round
@@ -363,7 +681,8 @@ class FedAREngine:
         # participant's update eventually lands, so all of them are screened
         active = uplinked if fed.aggregation == "async" else selected & on_time
         deviated = agg.deviation_mask(
-            deltas, active & ~quarantined, fed.deviation_gamma
+            deltas if cohort is None else delta_c, active & ~quarantined,
+            fed.deviation_gamma, cohort=cohort,
         )
         deviated = deviated | (seen & quarantined)
         contributing = active & ~deviated
@@ -382,9 +701,11 @@ class FedAREngine:
             valid=state.pending_valid,
         )
         round_time = torch.full((), fed.timeout, device=self.device)
+        agg_rows = deltas if cohort is None else delta_c
         if fed.aggregation == "fedavg":
             g_new = agg.fedavg_aggregate(
-                g_flat, deltas, weights, uplinked & ~deviated, impl=fed.agg_impl
+                g_flat, agg_rows, weights, uplinked & ~deviated,
+                impl=fed.agg_impl, cohort=cohort,
             )
             round_time = torch.where(uplinked, lat, 0.0).max()
         elif fed.aggregation == "async":
@@ -400,7 +721,8 @@ class FedAREngine:
             )
         else:  # fedar (timeout skip)
             g_new = agg.fedavg_aggregate(
-                g_flat, deltas, weights, contributing, impl=fed.agg_impl
+                g_flat, agg_rows, weights, contributing, impl=fed.agg_impl,
+                cohort=cohort,
             )
 
         # --- line 15 + Algorithm 1: trust and battery evolution
@@ -465,7 +787,14 @@ class FedAREngine:
 
     # ------------------------------------------------------------------
     def _train_flops(self, data) -> float:
-        shape = tuple(data[self.model.data_keys[0]].shape[1:])
+        """Per-client FLOPs of the latency model, from the DENSE sample
+        width (``n_max`` for the packed layout): the physical layout must
+        not move straggler numerics."""
+        if "packed" in data:
+            lay = data["packed"]
+            shape = (lay.n_max,) + tuple(lay.tiles["x"].shape[2:])
+        else:
+            shape = tuple(data[self.model.data_keys[0]].shape[1:])
         return float(self.model.train_flops(shape, epochs=self.fed.local_epochs))
 
     def _force(self, force_straggler):

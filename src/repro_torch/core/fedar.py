@@ -17,6 +17,7 @@ import numpy as np
 from repro_torch.common.config import FedConfig
 from repro_torch.core.engine import FedAREngine, RoundOutputs, unflatten
 from repro_torch.core.resources import TaskRequirement
+from repro_torch.data.datasets import FederatedDataset
 
 
 @dataclass
@@ -92,10 +93,20 @@ class FedARServer:
                 self.history["loss"].append(float(loss[r]))
                 self.history["acc"].append(float(acc[r]))
 
+    def _resident_data(self, data):
+        """A ``FederatedDataset`` passed instead of a data dict is prepared
+        here (``FedAREngine.prepare_data``: dense or packed, per fleet)."""
+        if isinstance(data, FederatedDataset):
+            return self.engine.prepare_data(data)
+        return data
+
     def run_round(self, data, *, eval_set=None, force_straggler=None):
         """One communication round.  ``data``: dict of stacked per-client
         arrays x (N, n, 784), y (N, n), sizes (N,), activations (N,)
-        (0=relu, 1=softmax, Table II), optionally mask (N, n)."""
+        (0=relu, 1=softmax, Table II), optionally mask (N, n) and
+        round_mask (W, N, n); or a packed dict (``data["packed"]``); or a
+        ``FederatedDataset``."""
+        data = self._resident_data(data)
         self.state, out = self.engine.step(
             self.state, data, eval_set=eval_set, force_straggler=force_straggler
         )
@@ -104,6 +115,7 @@ class FedARServer:
 
     def run(self, data, rounds: int, eval_set=None, force_straggler=None):
         """Run ``rounds`` communication rounds; returns ``history``."""
+        data = self._resident_data(data)
         self.state, outs = self.engine.run(
             self.state, data, rounds=rounds, eval_set=eval_set,
             force_straggler=force_straggler,

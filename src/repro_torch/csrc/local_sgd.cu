@@ -1,20 +1,38 @@
 // Fused masked local SGD for the FedAR client MLP (784 -> H -> 10), one
-// thread block per client.
+// thread block per client, in two forms built from one template:
+//
+//   local_sgd_kernel<false>  the dense (R, npad) sample rectangle
+//   local_sgd_kernel<true>   the ragged batch-tile buffer of the packed
+//                            layout: client r walks its own nb[r] tiles
+//                            from tile off[r]
 //
 // Replaces: src/repro/kernels/local_sgd.py::local_sgd_fused (Pallas TPU;
-// body _sgd_kernel and _batch_body).  Each client runs E epochs x ceil(n/B)
-// batches of forward, hand-written backward and SGD update; the hidden
-// activation is ReLU or softmax per client (Table II); the loss gradient is
+// body _sgd_kernel and _batch_body) and ::local_sgd_fused_ragged (body
+// _ragged_kernel).  Each client runs E epochs x its batches of forward,
+// hand-written backward and SGD update; the hidden activation is ReLU or
+// softmax per client (Table II); the loss gradient is
 // (softmax - onehot) * m / max(sum m, 1); a batch whose mask count is zero
 // is skipped, like pl.when(cnt > 0).
 //
+// The ragged TPU kernel walks a (client, epoch, batch) grid up to the
+// widest client's batch count and skips the steps past nb[i], a TPU idiom
+// for keeping params resident in VMEM over a sequential grid.  Here the
+// ragged form is the dense block-per-client walk with a per-client tile
+// source: block r loops t < epochs * nb[r] over tile off[r] + t % nb[r].
+// The batch step is the same code in both forms, so a client's rows come
+// out bit-equal whether its tiles are read from the ragged buffer or from
+// the rectangle (all-masked batches are skipped in both, and masked
+// samples add exact zeros).
+//
 // What bounds it on an H100: the steps of one client are sequential, so the
 // TPU's sequential grid becomes a loop inside one block and only R blocks
-// (R clients) ever run.  Each step does ~4*B*I*H FLOPs of fp32 CUDA-core
-// work, but it is latency-bound on the w1 traffic: at H = 128, fp32 w1 is
-// 784*128*4 = 401 KB, more than the 227 KB of shared memory a block can
-// hold, so every step streams w1 from L2 several times (at B = 20 three
-// forward reads, one per 8-row tile, and the update's read-modify-write).
+// (R clients) ever run; the slowest block, the client with the most
+// batches, sets the kernel's time.  Each step does ~4*B*I*H FLOPs of fp32
+// CUDA-core work, but it is latency-bound on the w1 traffic: at H = 128,
+// fp32 w1 is 784*128*4 = 401 KB, more than the 227 KB of shared memory a
+// block can hold, so every step streams w1 from L2 several times (at B = 20
+// three forward reads, one per 8-row tile, and the update's
+// read-modify-write).
 //
 // What the design does about it: the working w1 lives in the client's own
 // output row in global memory, where it stays L2-resident (12 clients x
@@ -24,16 +42,19 @@
 // once, written out once).  The forward product reads each w1 column once
 // per group of kRows batch rows (register tile), the update touches each
 // w1 element once.  __syncthreads() separates the phases of a step, so
-// every step sees the previous step's update.  Known limit: R = 12 clients
-// fill 12 of 132 SMs; a later design splits a client over a thread-block
-// cluster with an H-slice of w1 in each block's shared memory.
+// every step sees the previous step's update.  Known limits: R = 12 clients
+// fill 12 of 132 SMs; a long client is one block's sequential chain; the x
+// tile of an all-masked batch is loaded before its count is known.  Later
+// designs split a client over a thread-block cluster with an H-slice of w1
+// in each block's shared memory.
 //
 // Layouts (all fp32 unless noted, row-major, contiguous):
 //   g      (D,)          global params, flat order b1 | b2 | w1 | w2
-//   x      (R, npad, I)  samples, npad = nb * B (zero-padded tail)
-//   y      (R, npad)     int32 labels
+//   dense:  x (R, npad, I) samples, npad = nb * B (zero-padded tail);
+//           y (R, npad) int32 labels; mask (R, npad) validity
+//   ragged: x (T, B, I) batch tiles; y (T, B) int32; mask (T, B);
+//           nb, off (R,) int32 batch count and first tile of each client
 //   act    (R,)          int32, 1 = softmax hidden, else ReLU
-//   mask   (R, npad)     validity (0 for padding)
 //   out    (R, D)        post-SGD params, same flat order as g
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,10 +75,12 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+template <bool kRagged>
 __global__ void __launch_bounds__(kThreads)
 local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
                  const int* __restrict__ y, const int* __restrict__ act,
-                 const float* __restrict__ mask, float* __restrict__ out,
+                 const float* __restrict__ mask, const int* __restrict__ nbs,
+                 const int* __restrict__ offs, float* __restrict__ out,
                  int npad, int I, int H, int C, int B, int epochs, float lr) {
   extern __shared__ float smem[];
   const int r = blockIdx.x;
@@ -92,11 +115,13 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   for (int k = tid; k < C; k += kThreads) b2s[k] = gb2[k];
   for (int k = B * I + tid; k < Bp * I; k += kThreads) xs[k] = 0.f;
   const bool soft = act[r] == 1;
-  const int nb = npad / B;
+  // the client's batch count and the sample row its batch 0 starts at
+  const int nb = kRagged ? nbs[r] : npad / B;
+  const long long first = kRagged ? (long long)offs[r] * B : (long long)r * npad;
   __syncthreads();
 
   for (int t = 0; t < epochs * nb; ++t) {
-    const long long row0 = (long long)r * npad + (long long)(t % nb) * B;
+    const long long row0 = first + (long long)(t % nb) * B;
     const float* xsrc = x + row0 * I;
     for (int k = tid; k < B * I; k += kThreads) xs[k] = xsrc[k];
     for (int k = tid; k < B; k += kThreads) {
@@ -236,9 +261,25 @@ extern "C" int fedar_local_sgd(const float* g, const float* x, const int* y,
                                int epochs, float lr, int smem_bytes,
                                void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      local_sgd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      local_sgd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  local_sgd_kernel<<<R, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      g, x, y, act, mask, out, npad, I, H, C, B, epochs, lr);
+  local_sgd_kernel<false><<<R, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      g, x, y, act, mask, nullptr, nullptr, out, npad, I, H, C, B, epochs, lr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int fedar_local_sgd_ragged(const float* g, const float* xt,
+                                      const int* yt, const int* act,
+                                      const float* mt, const int* nb,
+                                      const int* off, float* out, int R, int I,
+                                      int H, int C, int B, int epochs, float lr,
+                                      int smem_bytes, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      local_sgd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  local_sgd_kernel<true><<<R, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      g, xt, yt, act, mt, nb, off, out, 0, I, H, C, B, epochs, lr);
   return (int)cudaGetLastError();
 }

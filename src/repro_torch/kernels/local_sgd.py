@@ -1,11 +1,15 @@
-"""Kernel 1: fused masked local SGD for the FedAR client MLP.
+"""Kernels 1 and 4: fused masked local SGD for the FedAR client MLP.
 
 ClientUpdate (Algorithm 2 lines 16-21) is the round's FLOP-dominant op:
 every client runs E epochs of batch SGD on its local shard.  The CUDA
 kernel (``csrc/local_sgd.cu``, one thread block per client) runs each
-client's whole epochs x batches loop in one launch; it replaces the Pallas
-TPU kernel ``repro/kernels/local_sgd.py::local_sgd_fused``.  Its plain
-PyTorch version is ``ref.local_sgd_ref``.
+client's whole epochs x batches loop in one launch.  ``local_sgd`` takes the
+dense (R, n) sample rectangle and replaces the Pallas TPU kernel
+``repro/kernels/local_sgd.py::local_sgd_fused``; ``local_sgd_ragged`` takes
+the packed layout's batch-tile buffer, each client reading its own tiles,
+and replaces ``local_sgd_fused_ragged``.  Both are one CUDA template, so a
+client's row is bit-equal between the two.  Their plain PyTorch versions
+are ``ref.local_sgd_ref`` and ``ref.local_sgd_ragged_ref``.
 """
 from __future__ import annotations
 
@@ -52,12 +56,7 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
         y = torch.nn.functional.pad(y, (0, pad))
         m = torch.nn.functional.pad(m, (0, pad))
     lib = ops.library()
-    smem = lib.fedar_local_sgd_smem_bytes(I, H, C, B)
-    if smem > ops.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"local_sgd kernel needs {smem} bytes of shared memory for "
-            f"I={I}, H={H}, C={C}, B={B}; a block may use {ops.MAX_SMEM_BYTES}"
-        )
+    smem = _smem_bytes(lib, I, H, C, B)
     out = torch.empty((R, D), dtype=torch.float32, device=dev)
     if R == 0:
         return out
@@ -72,3 +71,68 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
 
 
 local_sgd.launches = 0
+
+
+def _smem_bytes(lib, I: int, H: int, C: int, B: int) -> int:
+    smem = lib.fedar_local_sgd_smem_bytes(I, H, C, B)
+    if smem > ops.MAX_SMEM_BYTES:
+        raise ValueError(
+            f"local_sgd kernel needs {smem} bytes of shared memory for "
+            f"I={I}, H={H}, C={C}, B={B}; a block may use {ops.MAX_SMEM_BYTES}"
+        )
+    return smem
+
+
+def local_sgd_ragged(g_flat, xt, yt, mt, act, nb, off, *, hidden: int,
+                     classes: int, lr: float, epochs: int):
+    """Every client's masked local SGD over a ragged batch-tile buffer:
+    client r runs E epochs over its ``nb[r]`` tiles ``xt[off[r] : off[r] +
+    nb[r]]``; a tile whose mask count is zero is skipped, and a client with
+    ``nb == 0`` keeps the global row.
+
+    g_flat (D,) float32 (flat order ``b1, b2, w1, w2``); xt (T, B, I)
+    float32; yt (T, B) int32; mt (T, B) bool or float32 validity; act, nb,
+    off (R,) int32, each client's tiles within the buffer (checked: one
+    device-to-host read of a flag per call).  Returns the (R, D) post-SGD
+    flat rows, float32.
+
+    On CPU tensors this is the plain version; on CUDA tensors it launches
+    the kernel, or raises if the shapes do not fit it."""
+    if not xt.is_cuda:
+        return ref.local_sgd_ragged_ref(g_flat, xt, yt, mt, act, nb, off,
+                                        hidden=hidden, classes=classes,
+                                        lr=lr, epochs=epochs)
+    dev = xt.device
+    T, B, I = xt.shape
+    R = act.shape[0]
+    H, C = hidden, classes
+    D = H + C + I * H + H * C
+    ops.require(g_flat, "g_flat", torch.float32, (D,), dev)
+    ops.require(xt, "xt", torch.float32, (T, B, I), dev)
+    ops.require(yt, "yt", torch.int32, (T, B), dev)
+    if mt.dtype not in (torch.bool, torch.float32):
+        raise ValueError(f"mt has dtype {mt.dtype}, expected bool or float32")
+    m = mt.to(torch.float32)
+    ops.require(m, "mt", torch.float32, (T, B), dev)
+    for t, name in ((act, "act"), (nb, "nb"), (off, "off")):
+        ops.require(t, name, torch.int32, (R,), dev)
+    if B < 1 or epochs < 0:
+        raise ValueError(f"batch_size={B}, epochs={epochs}")
+    lib = ops.library()
+    smem = _smem_bytes(lib, I, H, C, B)
+    out = torch.empty((R, D), dtype=torch.float32, device=dev)
+    if R == 0:
+        return out
+    if bool(((nb < 0) | (off < 0) | (off.to(torch.int64) + nb > T)).any()):
+        raise ValueError(f"nb / off address tiles outside the {T}-tile buffer")
+    err = lib.fedar_local_sgd_ragged(
+        g_flat.data_ptr(), xt.data_ptr(), yt.data_ptr(), act.data_ptr(),
+        m.data_ptr(), nb.data_ptr(), off.data_ptr(), out.data_ptr(), R, I, H,
+        C, B, epochs, lr, smem, ops.stream_ptr(xt),
+    )
+    ops.check_launch(err, "local_sgd_ragged")
+    local_sgd_ragged.launches += 1
+    return out
+
+
+local_sgd_ragged.launches = 0

@@ -116,6 +116,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.fedar_local_sgd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P]
     lib.fedar_local_sgd.restype = I
+    lib.fedar_local_sgd_ragged.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F,
+                                           I, P]
+    lib.fedar_local_sgd_ragged.restype = I
     lib.fedar_local_sgd_smem_bytes.argtypes = [I, I, I, I]
     lib.fedar_local_sgd_smem_bytes.restype = I
     lib.fedar_fedavg_agg.argtypes = [P, P, P, P, I, L, P]

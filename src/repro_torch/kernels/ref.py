@@ -88,6 +88,34 @@ def local_sgd_ref(g_flat, x, y, act, mask, *, hidden: int, classes: int,
     )
 
 
+def local_sgd_ragged_ref(g_flat, xt, yt, mt, act, nb, off, *, hidden: int,
+                         classes: int, lr: float, epochs: int):
+    """``local_sgd_ref`` over a ragged batch-tile buffer: client r runs E
+    epochs over its own ``nb[r]`` tiles ``xt[off[r] : off[r] + nb[r]]``.
+    xt (T, B, I), yt (T, B), mt (T, B) bool/float validity, act / nb / off
+    (R,) int.  Clients are grouped by ``nb`` and each group runs
+    ``local_sgd_ref`` once, on its tiles laid end to end; a client with
+    ``nb == 0`` keeps the global row.  Returns the (R, D) post-SGD rows."""
+    R = act.shape[0]
+    T, B, I = xt.shape
+    D = hidden + classes + I * hidden + hidden * classes
+    out = g_flat.to(torch.float32).expand(R, D).clone()
+    nb64 = nb.to(torch.int64)
+    for count in torch.unique(nb64).tolist():
+        if count == 0:
+            continue
+        rows = torch.nonzero(nb64 == count).flatten()
+        tiles = off.to(torch.int64)[rows, None] + torch.arange(
+            count, device=xt.device)
+        out[rows] = local_sgd_ref(
+            g_flat, xt[tiles].reshape(-1, count * B, I),
+            yt[tiles].reshape(-1, count * B), act[rows],
+            mt[tiles].reshape(-1, count * B), hidden=hidden, classes=classes,
+            lr=lr, batch_size=B, epochs=epochs,
+        )
+    return out
+
+
 def sketch_similarity_ref(unit_loc, unit_full):
     """Defense similarity block: (M, K) @ (N, K).T -> (M, N) float32."""
     return torch.einsum(

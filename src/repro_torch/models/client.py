@@ -22,7 +22,11 @@ a ``ClientModel``:
 validity mask over the sample axis, or ``None`` on the dense path.
 
 ``supports_fused`` marks a family with a fused local-SGD CUDA kernel, which
-``fused_block_update`` launches over a whole client block.
+``fused_block_update`` launches over a whole client block (and
+``fused_ragged_update`` over the packed layout's batch-tile buffer).
+``packed_supported`` marks a family that understands the size-bucketed
+packed layout (``FederatedDataset.packed_arrays``), whose buckets reuse the
+``data_keys`` field names.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ class ClientModel:
     #: keys of the stacked per-client tensors this model trains on
     data_keys: tuple = ()
     supports_fused: bool = False
+    packed_supported: bool = False
 
     def init(self, generator, device):
         """One client's parameter dict."""
@@ -63,6 +68,15 @@ class ClientModel:
         """Fused-kernel ClientUpdate over a whole client block -> the
         stacked (rows, D) post-SGD flat params, in ``core.engine.flatten``
         order.  Only families with ``supports_fused`` implement it."""
+        raise NotImplementedError(
+            f"model family {self.family!r} has no fused local-SGD kernel"
+        )
+
+    def fused_ragged_update(self, global_flat, tiles, tile_mask, rows, *,
+                            lr, epochs):
+        """Fused-kernel ClientUpdate over the packed layout's batch-tile
+        buffer -> the (R, D) post-SGD flat params of the R clients in
+        ``rows``.  Only families with ``supports_fused`` implement it."""
         raise NotImplementedError(
             f"model family {self.family!r} has no fused local-SGD kernel"
         )

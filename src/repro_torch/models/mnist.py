@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs.fedar_mnist import MnistConfig
 from repro_torch.kernels.local_sgd import local_sgd as local_sgd_kernel
+from repro_torch.kernels.local_sgd import local_sgd_ragged
 from repro_torch.models.client import ClientModel
 
 
@@ -105,12 +106,14 @@ class MnistClientModel(ClientModel):
 
     Data fields: ``x`` (R, n, 784) flattened images, ``y`` (R, n) labels,
     ``activations`` (R,) per-robot hidden activation id (0=ReLU,
-    1=Softmax).  Ships the fused local-SGD CUDA kernel.
+    1=Softmax).  Ships the fused local-SGD CUDA kernel, dense and ragged,
+    and takes the packed layout.
     """
 
     family = "mnist_mlp"
     data_keys = ("x", "y", "activations")
     supports_fused = True
+    packed_supported = True
 
     def __init__(self, cfg: MnistConfig | None = None):
         self.cfg = cfg if cfg is not None else MnistConfig()
@@ -154,4 +157,20 @@ class MnistClientModel(ClientModel):
             global_flat, x, fields["y"], fields["activations"], m,
             hidden=self.cfg.hidden, classes=self.cfg.num_classes, lr=lr,
             batch_size=batch_size, epochs=epochs,
+        )
+
+    def fused_ragged_update(self, global_flat, tiles, tile_mask, rows, *,
+                            lr, epochs):
+        """One launch of the ragged kernel runs the whole packed layout (or
+        a gated cohort of it): ``tiles`` holds the batch-tile buffer
+        ``x`` (T, B, I) / ``y`` (T, B), ``tile_mask`` (T, B) is this round's
+        validity, and ``rows`` = (act, nb, off), each (R,) int32, names the
+        R clients to train: client r walks its own ``nb[r]`` tiles from
+        ``off[r]``.  Returns the (R, D) post-SGD flat rows in ``rows``
+        order."""
+        act, nb, off = rows
+        return local_sgd_ragged(
+            global_flat, tiles["x"], tiles["y"], tile_mask, act, nb, off,
+            hidden=self.cfg.hidden, classes=self.cfg.num_classes, lr=lr,
+            epochs=epochs,
         )

@@ -16,12 +16,13 @@ import torch
 from repro_torch.configs.fedar_mnist import fleet_fed, small_model
 from repro_torch.core.fedar import FedARServer
 from repro_torch.core.resources import TaskRequirement
+from repro_torch.data.datasets import make_federated
 from repro_torch.data.federated import table2_fleet
 from repro_torch.kernels import ref
 from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
 from repro_torch.kernels.defense_sim import sketch_similarity
 from repro_torch.kernels.fedavg_agg import fedavg_agg
-from repro_torch.kernels.local_sgd import local_sgd
+from repro_torch.kernels.local_sgd import local_sgd, local_sgd_ragged
 
 pytestmark = pytest.mark.cuda
 
@@ -175,6 +176,72 @@ def test_round_on_the_card_matches_plain_route(cuda_device):
     server.run(data, rounds=3)
     after = [k.launches for k in (local_sgd, fedavg_agg, sketch_similarity)]
     assert all(a > c for a, c in zip(after, counts))
+    plain = FedARServer(small_model(32), dataclasses.replace(
+        fed, sgd_impl="einsum", agg_impl="einsum", defense_impl="einsum"),
+        TaskRequirement(), device=cuda_device)
+    plain.run(data, rounds=3)
+    for key in ("trust", "selected", "on_time"):
+        np.testing.assert_array_equal(np.stack(server.history[key]),
+                                      np.stack(plain.history[key]))
+    torch.testing.assert_close(server.state.params, plain.state.params,
+                               rtol=2e-4, atol=2e-4)
+
+
+def _ragged_from_dense(x, y, mask, B):
+    """Tile each client's first ``nb[r] = ceil(extent / B)`` batches of the
+    dense rectangle into a ragged buffer, one client after another."""
+    R, n = mask.shape
+    last = torch.where(mask.any(1),
+                       n - torch.flip(mask, [1]).to(torch.int8).argmax(1), 1)
+    nb = ((last + B - 1) // B).to(torch.int32)
+    nb_pad = -(-n // B)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, nb_pad * B - n)).view(R, nb_pad, B, -1)
+    yp = torch.nn.functional.pad(y, (0, nb_pad * B - n)).view(R, nb_pad, B)
+    mp = torch.nn.functional.pad(mask, (0, nb_pad * B - n)).view(R, nb_pad, B)
+    keep = torch.arange(nb_pad, device=x.device)[None, :] < nb[:, None]
+    off = (torch.cumsum(nb, 0) - nb).to(torch.int32)
+    return (xp[keep].contiguous(), yp[keep].contiguous(), mp[keep].contiguous(),
+            nb, off)
+
+
+@pytest.mark.parametrize("I,H", [(16, 8), (784, 128)])
+def test_local_sgd_ragged_kernel_matches_plain_and_dense(cuda_device, I, H):
+    """The ragged kernel against its plain version (fp32 sums in another
+    order), and bit-equal to the dense kernel on the same clients: one
+    template, the same batches, masked samples add exact zeros."""
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=I, H=H, n=57)
+    xt, yt, mt, nb, off = _ragged_from_dense(x, y, mask, 20)
+    kw = dict(hidden=H, classes=10, lr=0.1, epochs=3)
+    n0 = local_sgd_ragged.launches
+    got = local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw)
+    assert local_sgd_ragged.launches == n0 + 1
+    torch.testing.assert_close(
+        got, ref.local_sgd_ragged_ref(g, xt, yt, mt, act, nb, off, **kw),
+        rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, local_sgd(g, x, y, act, mask, batch_size=20, **kw))
+    assert torch.equal(got[2], g)  # all-False client: unchanged
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda_device)
+    out = local_sgd_ragged(g, xt, yt, mt, empty, empty, empty, **kw)
+    assert out.shape == (0, g.shape[0])
+    assert local_sgd_ragged.launches == n0 + 1  # R = 0 launches nothing
+    with pytest.raises(ValueError, match="outside"):
+        local_sgd_ragged(g, xt, yt, mt, act, nb, off + 1, **kw)
+
+
+@pytest.mark.parametrize("select_frac", [None, 0.5])
+def test_packed_rounds_on_the_card_match_plain_route(cuda_device, select_frac):
+    """The packed layout on the card runs the ragged kernel and never the
+    dense one; the plain route gives the same trust and masks exactly and
+    params within 2e-4."""
+    ds = make_federated("digits", 16, scenario="quantity_skew",
+                        samples_per_client=60, seed=7)
+    fed = fleet_fed(16, defense="foolsgold_sketch", select_frac=select_frac)
+    server = FedARServer(small_model(32), fed, TaskRequirement())
+    data = server.engine.prepare_data(ds, layout="packed")
+    counts = [k.launches for k in (local_sgd, local_sgd_ragged)]
+    server.run(data, rounds=3)
+    assert local_sgd.launches == counts[0]
+    assert local_sgd_ragged.launches == counts[1] + 3
     plain = FedARServer(small_model(32), dataclasses.replace(
         fed, sgd_impl="einsum", agg_impl="einsum", defense_impl="einsum"),
         TaskRequirement(), device=cuda_device)
