@@ -48,15 +48,29 @@ Phases (any failure raises and the script exits non-zero):
    rounds so that every window trains; ``local_sgd_ragged`` must launch,
    and the plain-route check of phase 4.
 
+9. Serving prefill on zamba2-7b at full width and depth (81 Mamba2 layers,
+   the shared attention block after every 6th: 13 applications), bf16,
+   params from ``Model.init_params`` on a seeded CUDA generator: 4 requests
+   of 4 prompts x 2,048 tokens and one of 1 x 8,192 (the first is warm-up),
+   each returning next-token logits and the greedy token.  Each request must
+   launch ``flash_attention`` 13 times and ``ssm_scan`` 81 times.  One
+   request of each shape runs again under ``torch.profiler`` for each
+   kernel's device ms per request and the device idle share.  Then, in
+   fp32 at the same width (27 GB, after the bf16 model is freed), one
+   1 x 1,024 request through the kernel route and the plain route
+   (``attn_impl = ssm_impl = "einsum"``) from the same params: logits within
+   tolerance and the same greedy token.
+
 Phase 2 also holds ``local_sgd_ragged`` on phase 7's tile buffer against its
 plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
-(N, n_max) rectangle.
+(N, n_max) rectangle; and ``flash_attention`` and ``ssm_scan`` against
+their plain versions at phase 9's shapes, in bf16 and fp32.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.  ``--profile DIR`` also writes a
 ``torch.profiler`` table of one round of phases 3, 4, 5, 7 (both layouts)
-and 8.
+and 8, and of each profiled request of phase 9.
 """
 from __future__ import annotations
 
@@ -77,14 +91,17 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 
-# H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor-core) peak
+# H100 SXM data sheet: HBM3 bandwidth, fp32 (non-tensor-core) peak, dense
+# bf16 tensor-core peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -305,11 +322,13 @@ def ragged_phase(ref, local_sgd_ragged, local_sgd, packed, dense):
                   rect[packed.perm[real]])
     k_ms = time_ms(lambda: local_sgd_ragged(g, *args, **kw), reps=3)
     p_ms = time_ms(lambda: ref.local_sgd_ragged_ref(g, *args, **kw), reps=2)
-    d_ms = time_ms(lambda: local_sgd(g, dense["x"], dense["y"], dense["activations"],
-                                     dense["mask"], batch_size=B, **kw), reps=3)
+    rect_args = (g, dense["x"], dense["y"], dense["activations"], dense["mask"])
+    d_ms = time_ms(lambda: local_sgd(*rect_args, batch_size=B, **kw), reps=3)
+    dp_ms = time_ms(lambda: ref.local_sgd_ref(*rect_args, batch_size=B, **kw), reps=2)
     b_ms, b_by = ragged_bound(packed, packed.tile_mask, None, D, H, C, E)
     print(f"  kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3g} ms "
-          f"({b_by}); local_sgd on the dense rectangle {d_ms:.3f} ms")
+          f"({b_by}); local_sgd on the dense rectangle {d_ms:.3f} ms (its plain "
+          f"version {dp_ms:.3f} ms)")
     # what the block order and the longest chain cost (for a later perf PR):
     # the same launch with the rows widest first, and the longest row alone
     desc = packed.desc_rows
@@ -569,6 +588,288 @@ def profile_round(server, data, eval_set, path: Path, label: str, force=None):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:70]}")
 
 
+# bf16 outputs: the kernel and the plain version each round an fp32 result
+# to bf16 (8 bits of mantissa), so they may differ by an ulp of the output
+BF16_RTOL = 1.6e-2
+
+
+def attn_bound(B, S, H, K, hd, window, dtype):
+    """Bytes: q and the output (H heads), k and v (K heads), once each.
+    FLOPs: 2 products of 2 hd FLOPs per live (query, key) pair, the causal
+    half (a band of ``window`` under a window).  Peak by input dtype."""
+    w = window or S
+    live = w * (w + 1) // 2 + (S - w) * w if S > w else S * (S + 1) // 2
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * B * S * hd * (2 * H + 2 * K)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return bound_ms(nbytes, 4 * B * H * hd * live, peak)
+
+
+def ssd_bound(B, S, nh, hd, st, chunk, dtype):
+    """Bytes: x in and y out (xd's dtype), the fp32 log-decays, B and C.
+    FLOPs of the chunked SSD at the model's chunk L, counted from the
+    reference's kernel: per (batch, chunk) one C B^T (2 L^2 st, shared by
+    the heads), and per head the intra-chunk term over the causal half
+    (L (L + 1) hd), the inter-chunk term and the state update (2 L st hd
+    each).  Peak by input dtype."""
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = esize * (2 * B * S * nh * hd + 2 * B * S * st) + 4 * B * S * nh
+    L = min(chunk, S)
+    nc = -(-S // L)
+    flops = B * nc * (2 * L * L * st + nh * (L * (L + 1) * hd + 4 * L * st * hd))
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return bound_ms(nbytes, flops, peak)
+
+
+def lm_kernel_phase(ref, flash_attention, ssm_scan, flash_cases, ssm_case, chunk):
+    """Phase 2, the LM kernels at phase 9's shapes, each in bf16 and fp32,
+    against their plain versions on the same inputs.  Returns the JSON
+    entries of the main path's case (the first, in bf16)."""
+    entries = {}
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    print("flash_attention (fp32: atol = rtol = 1e-4, sums and exponentials in "
+          f"another order; bf16: rtol = {BF16_RTOL}, an ulp of the output)")
+    for n, (label, B, S, H, K, hd, window) in enumerate(flash_cases):
+        q32, k32, v32 = (torch.randn(B, S, h, hd, generator=gen, device=DEV)
+                         for h in (H, K, K))
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            got = flash_attention(q, k, v, causal=True, window=window)
+            want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
+            fp32 = dtype == torch.float32
+            err = compare(f"{label}: (B, S, H, K, hd) = {(B, S, H, K, hd)}, window "
+                          f"{window}, {str(dtype)[6:]}", got.float(), want.float(),
+                          atol=1e-4 if fp32 else 0.0, rtol=1e-4 if fp32 else BF16_RTOL)
+            del got, want
+            # the library yardstick: one SDPA call in its own (B, H, S, hd)
+            # layout, transposed outside the timed call
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            band = None
+            if window:
+                i = torch.arange(S, device=DEV)
+                band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            k_ms = time_ms(lambda: flash_attention(q, k, v, causal=True, window=window),
+                           reps=5)
+            p_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
+                                                           window=window), reps=3)
+            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=band, is_causal=band is None,
+                enable_gqa=K != H), reps=5)
+            b_ms, b_by = attn_bound(B, S, H, K, hd, window, dtype)
+            print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library {lib_ms:.3f} ms "
+                  f"(scaled_dot_product_attention), bound {b_ms:.4f} ms ({b_by})")
+            if n == 0 and dtype == torch.bfloat16:
+                entries["flash_attention"] = dict(
+                    name="flash_attention", route="cuda",
+                    source="src/repro_torch/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention.py:71", max_abs_err=err,
+                    ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
+            del q, k, v, qt, kt, vt
+
+    label, B, S, nh, hd, st = ssm_case
+    print("ssm_scan against the sequential recurrence (fp32: atol = rtol = 1e-3, "
+          f"sums in another order over {S} steps; bf16: rtol = {BF16_RTOL})")
+    # as the model makes them: dt = softplus(.), A = -linspace(1, 16, nh)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, nh, generator=gen, device=DEV))
+    logdecay = dt * -torch.linspace(1.0, 16.0, nh, device=DEV)
+    x32 = torch.randn(B, S, nh, hd, generator=gen, device=DEV) * dt[..., None]
+    B32, C32 = (torch.randn(B, S, st, generator=gen, device=DEV) for _ in "BC")
+    for dtype in (torch.bfloat16, torch.float32):
+        xd, Bc, Cc = (t.to(dtype) for t in (x32, B32, C32))
+        got = ssm_scan(xd, logdecay, Bc, Cc)
+        want = ref.ssm_scan_ref(xd, logdecay, Bc, Cc).to(dtype)
+        fp32 = dtype == torch.float32
+        err = compare(f"{label}: (B, S, nh, hd, st) = {(B, S, nh, hd, st)}, "
+                      f"{str(dtype)[6:]}", got.float(), want.float(),
+                      atol=1e-3 if fp32 else 0.0, rtol=1e-3 if fp32 else BF16_RTOL)
+        del got, want
+        k_ms = time_ms(lambda: ssm_scan(xd, logdecay, Bc, Cc), reps=5)
+        p_ms = time_ms(lambda: ref.ssm_scan_ref(xd, logdecay, Bc, Cc), reps=2)
+        b_ms, b_by = ssd_bound(B, S, nh, hd, st, chunk, dtype)
+        print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library none, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        if dtype == torch.bfloat16:
+            entries["ssm_scan"] = dict(
+                name="ssm_scan", route="cuda", source="src/repro_torch/csrc/ssm_scan.cu",
+                replaces="src/repro/kernels/ssm_scan.py:65", max_abs_err=err, ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return entries
+
+
+def profile_request(model, params, tokens, names, path, label):
+    """One request under ``torch.profiler``: each kernel's device ms and
+    launches in it, and the device busy and idle share of its wall time."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": tokens}).argmax(-1).cpu()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    per = {}
+    for name in names:
+        rows = [e for e in on_device if f"{name}_kernel" in e.key]
+        per[name] = (sum(e.self_device_time_total for e in rows) / 1e3,
+                     sum(e.count for e in rows))
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}; per request: " + ", ".join(
+              f"{n} {ms:.3f} ms in {c} launches" for n, (ms, c) in per.items()))
+    for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:70]}")
+    if path is not None:
+        path.mkdir(parents=True, exist_ok=True)
+        (path / f"profile_{label}.txt").write_text(
+            events.table(sort_by="self_device_time_total", row_limit=-1))
+
+
+def check_blocks(cfg, params, toks):
+    """The route check, block by block: the request runs through the kernel
+    route, and each of its block applications (every Mamba2 layer, and the
+    shared attention block after every ``shared_attn_every``-th) also runs
+    through the plain route from the same input.  Each block's increment to
+    the residual must agree within atol = rtol = 1e-4 (fp32 sums in another
+    order inside one block), and so must the logits from the last hidden
+    state, with the same greedy token."""
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import rms_norm
+
+    worst = (-1.0, 0.0, 0.0)  # (err / limit, err, limit) of the closest block
+    n = 0
+    with torch.inference_mode():
+        x = torch.nn.functional.embedding(toks.long(), params["embed"])
+        pos = torch.arange(x.shape[1], device=x.device)
+        shared = params["shared_attn"]
+
+        def both(fn):
+            nonlocal worst, n
+            got, want = fn("kernel") - x, fn("einsum") - x
+            err = (got - want).abs().max().item()
+            limit = 1e-4 + 1e-4 * want.abs().max().item()
+            if err > limit:
+                raise AssertionError(f"block {n}: kernel route off by {err:.3e} "
+                                     f"(tolerance {limit:.3e})")
+            worst = max(worst, (err / limit, err, limit))
+            n += 1
+            return x + got, x + want
+
+        for i, lp in enumerate(params["layers"]):
+            x, last = both(lambda impl: blocks.mamba_block_forward(lp, x, cfg, impl))
+            if (i + 1) % cfg.shared_attn_every == 0:
+                x, last = both(lambda impl: blocks.attn_block_forward(
+                    shared, x, pos, cfg, cfg.sliding_window, impl))
+
+        w_head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+        def head(h):
+            return rms_norm(h[:, -1], params["final_norm"], cfg.norm_eps) @ w_head
+
+        lk, lpl = head(x), head(last)
+    print(f"  {n} blocks, each from the same input on both routes: closest to its "
+          f"tolerance max_abs_err={worst[1]:.3e} (tolerance {worst[2]:.3e}: atol=1e-4 + "
+          f"rtol=1e-4 * max|plain increment|) ok")
+    compare("logits from the last block's two outputs", lk, lpl, atol=1e-4, rtol=1e-4)
+    if not torch.equal(lk.argmax(-1), lpl.argmax(-1)):
+        raise AssertionError("the greedy token differs between the kernel and plain routes")
+    top2 = torch.topk(lpl, 2, dim=-1).values
+    print(f"  greedy token {lk.argmax(-1).tolist()} identical on both routes ok "
+          f"(top-2 gap {(top2[:, 0] - top2[:, 1]).tolist()})")
+
+
+def serve_phase(cfg, lm_kernels, every, requests, check_shape, expect_params,
+                profile_dir):
+    """Phase 9: serving prefill.  ``requests`` is a list of (batch, seq)
+    shapes, the first a warm-up; each request's launches must be one
+    ``flash_attention`` per shared-block application and one ``ssm_scan``
+    per layer.  Then the fp32 route check at ``check_shape``.  Returns the
+    launch counts of the timed run."""
+    from repro_torch.models.model import Model, param_count
+
+    flash, ssm = lm_kernels
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    print(f"[set-up] {cfg.name}: {n_params:,} params in {cfg.dtype} "
+          f"({torch.cuda.memory_allocated() / 2**30:.3f} GiB on the card) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    if expect_params is not None and n_params != expect_params:
+        raise AssertionError(f"{n_params} params, the reference has {expect_params}")
+    per_req = (cfg.num_layers // cfg.shared_attn_every, cfg.num_layers)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, shape, generator=gen, device=DEV)
+               for shape in requests]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in every:
+        k.launches = 0
+    times = []
+    for toks in prompts:
+        before = (flash.launches, ssm.launches)
+        t0 = time.perf_counter()
+        logits = model.prefill(params, {"tokens": toks})
+        greedy = logits.argmax(-1).cpu()  # the request's answer; a sync
+        times.append(time.perf_counter() - t0)
+        got = (flash.launches - before[0], ssm.launches - before[1])
+        if got != per_req:
+            raise AssertionError(f"request {tuple(toks.shape)} launched (flash_attention, "
+                                 f"ssm_scan) = {got}, expected {per_req}")
+        if (logits.shape != (toks.shape[0], cfg.vocab_size)
+                or not torch.isfinite(logits).all()
+                or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all()):
+            raise AssertionError("prefill gave misshapen or non-finite logits")
+        print(f"  request {tuple(toks.shape)}: {times[-1] * 1e3:.3f} ms, greedy "
+              f"{greedy.tolist()}, launches flash_attention {got[0]}, ssm_scan {got[1]}")
+    launches = {k.__name__: k.launches for k in lm_kernels}
+    print(f"launches in this run: {launches}")
+    timed = times[1:]
+    ntok = sum(int(t.numel()) for t in prompts[1:])
+    print(f"requests/s over requests 2-{len(times)}: {len(timed) / sum(timed):.4f}; "
+          f"prompt tokens/s: {ntok / sum(timed):.1f}")
+    print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    for toks in {tuple(t.shape): t for t in prompts}.values():
+        profile_request(model, params, toks, ("flash_attention", "ssm_scan"),
+                        profile_dir, f"prefill_{toks.shape[0]}x{toks.shape[1]}")
+    del params, logits, prompts
+    torch.cuda.empty_cache()
+
+    # the route check in fp32: the kernel route against the plain route
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = Model(cfg32)
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(2))
+    toks = torch.randint(0, cfg.vocab_size, check_shape, generator=gen, device=DEV)
+    before = (flash.launches, ssm.launches)
+    got = model.prefill(params, {"tokens": toks})
+    if (flash.launches - before[0], ssm.launches - before[1]) != per_req:
+        raise AssertionError("the fp32 kernel route did not run each kernel per layer")
+    plain = Model(cfg32, attn_impl="einsum", ssm_impl="einsum")
+    t0 = time.perf_counter()
+    want = plain.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    print(f"[route check] {cfg.name} fp32, {check_shape}: plain route in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check_blocks(cfg32, params, toks)
+    # the whole request, each route on its own trajectory: the random-init
+    # trunk amplifies any rounding difference layer after layer, so the two
+    # are set beside two plain routes that differ only in the SSD's chunk
+    # (128 and 64: the same function summed in another order)
+    other = Model(dataclasses.replace(cfg32, ssm_chunk=cfg.ssm_chunk // 2),
+                  attn_impl="einsum", ssm_impl="einsum").prefill(params, {"tokens": toks})
+    for t in (got, want, other):
+        if t.shape != (check_shape[0], cfg.vocab_size) or not torch.isfinite(t).all():
+            raise AssertionError("the route check's logits are misshapen or non-finite")
+    print(f"  free-running request (no tolerance: the trunk is chaotic): kernel vs "
+          f"plain route max_abs_err={(got - want).abs().max().item():.3e}; plain vs "
+          f"plain with chunk {cfg.ssm_chunk // 2}: {(want - other).abs().max().item():.3e}; "
+          f"max|plain| {want.abs().max().item():.3f}; greedy tokens kernel "
+          f"{got.argmax(-1).tolist()}, plain {want.argmax(-1).tolist()}, plain with chunk "
+          f"{cfg.ssm_chunk // 2} {other.argmax(-1).tolist()}")
+    del model, params, got, want, other
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -591,14 +892,18 @@ def main() -> int:
     from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
     from repro_torch.kernels.defense_sim import sketch_similarity
     from repro_torch.kernels.fedavg_agg import fedavg_agg
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.local_sgd import local_sgd, local_sgd_ragged
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.configs import get_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = (local_sgd, fedavg_agg, sketch_similarity)
     codecs = (pack_codes, unpack_codes, topk_decode)
     packed_kernels = (local_sgd_ragged, fedavg_agg, sketch_similarity)
-    every = kernels + codecs + (local_sgd_ragged,)
+    lm_kernels = (flash_attention, ssm_scan)
+    every = kernels + codecs + (local_sgd_ragged,) + lm_kernels
 
     # --- phase 1: environment and build
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -647,6 +952,18 @@ def main() -> int:
     entries["local_sgd_ragged"] = ragged_phase(ref, local_sgd_ragged, local_sgd,
                                                lay, skew_dense)
     del skew_packed, skew_dense, lay
+    # phase 9's shapes: zamba2-7b's shared block (32 heads of 112, no kv
+    # grouping) over 4 x 2,048 tokens, the same with a 512 window (the
+    # local layers of gemma-style configs), tinyllama-1.1b's (32 heads of
+    # 64 over 4 kv heads); zamba2-7b's SSD (112 heads of 64, state 64)
+    zamba = get_config("zamba2-7b")
+    entries.update(lm_kernel_phase(
+        ref, flash_attention, ssm_scan,
+        [("zamba2-7b", 4, 2048, 32, 32, 112, 0),
+         ("zamba2-7b, window 512", 4, 2048, 32, 32, 112, 512),
+         ("tinyllama-1.1b", 1, 2048, 32, 4, 64, 0)],
+        ("zamba2-7b", 4, 2048, 112, 64, 64), zamba.ssm_chunk))
+    torch.cuda.empty_cache()
 
     # --- phase 3: the main path, 12 robots at full width
     fed = fleet_fed(12, defense="foolsgold_sketch")
@@ -880,8 +1197,24 @@ def main() -> int:
         profile_round(server, drift_packed, eval_set, Path(args.profile),
                       "n64_drift_packed")
 
+    # phases 3-8's fleets, engines and the tensors kept for their checks
+    del (fleet, data, big, big_dev, skew, skew_packed, lay, drift_packed, server, plain,
+         gated, starts, sgd_args, xb, yb, ab, mb, want, other, spread, deltas, w, tau,
+         unit, st, g, sel, desc, sel_d, rows, call)
+    torch.cuda.empty_cache()
+
+    # --- phase 9: serving prefill, zamba2-7b at full width and depth
+    print(f"\n[serve prefill] zamba2-7b, {zamba.num_layers} layers, d_model "
+          f"{zamba.d_model}, {zamba.dtype}; card memory in use before: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    launches9 = serve_phase(
+        zamba, lm_kernels, every, [(4, 2048)] * 4 + [(1, 8192)], (1, 1024),
+        6_750_498_384, Path(args.profile) if args.profile else None)
+    for name, count in launches9.items():
+        entries[name]["launches"] = count
+
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",
-             "pack_codes", "unpack_codes", "topk_decode")
+             "pack_codes", "unpack_codes", "topk_decode", "flash_attention", "ssm_scan")
     print(smi)
     print(json.dumps({"kernels": [entries[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

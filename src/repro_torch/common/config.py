@@ -1,14 +1,142 @@
-"""FedAR hyper-parameters (Table I trust constants et al.).
+"""Configuration dataclasses: the LM architecture (``ModelConfig``) and the
+FedAR hyper-parameters (``FedConfig``, Table I trust constants et al.).
 
-The port's own copy of the reference ``FedConfig``: the same field names
-and defaults, so a config written for one package reads the same in the
-other.  Fields whose feature a later slice ports are kept here and
-rejected by the engine with ``NotImplementedError`` when switched on.
+The port's own copies of the reference's two dataclasses: the same field
+names and defaults, so a config written for one package reads the same in
+the other.  Fields whose feature a later slice ports are kept here and
+rejected with ``NotImplementedError`` when switched on (by the engine for
+``FedConfig``, by ``models/model.py`` for ``ModelConfig``).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Unified architecture description.
+
+    Families:
+      dense   -- transformer w/ GQA, MLA or local/global attention
+      moe     -- transformer w/ mixture-of-experts FFN (routed + shared)
+      ssm     -- state-space / recurrent blocks (mamba2, slstm, mlstm)
+      hybrid  -- ssm blocks + (shared) attention blocks interleaved
+      vlm     -- dense decoder consuming stubbed patch embeddings + text
+      audio   -- dense decoder over codec tokens (frontend stubbed)
+    """
+
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None  # default: d_model // num_heads
+
+    # --- attention variant ---
+    attention: str = "gqa"  # gqa | mla | none
+    sliding_window: int = 0  # 0 = full attention
+    # gemma3-style pattern: every `global_every`-th layer is global, rest local
+    global_every: int = 0  # 0 = uniform
+    local_window: int = 0  # window for local layers when global_every > 0
+    rope_theta: float = 10000.0
+
+    # --- MLA (minicpm3 / deepseek-style) ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0  # per-expert hidden; 0 -> d_ff
+    dense_residual: bool = False  # arctic: dense FFN in parallel with MoE
+    router_aux_coef: float = 0.01
+    moe_capacity_factor: float = 1.25  # tokens-per-expert headroom; large=dropless
+    # dispatch implementation: "onehot" (GShard dense einsum) | "scatter"
+    # (indexed scatter/gather — no dispatch matmul FLOPs; see §Perf)
+    moe_dispatch: str = "onehot"
+
+    # --- SSM (mamba2) ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 128
+
+    # --- hybrid / block pattern ---
+    # "m"*k means mamba2, "a" attention, "s" slstm, "x" mlstm.  For zamba2 we
+    # use shared_attn_every: one weight-shared attention block applied after
+    # every k-th ssm layer.
+    block_pattern: str = ""
+    shared_attn_every: int = 0
+
+    # --- modality frontends (stubbed per brief) ---
+    frontend: str = ""  # "" | vision_stub | audio_stub
+    num_patches: int = 0  # vlm: patch embeddings per image
+
+    # --- misc ---
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    act: str = "silu"  # silu | gelu
+    dtype: str = "bfloat16"
+    citation: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // self.num_heads
+
+    @property
+    def resolved_moe_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
+    def reduced(self, **over) -> "ModelConfig":
+        """A tiny same-family variant for CPU smoke tests (<=2 layers,
+        d_model<=512, <=4 experts)."""
+        kw = dict(
+            num_layers=min(self.num_layers, 2),
+            d_model=min(self.d_model, 256),
+            num_heads=min(self.num_heads, 4),
+            num_kv_heads=min(self.num_kv_heads, 2),
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            head_dim=64 if self.head_dim else None,
+            sliding_window=min(self.sliding_window, 64) if self.sliding_window else 0,
+            local_window=min(self.local_window, 32) if self.local_window else 0,
+            q_lora_rank=min(self.q_lora_rank, 64) if self.q_lora_rank else 0,
+            kv_lora_rank=min(self.kv_lora_rank, 32) if self.kv_lora_rank else 0,
+            qk_nope_dim=min(self.qk_nope_dim, 32) if self.qk_nope_dim else 0,
+            qk_rope_dim=min(self.qk_rope_dim, 16) if self.qk_rope_dim else 0,
+            v_head_dim=min(self.v_head_dim, 32) if self.v_head_dim else 0,
+            num_experts=min(self.num_experts, 4) if self.num_experts else 0,
+            num_experts_per_tok=min(self.num_experts_per_tok, 2)
+            if self.num_experts_per_tok
+            else 0,
+            num_shared_experts=min(self.num_shared_experts, 1)
+            if self.num_shared_experts
+            else 0,
+            moe_d_ff=min(self.resolved_moe_d_ff, 256) if self.num_experts else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=min(self.ssm_head_dim, 32),
+            ssm_chunk=16 if self.ssm_state else self.ssm_chunk,
+            shared_attn_every=min(self.shared_attn_every, 2)
+            if self.shared_attn_every
+            else 0,
+            num_patches=min(self.num_patches, 16) if self.num_patches else 0,
+            dtype="float32",
+        )
+        kw.update(over)
+        return dataclasses.replace(self, **kw)
+
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,44 @@
+"""Architecture config registry.
+
+The port carries the configurations whose trunk it runs: ``zamba2-7b``
+(Mamba2 blocks plus one weight-shared attention block) and
+``tinyllama-1.1b`` (GQA blocks with a dense gated FFN), each with the shapes
+and citation of the reference's file, plus the FedAR client model
+``fedar-mnist``.  The reference's other architectures raise
+``NotImplementedError``: their blocks (MoE, MLA, xLSTM, the stubbed
+frontends, local/global windows) are ROADMAP Queue 1 item 14.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.common.config import ModelConfig
+
+ARCH_IDS = [
+    "zamba2-7b",
+    "internvl2-1b",
+    "arctic-480b",
+    "qwen2-moe-a2.7b",
+    "xlstm-350m",
+    "minicpm3-4b",
+    "musicgen-medium",
+    "tinyllama-1.1b",
+    "yi-9b",
+    "gemma3-1b",
+]
+PORTED = ("zamba2-7b", "tinyllama-1.1b")
+
+_MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch == "fedar-mnist":
+        return importlib.import_module("repro_torch.configs.fedar_mnist").CONFIG
+    if arch not in _MOD:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS + ['fedar-mnist']}")
+    if arch not in PORTED:
+        raise NotImplementedError(
+            f"{arch!r} is not ported yet (ROADMAP Queue 1 item 14); the port "
+            f"runs {list(PORTED)}"
+        )
+    return importlib.import_module(f"repro_torch.configs.{_MOD[arch]}").CONFIG

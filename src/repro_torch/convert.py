@@ -3,7 +3,7 @@
 ``params_from_jax`` takes the reference engine's ``template`` (or any
 ``{b1, b2, w1, w2}`` dict of arrays) and returns the port's params and flat
 vector in the same order, so a port run can start from the reference's
-init.
+init.  ``lm_params_from_jax`` does the same for the LM's ``Model`` tree.
 
 The draw provider is the one place the round takes random numbers from:
 ``gumbel(round_idx, n)`` for selection, ``normal(round_idx, n)`` for the
@@ -33,6 +33,44 @@ def params_from_jax(tree, device="cpu"):
 def params_to_numpy(params) -> dict:
     """The inverse of ``params_from_jax``: a dict of float32 numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+def _leaf_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy has no bf16: carry its bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_jax(tree, cfg, device, dtype=None):
+    """The reference's ``Model.init_params`` tree (numpy or JAX leaves, layer
+    params stacked on a leading L axis) -> the port's ``Model`` params on
+    ``device``: the same keys, with ``layers`` a list of ``cfg.num_layers``
+    per-layer dicts (views of the stacked tensors).  Each leaf keeps its
+    dtype; ``dtype`` casts the leaves that are not fp32 (in a bf16 model,
+    every leaf but the norm scales, ``A_log``, ``D`` and ``dt_bias``)."""
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        t = _leaf_tensor(node)
+        if dtype is not None and t.dtype != torch.float32:
+            t = t.to(dtype)
+        return t.to(device)
+
+    out = {k: convert(v) for k, v in tree.items() if k != "layers"}
+    stacked = convert(tree["layers"])
+
+    def layer(node, i):
+        if isinstance(node, dict):
+            return {k: layer(v, i) for k, v in node.items()}
+        if node.shape[0] != cfg.num_layers:
+            raise ValueError(f"a layer leaf has {node.shape[0]} rows, the config "
+                             f"{cfg.num_layers} layers")
+        return node[i]
+
+    out["layers"] = [layer(stacked, i) for i in range(cfg.num_layers)]
+    return out
 
 
 class GeneratorDraws:

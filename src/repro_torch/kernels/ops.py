@@ -2,7 +2,8 @@
 
 ``resolve_impl`` keeps the reference's routing vocabulary
 (``auto | kernel | einsum``) for ``FedConfig.sgd_impl`` / ``agg_impl`` /
-``defense_impl`` / ``compress_impl``, but the device decides, never a fallback:
+``defense_impl`` / ``compress_impl`` and the LM ``Model``'s ``attn_impl`` /
+``ssm_impl``, but the device decides, never a fallback:
 
   ``auto``   -- the CUDA kernel for tensors on the card, the plain PyTorch
                 version for tensors on the CPU (which exist only when the
@@ -36,10 +37,13 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import ref
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("local_sgd.cu", "fedavg_agg.cu", "defense_sim.cu", "compress.cu")
+SOURCES = ("local_sgd.cu", "fedavg_agg.cu", "defense_sim.cu", "compress.cu",
+           "flash_attention.cu", "ssm_scan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -47,7 +51,7 @@ NVCC_FLAGS = (
 # dynamic shared memory one block may opt into on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 
-_IMPL_KINDS = ("sgd", "agg", "defense", "compress")
+_IMPL_KINDS = ("sgd", "agg", "defense", "compress", "attn", "ssm")
 _IMPL_VALUES = ("auto", "kernel", "einsum")
 
 
@@ -131,6 +135,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_unpack_codes4.restype = I
     lib.fedar_topk_decode.argtypes = [P, P, P, L, L, L, P]
     lib.fedar_topk_decode.restype = I
+    lib.fedar_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
+    lib.fedar_flash_attention.restype = I
+    lib.fedar_ssm_scan.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
+    lib.fedar_ssm_scan.restype = I
     lib.fedar_cuda_error_string.argtypes = [I]
     lib.fedar_cuda_error_string.restype = ctypes.c_char_p
 
@@ -178,3 +186,26 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    impl: str = "auto"):
+    """Kernel 8 routed by ``impl`` (the reference's ``ops.flash_attention``
+    with ``use_pallas``): the CUDA kernel or ``ref.flash_attention_ref``.
+    Shapes as ``kernels/flash_attention.py``."""
+    if resolve_impl(impl, "attn", q.device) == "kernel":
+        # imported here: the wrapper's module imports this one
+        from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+        return kernel(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def ssm_scan(xd, logdecay, Bc, Cc, *, impl: str = "auto"):
+    """Kernel 9 routed by ``impl``: the CUDA kernel, or the sequential
+    ``ref.ssm_scan_ref`` cast to xd's dtype."""
+    if resolve_impl(impl, "ssm", xd.device) == "kernel":
+        from repro_torch.kernels.ssm_scan import ssm_scan as kernel
+
+        return kernel(xd, logdecay, Bc, Cc)
+    return ref.ssm_scan_ref(xd, logdecay, Bc, Cc).to(xd.dtype)

@@ -4,6 +4,10 @@ The CPU path and the tests use them; ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.  Each mirrors the reference package's
 oracle of the same name (``repro/kernels/ref.py``).
 
+The LM kernels' plain versions take the reference's layouts: attention
+q, k, v as (B, S, heads, hd), and the SSD scan's inputs as (B, S, nh, hd),
+(B, S, nh) and (B, S, st).
+
 Flat parameter layout shared with the engine: one client's params are one
 ``(D,)`` float32 row with the MLP's leaves in sorted-key order
 ``b1 (H), b2 (C), w1 (I, H), w2 (H, C)``.
@@ -154,3 +158,46 @@ def topk_decode_ref(vals, idx, dim: int):
     if vals.shape[1] == 0:
         return out
     return out.scatter_add_(1, idx.to(torch.int64), vals.to(torch.float32))
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
+    """q: (B, S, H, hd), k, v: (B, S, K, hd) with H % K == 0 -> (B, S, H, hd)
+    in q's dtype.  Full-score softmax attention in fp32, scale hd^-1/2;
+    ``causal`` masks k > q, ``window`` > 0 also masks k <= q - window
+    (masked scores are -1e30).  K < H (GQA) repeats each kv head H / K
+    times, as the reference's callers do before calling it."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    if G > 1:
+        k, v = k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32))
+    s = s * hd ** -0.5
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window:
+        mask &= ki > qi - window
+    s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def ssm_scan_ref(xd, logdecay, Bc, Cc):
+    """Sequential (exact) SSD recurrence, one step per position:
+    ``state = exp(l_t) * state + B_t (x) x_t``, ``y_t = C_t . state``.
+    xd: (B, S, nh, hd) dt-scaled inputs; logdecay: (B, S, nh);
+    Bc, Cc: (B, S, st).  Returns y (B, S, nh, hd) float32."""
+    B, S, nh, hd = xd.shape
+    st = Bc.shape[-1]
+    x = xd.to(torch.float32)
+    a = torch.exp(logdecay.to(torch.float32))
+    Bf, Cf = Bc.to(torch.float32), Cc.to(torch.float32)
+    state = torch.zeros((B, nh, st, hd), dtype=torch.float32, device=xd.device)
+    ys = []
+    for t in range(S):
+        upd = torch.einsum("bs,bnh->bnsh", Bf[:, t], x[:, t])
+        state = state * a[:, t, :, None, None] + upd
+        ys.append(torch.einsum("bs,bnsh->bnh", Cf[:, t], state))
+    return torch.stack(ys, dim=1)

@@ -1,0 +1,116 @@
+"""Attention for the LM trunk's prefill: GQA with full or sliding-window
+causal masks.
+
+The route is the model's ``attn_impl`` (``kernels/ops.resolve_impl``): on
+the card ``gqa_forward`` calls kernel 8 (``ops.flash_attention``) with the
+layer's window, reading GQA's kv heads without repeating them; on the CPU,
+or with ``attn_impl="einsum"``, it takes ``_attend_chunked``, the
+reference model's q-chunked blockwise attention.  The two compute the same
+function (``tests/test_torch_lm_kernels.py``).
+
+MLA and the decode-time functions (KV caches, ring buffers) are ROADMAP
+Queue 1 item 14 and raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common.config import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, dense_init
+
+Q_CHUNK = 1024  # q-block size for blockwise attention
+
+
+def init_gqa(generator, cfg: ModelConfig, dtype, device):
+    hd = cfg.resolved_head_dim
+    return {
+        "wq": dense_init(generator, (cfg.d_model, cfg.num_heads, hd), 0, dtype, device),
+        "wk": dense_init(generator, (cfg.d_model, cfg.num_kv_heads, hd), 0, dtype, device),
+        "wv": dense_init(generator, (cfg.d_model, cfg.num_kv_heads, hd), 0, dtype, device),
+        "wo": dense_init(generator, (cfg.num_heads, hd, cfg.d_model), (0, 1), dtype,
+                         device),
+    }
+
+
+def _repeat_kv(k, num_heads):
+    """(B, S, K, hd) -> (B, S, H, hd) by repeating each kv head H / K times."""
+    K = k.shape[2]
+    if K == num_heads:
+        return k
+    return k.repeat_interleave(num_heads // K, dim=2)
+
+
+def _attend_chunked(q, k, v, q_positions, k_positions, window: int):
+    """Blockwise causal attention, the plain route.
+
+    q: (B, Sq, H, hd); k, v: (B, Sk, H, hd); q_positions (Sq,), k_positions
+    (Sk,) absolute positions; window 0 = full causal, else the sliding
+    window.  Scores are taken in q's dtype and softmaxed in fp32, as in the
+    reference.  Past ``Q_CHUNK`` query rows, q-chunk i attends only to the
+    causal key prefix ``k[:(i + 1) * Q_CHUNK]`` (self-attention: both
+    position ranges are the same).  Returns (B, Sq, H, hd)."""
+    B, Sq, H, hd = q.shape
+    scale = hd ** -0.5
+    w_eff = window if window > 0 else 1 << 30
+
+    def mask_for(qp, kp):
+        return (kp[None, :] <= qp[:, None]) & (kp[None, :] > qp[:, None] - w_eff)
+
+    def attend(qc, kc, vc, qp, kp):
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kc).to(torch.float32) * scale
+        s = torch.where(mask_for(qp, kp)[None, None], s, -1e30)
+        p = torch.softmax(s, dim=-1).to(vc.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", p, vc)
+
+    if Sq <= Q_CHUNK:
+        return attend(q, k, v, q_positions, k_positions)
+    if Sq % Q_CHUNK:
+        # the reference's loop drops the remainder rows; the kernel route
+        # takes any S
+        raise ValueError(f"the plain attention route takes S <= {Q_CHUNK} or a "
+                         f"multiple of it, got {Sq}")
+    outs = []
+    for i in range(Sq // Q_CHUNK):
+        rows = slice(i * Q_CHUNK, (i + 1) * Q_CHUNK)
+        kend = (i + 1) * Q_CHUNK
+        outs.append(attend(q[:, rows], k[:, :kend], v[:, :kend], q_positions[rows],
+                           k_positions[:kend]))
+    return torch.cat(outs, dim=1)
+
+
+def gqa_forward(params, x, positions, cfg: ModelConfig, window: int = 0,
+                impl: str = "auto"):
+    """Training / prefill path. x: (B, S, d); positions: (S,), the
+    self-attention positions 0..S-1."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    q = apply_rope(q, positions[None, :], cfg.rope_theta)
+    k = apply_rope(k, positions[None, :], cfg.rope_theta)
+    if ops.resolve_impl(impl, "attn", x.device) == "kernel":
+        o = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                causal=True, window=int(window), impl="kernel")
+    else:
+        k = _repeat_kv(k, cfg.num_heads)
+        v = _repeat_kv(v, cfg.num_heads)
+        o = _attend_chunked(q, k, v, positions, positions, int(window))
+    return torch.einsum("bshk,hkd->bsd", o, params["wo"])
+
+
+def init_mla(*_args, **_kw):
+    raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14)")
+
+
+def mla_forward(*_args, **_kw):
+    raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14)")
+
+
+def gqa_decode(*_args, **_kw):
+    raise NotImplementedError("decode and KV caches are not ported yet "
+                              "(ROADMAP Queue 1 item 14)")
+
+
+def mla_decode(*_args, **_kw):
+    raise NotImplementedError("decode and KV caches are not ported yet "
+                              "(ROADMAP Queue 1 item 14)")

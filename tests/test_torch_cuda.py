@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.fedar_mnist import fleet_fed, small_model
 from repro_torch.core.fedar import FedARServer
 from repro_torch.core.resources import TaskRequirement
@@ -22,7 +23,10 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
 from repro_torch.kernels.defense_sim import sketch_similarity
 from repro_torch.kernels.fedavg_agg import fedavg_agg
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.local_sgd import local_sgd, local_sgd_ragged
+from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.models.model import Model
 
 pytestmark = pytest.mark.cuda
 
@@ -251,3 +255,89 @@ def test_packed_rounds_on_the_card_match_plain_route(cuda_device, select_frac):
                                       np.stack(plain.history[key]))
     torch.testing.assert_close(server.state.params, plain.state.params,
                                rtol=2e-4, atol=2e-4)
+
+
+# bf16 outputs: the kernel and the plain version each round an fp32 result
+# to bf16 (8 bits of mantissa), so they may differ by an ulp of the output
+BF16_RTOL = 1.6e-2
+
+
+def _close(got, want, rtol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * (1.0 + want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,H,K,hd,window,causal", [
+    (2, 200, 4, 2, 112, 0, True),    # ragged S, GQA, zamba2's head_dim
+    (1, 256, 4, 4, 64, 48, True),    # sliding window
+    (1, 130, 2, 1, 128, 0, True),    # one kv head, the largest head_dim
+    (1, 96, 2, 2, 32, 0, False),     # no causal mask
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, S, H, K, hd,
+                                              window, causal):
+    """fp32: sums and exponentials in another order (atol = rtol = 1e-4);
+    bf16: an ulp of the output."""
+    gen = torch.Generator().manual_seed(S + hd)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen).to(cuda_device, dtype)
+               for n in (H, K, K))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _close(got, want, 1e-4 if dtype == torch.float32 else BF16_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,nh,hd,st", [(2, 200, 8, 64, 64), (1, 128, 4, 32, 16)])
+def test_ssm_scan_kernel_matches_plain(cuda_device, dtype, B, S, nh, hd, st):
+    """Against the sequential recurrence: fp32 sums in another order over S
+    steps (atol = rtol = 1e-4); bf16: an ulp of the output."""
+    gen = torch.Generator().manual_seed(S + st)
+    xd = (torch.randn(B, S, nh, hd, generator=gen) * 0.5).to(cuda_device, dtype)
+    logdecay = (-torch.rand(B, S, nh, generator=gen) * 0.5).to(cuda_device)
+    Bc, Cc = (torch.randn(B, S, st, generator=gen).to(cuda_device, dtype) for _ in "BC")
+    n0 = ssm_scan.launches
+    got = ssm_scan(xd, logdecay, Bc, Cc)
+    assert ssm_scan.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == xd.shape
+    want = ref.ssm_scan_ref(xd, logdecay, Bc, Cc).to(dtype)
+    _close(got, want, 1e-4 if dtype == torch.float32 else BF16_RTOL)
+
+
+def test_lm_kernel_wrappers_validate_arguments(cuda_device):
+    dev = cuda_device
+    q = torch.randn(1, 8, 2, 129, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    q = torch.randn(1, 8, 3, 16, device=dev)
+    with pytest.raises(ValueError, match="kv heads"):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])
+    xd = torch.randn(1, 8, 2, 16, device=dev)
+    Bc = torch.randn(1, 8, 4, device=dev)
+    with pytest.raises(ValueError, match="logdecay"):
+        ssm_scan(xd, torch.zeros(1, 8, 2, device=dev, dtype=torch.bfloat16), Bc, Bc)
+    with pytest.raises(ValueError, match="state"):
+        ssm_scan(xd, torch.zeros(1, 8, 2, device=dev), torch.randn(1, 8, 65, device=dev),
+                 torch.randn(1, 8, 65, device=dev))
+
+
+@pytest.mark.parametrize("arch,layers,launches", [
+    ("zamba2-7b", 4, (2, 4)), ("tinyllama-1.1b", 2, (2, 0)),
+])
+def test_lm_prefill_on_the_card_matches_plain_route(cuda_device, arch, layers, launches):
+    """``Model`` on its default device runs kernels 8 and 9 once per
+    attention and Mamba2 layer; the plain route (``attn_impl = ssm_impl =
+    "einsum"``) from the same params gives the same logits within 1e-4."""
+    cfg = get_config(arch).reduced(num_layers=layers)
+    model = Model(cfg)
+    assert model.device.type == "cuda"
+    params = model.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda_device)
+    counts = (flash_attention.launches, ssm_scan.launches)
+    got = model.prefill(params, {"tokens": tokens})
+    assert (flash_attention.launches - counts[0], ssm_scan.launches - counts[1]) == launches
+    plain = Model(cfg, attn_impl="einsum", ssm_impl="einsum")
+    want = plain.prefill(params, {"tokens": tokens})
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

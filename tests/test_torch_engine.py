@@ -88,14 +88,19 @@ def test_golden_config_matches_live_reference(aggregation, defense):
 
 
 def test_imports_leave_out_jax_and_reference():
-    """Importing every module of the port pulls in neither JAX nor the
-    reference package."""
+    """Importing every module of the port, the LM trunk's and its two
+    kernels' included, pulls in neither JAX nor the reference package."""
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
+        "lm = {'repro_torch.models.' + m for m in ('model', 'attention', 'ssm', 'blocks',\n"
+        "      'ffn', 'layers')} | {'repro_torch.kernels.flash_attention',\n"
+        "      'repro_torch.kernels.ssm_scan', 'repro_torch.configs.zamba2_7b',\n"
+        "      'repro_torch.configs.tinyllama_1_1b'}\n"
+        "assert lm <= set(sys.modules), lm - set(sys.modules)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=SRC)
