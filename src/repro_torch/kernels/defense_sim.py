@@ -3,8 +3,9 @@
 
 K is the sketch width r = 256 for ``foolsgold_sketch`` and the model
 dimension D for dense FoolsGold.  The CUDA kernel (``csrc/defense_sim.cu``)
-is a tiled shared-memory product with a deterministic split over K; it
-replaces the Pallas TPU kernel
+computes 32 x 64 output tiles (16 x 16 for small outputs) from fp32
+register tiles, with K slices staged by ``cp.async`` and a deterministic
+split over K; it replaces the Pallas TPU kernel
 ``repro/kernels/defense_sim.py::sketch_similarity``.  Its plain PyTorch
 version is ``ref.sketch_similarity_ref``.
 """
@@ -14,19 +15,32 @@ import torch
 
 from repro_torch.kernels import ops, ref
 
-TILE = 16  # output tile edge, as in csrc/defense_sim.cu
+LARGE_TILE = (32, 64)  # a block's output tile, as in csrc/defense_sim.cu
+SMALL_TILE = (16, 16)  # ... for outputs that fill under half the card
+TILE_K = 32  # K slice of one pipeline stage; a split is whole slices
 MIN_CHUNK = 256  # no K split below this slice width
 TARGET_BLOCKS = 264  # about two blocks per SM of an H100 (132 SMs)
+SMS = 132
+
+
+def _tiles(m: int, n: int, tile) -> int:
+    return -(-m // tile[0]) * -(-n // tile[1])
+
+
+def small_tiles(m: int, n: int) -> bool:
+    """Whether an (m, n) output takes the small tile: its large tiles
+    would occupy under half the SMs."""
+    return _tiles(m, n, LARGE_TILE) < SMS // 2
 
 
 def split_chunk(m: int, n: int, k: int) -> int:
     """K slice width for the split product: enough slices that the grid
     holds about ``TARGET_BLOCKS`` blocks, each slice at least ``MIN_CHUNK``
-    wide and a multiple of the tile edge."""
-    tiles = -(-m // TILE) * -(-n // TILE)
+    wide and a multiple of ``TILE_K``."""
+    tiles = _tiles(m, n, SMALL_TILE if small_tiles(m, n) else LARGE_TILE)
     splits = max(1, TARGET_BLOCKS // tiles)
     chunk = -(-k // splits)
-    chunk = -(-chunk // TILE) * TILE
+    chunk = -(-chunk // TILE_K) * TILE_K
     return max(MIN_CHUNK, chunk)
 
 
@@ -56,7 +70,7 @@ def sketch_similarity(unit_loc, unit_full):
     err = lib.fedar_sketch_similarity(
         unit_loc.data_ptr(), unit_full.data_ptr(), out.data_ptr(),
         None if part is None else part.data_ptr(), M, N, K, chunk,
-        ops.stream_ptr(unit_loc),
+        int(small_tiles(M, N)), ops.stream_ptr(unit_loc),
     )
     ops.check_launch(err, "sketch_similarity")
     sketch_similarity.launches += 1

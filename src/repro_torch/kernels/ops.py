@@ -127,7 +127,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_local_sgd_smem_bytes.restype = I
     lib.fedar_fedavg_agg.argtypes = [P, P, P, P, I, L, P]
     lib.fedar_fedavg_agg.restype = I
-    lib.fedar_sketch_similarity.argtypes = [P, P, P, P, I, I, I, I, P]
+    lib.fedar_sketch_similarity.argtypes = [P, P, P, P, I, I, I, I, I, P]
     lib.fedar_sketch_similarity.restype = I
     lib.fedar_pack_codes4.argtypes = [P, P, L, L, P]
     lib.fedar_pack_codes4.restype = I
@@ -137,6 +137,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_topk_decode.restype = I
     lib.fedar_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.fedar_flash_attention.restype = I
+    PI = ctypes.POINTER(I)
+    lib.fedar_flash_attention_attrs.argtypes = [I, PI, PI, PI, PI]
+    lib.fedar_flash_attention_attrs.restype = I
     lib.fedar_ssm_scan.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.fedar_ssm_scan.restype = I
     lib.fedar_cuda_error_string.argtypes = [I]

@@ -75,7 +75,12 @@ def test_fedavg_agg_kernel_matches_plain(cuda_device):
                                    rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("m,n,k", [(13, 29, 300), (12, 12, 20000), (40, 40, 256)])
+@pytest.mark.parametrize("m,n,k", [
+    (13, 29, 300), (12, 12, 20000), (40, 40, 256),
+    (12, 12, 256), (512, 512, 256),  # foolsgold_sketch at 12 and 512 clients
+    (12, 12, 101770),                # dense FoolsGold: split K, 8-byte copies
+    (7, 9, 333),                     # odd K: 4-byte copies
+])
 def test_sketch_similarity_kernel_matches_plain(cuda_device, m, n, k):
     a = torch.randn(m, k, device=cuda_device)
     b = torch.randn(n, k, device=cuda_device)
@@ -258,13 +263,22 @@ def test_packed_rounds_on_the_card_match_plain_route(cuda_device, select_frac):
 
 
 # bf16 outputs: the kernel and the plain version each round an fp32 result
-# to bf16 (8 bits of mantissa), so they may differ by an ulp of the output
+# to bf16 (8 bits of mantissa), so an element may differ by an ulp of
+# itself; and the attention kernel rounds P to bf16 before P V, an error of
+# a fraction of its row's values that shows on outputs near zero.  So each
+# row (one head of one position) is held to its own largest value.
 BF16_RTOL = 1.6e-2
 
 
 def _close(got, want, rtol):
-    err = (got.float() - want.float()).abs().max().item()
-    assert err <= rtol * (1.0 + want.float().abs().max().item()), err
+    """Row by row, the last axis a row (one head of one position): every
+    element within ``rtol * max|want|`` over its own row."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    limit = rtol * want.abs().amax(dim=-1, keepdim=True)
+    worst = (err / limit.clamp_min(1e-30)).max().item()
+    assert bool((err <= limit).all()), (
+        f"max_abs_err {err.max().item():.3e}, largest error / tolerance {worst:.3f}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -276,8 +290,8 @@ def _close(got, want, rtol):
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, S, H, K, hd,
                                               window, causal):
-    """fp32: sums and exponentials in another order (atol = rtol = 1e-4);
-    bf16: an ulp of the output."""
+    """fp32: sums and exponentials in another order (rtol = 1e-4); bf16: an
+    ulp of the output and P in bf16 (``_close``)."""
     gen = torch.Generator().manual_seed(S + hd)
     q, k, v = (torch.randn(B, S, n, hd, generator=gen).to(cuda_device, dtype)
                for n in (H, K, K))
@@ -289,11 +303,42 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, S, H, K, hd
     _close(got, want, 1e-4 if dtype == torch.float32 else BF16_RTOL)
 
 
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 200, 2048])
+def test_flash_attention_bf16_tensor_cores_over_s_and_head_dim(cuda_device, S, hd):
+    """The bf16 instance (wgmma on TMA tiles): S on both sides of the 64-row
+    warpgroup and 128-row block edges, where the causal mask meets the
+    accumulator's fragment layout, and head dims that pad to 64 or 128."""
+    gen = torch.Generator().manual_seed(S * 131 + hd)
+    q, k, v = (torch.randn(1, S, 2, hd, generator=gen).to(cuda_device, torch.bfloat16)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=True)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True), BF16_RTOL)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,window,causal", [
+    (2, 300, 16, 2, 64, 0, True),     # GQA, G = 8
+    (1, 1000, 8, 1, 112, 0, True),    # GQA, G = 8, zamba2's head_dim
+    (1, 700, 4, 4, 64, 48, True),     # window shorter than a key tile
+    (2, 1500, 4, 2, 112, 512, True),  # window over several key tiles
+    (1, 333, 4, 4, 128, 0, False),    # no causal mask, ragged S
+    (1, 200, 4, 2, 40, 48, False),    # window without the causal mask
+])
+def test_flash_attention_bf16_gqa_window_and_full(cuda_device, B, S, H, K, hd, window,
+                                                  causal):
+    gen = torch.Generator().manual_seed(S + H)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen).to(cuda_device, torch.bfloat16)
+               for n in (H, K, K))
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _close(got, want, BF16_RTOL)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B,S,nh,hd,st", [(2, 200, 8, 64, 64), (1, 128, 4, 32, 16)])
 def test_ssm_scan_kernel_matches_plain(cuda_device, dtype, B, S, nh, hd, st):
     """Against the sequential recurrence: fp32 sums in another order over S
-    steps (atol = rtol = 1e-4); bf16: an ulp of the output."""
+    steps (rtol = 1e-4, ``_close``); bf16: an ulp of the output."""
     gen = torch.Generator().manual_seed(S + st)
     xd = (torch.randn(B, S, nh, hd, generator=gen) * 0.5).to(cuda_device, dtype)
     logdecay = (-torch.rand(B, S, nh, generator=gen) * 0.5).to(cuda_device)
@@ -310,6 +355,9 @@ def test_lm_kernel_wrappers_validate_arguments(cuda_device):
     dev = cuda_device
     q = torch.randn(1, 8, 2, 129, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 100, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):  # bf16: TMA's 16-byte strides
         flash_attention(q, q, q)
     q = torch.randn(1, 8, 3, 16, device=dev)
     with pytest.raises(ValueError, match="kv heads"):

@@ -149,13 +149,14 @@ def test_sketch_similarity_plain_matches_reference():
 
 
 @pytest.mark.parametrize("m,n,k,splits", [
-    (12, 12, 256, 1), (512, 512, 256, 1), (12, 12, 101770, 255), (5, 7, 300, 2),
+    (12, 12, 256, 1), (512, 512, 256, 1), (12, 12, 101770, 245), (5, 7, 300, 2),
 ])
 def test_split_chunk_plan(m, n, k, splits):
-    """The K split the similarity kernel uses: whole tiles, no slice under
-    256 wide, about two blocks per SM for a small output."""
+    """The K split the similarity kernel uses: whole 32-wide pipeline
+    slices, no split under 256 wide, about two blocks per SM for a small
+    output."""
     chunk = split_chunk(m, n, k)
-    assert chunk % 16 == 0 and chunk >= 256
+    assert chunk % 32 == 0 and chunk >= 256
     assert -(-k // chunk) == splits
 
 
