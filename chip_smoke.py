@@ -61,7 +61,10 @@ Phases (any failure raises and the script exits non-zero):
    (``attn_impl = ssm_impl = "einsum"``) from the same params: logits within
    tolerance and the same greedy token.
 
-Phase 2 also holds ``local_sgd_ragged`` on phase 7's tile buffer against its
+Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
+registers, and each local-SGD case's chain floor beside its bound (the
+longest client's steps on its cluster's SMs at their share of the fp32
+peak).  It holds ``local_sgd_ragged`` on phase 7's tile buffer against its
 plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
 (N, n_max) rectangle; and ``flash_attention`` and ``ssm_scan`` against
 their plain versions at phase 9's shapes, in bf16 and fp32 (the 1 x 8,192
@@ -184,6 +187,24 @@ def sgd_flops(mask, B, I, H, C, epochs):
     return live * epochs * (4 * B * I * H + 6 * B * H * C)
 
 
+def chain_floor_ms(steps: int, B, I, H, C, K) -> float:
+    """The local-SGD kernel's chain floor: the longest client's live steps,
+    each ``4*B*I*H + 6*B*H*C`` FLOPs, on the K SMs of its cluster at their
+    share of the fp32 peak (K x 67/132 TFLOP/s)."""
+    return steps * (4 * B * I * H + 6 * B * H * C) / (K * PEAK_FP32_FLOPS / 132) * 1e3
+
+
+def sgd_resources(I, H, C, B) -> str:
+    """Phase 2's line on the local-SGD kernel's cluster and resources."""
+    from repro_torch.kernels.local_sgd import kernel_attrs
+
+    a = kernel_attrs(I, H, C, B)
+    return (f"cluster of K = {a['cluster']} CTAs of {a['threads']} threads, "
+            f"{a['dynamic_smem']} dynamic shared bytes a CTA, {a['registers']} "
+            f"registers and {a['local_bytes']} spilled bytes a thread, "
+            f"{a['max_clusters']} clusters on the card at once")
+
+
 def large_tile_ms(a):
     """Device ms of the similarity kernel's 32 x 64 tile plan on a 12-row
     Gram product, through the C entry with ``small = 0`` (not counted as a
@@ -211,9 +232,34 @@ def large_tile_ms(a):
     return time_ms(run, reps=20)
 
 
+def order_cost(mask, B: int, calls: int = 100) -> str:
+    """What the wrapper's cluster order costs a call: ``longest_first`` of
+    ``live_batches`` on the padded float32 mask, as ``local_sgd`` computes
+    it, in device time and in host time to enqueue (mean of ``calls``)."""
+    from repro_torch.kernels.local_sgd import live_batches, longest_first
+
+    m = mask.to(torch.float32)
+
+    def run():
+        return longest_first(live_batches(m, B))
+
+    dev_ms = time_ms(run, reps=20)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run()
+    host_us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return (f"cluster order (longest_first of live_batches): {dev_ms:.4f} ms on the "
+            f"device, {host_us:.1f} us of host time a call")
+
+
 def kernel_phase(ref, kernels, fleet):
     """Phase 2: each kernel vs its plain version at the main path's shapes.
     Returns the per-kernel JSON entries (main-path case of each)."""
+    from repro_torch.kernels.local_sgd import live_batches, plan
+
     local_sgd, fedavg_agg, sketch_similarity = kernels
     gen = torch.Generator().manual_seed(0)
     dev = DEV
@@ -258,8 +304,13 @@ def kernel_phase(ref, kernels, fleet):
             p_ms = time_ms(run_plain, reps=3)
             nbytes = 4 * (xc.numel() + yc.numel() + mc.numel() + D + R * D + R)
             b_ms, b_by = bound_ms(nbytes, sgd_flops(mc, B, I, H, C, E))
+            K = plan(I, H, C, B)[0]
+            steps = E * int(live_batches(mc, B).max())
             print(f"  kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                  f"{b_ms:.3g} ms ({b_by})")
+                  f"{b_ms:.3g} ms ({b_by}); chain floor {chain_floor_ms(steps, B, I, H, C, K):.3g} "
+                  f"ms (the longest client's {steps} steps on its {K} SMs)")
+            print(f"  {sgd_resources(I, H, C, B)}")
+            print(f"  {order_cost(mc, B)}")
             entries["local_sgd"] = dict(
                 name="local_sgd", route="cuda",
                 source="src/repro_torch/csrc/local_sgd.cu",
@@ -332,6 +383,8 @@ def ragged_phase(ref, local_sgd_ragged, local_sgd, packed, dense):
     its plain version (phase 4's per-row rule), and bit-equal to the dense
     kernel on the fleet's (N, n_max) rectangle for the same clients and
     global row.  Returns the kernel's JSON entry."""
+    from repro_torch.kernels.local_sgd import live_batches, plan
+
     H, C, E, lr = 128, 10, 5, 0.1
     xt, yt = packed.tiles["x"], packed.tiles["y"]
     T, B, I = xt.shape
@@ -359,11 +412,15 @@ def ragged_phase(ref, local_sgd_ragged, local_sgd, packed, dense):
     d_ms = time_ms(lambda: local_sgd(*rect_args, batch_size=B, **kw), reps=3)
     dp_ms = time_ms(lambda: ref.local_sgd_ref(*rect_args, batch_size=B, **kw), reps=2)
     b_ms, b_by = ragged_bound(packed, packed.tile_mask, None, D, H, C, E)
+    K = plan(I, H, C, B)[0]
+    steps = E * int(live_batches(dense["mask"], B).max())
     print(f"  kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3g} ms "
-          f"({b_by}); local_sgd on the dense rectangle {d_ms:.3f} ms (its plain "
-          f"version {dp_ms:.3f} ms)")
-    # what the block order and the longest chain cost (for a later perf PR):
-    # the same launch with the rows widest first, and the longest row alone
+          f"({b_by}); chain floor {chain_floor_ms(steps, B, I, H, C, K):.3g} ms (the "
+          f"longest client's {steps} steps on its {K} SMs); local_sgd on the dense "
+          f"rectangle {d_ms:.3f} ms (its plain version {dp_ms:.3f} ms)")
+    # what the cluster order and the longest chain cost: the same launch
+    # with the rows widest first (the wrapper sorts clusters longest first
+    # itself, so the same time), and the longest row alone
     desc = packed.desc_rows
     order = (packed.act[desc], packed.nb[desc], packed.off[desc])
     o_ms = time_ms(lambda: local_sgd_ragged(g, *args[:3], *order, **kw), reps=3)

@@ -6,8 +6,8 @@ vector in the same order, so a port run can start from the reference's
 init.  ``lm_params_from_jax`` does the same for the LM's ``Model`` tree.
 
 The draw provider is the one place the round takes random numbers from:
-``gumbel(round_idx, n)`` for selection, ``normal(round_idx, n)`` for the
-latency jitter and ``uniform(round_idx, n, d)`` for QSGD's stochastic
+``gumbel(round_idx, n)`` for selection, ``latency_factor(round_idx, n)``
+for the latency jitter and ``uniform(round_idx, n, d)`` for QSGD's stochastic
 rounding.  ``GeneratorDraws`` serves standalone runs from seeded
 ``torch.Generator``s; ``ReplayDraws`` replays draws made elsewhere, which is
 how the parity tests feed the port the reference's threefry draws (torch
@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.resources import LATENCY_JITTER
 
 
 def params_from_jax(tree, device="cpu"):
@@ -104,19 +106,29 @@ class GeneratorDraws:
     def normal(self, round_idx: int, n: int) -> torch.Tensor:
         return torch.randn(n, generator=self._generator(round_idx, 1)).to(self.device)
 
+    def latency_factor(self, round_idx: int, n: int) -> torch.Tensor:
+        """The (n,) log-normal latency jitter ``exp(LATENCY_JITTER * z)`` of
+        this round's standard-normal draw ``z``."""
+        return torch.exp(LATENCY_JITTER * self.normal(round_idx, n))
+
     def uniform(self, round_idx: int, n: int, d: int) -> torch.Tensor:
         gen = self._generator(round_idx, 2, self.device)
         return torch.rand((n, d), generator=gen, device=self.device)
 
 
 class ReplayDraws:
-    """Replays (rounds, N) arrays of Gumbel and standard-normal draws and,
+    """Replays (rounds, N) arrays of Gumbel draws and latency factors and,
     optionally, a (rounds, N, D) array of uniforms, row ``round_idx`` for
-    round ``round_idx``."""
+    round ``round_idx``.
 
-    def __init__(self, gumbel, normal, uniform=None, device="cpu"):
+    The latency factors ``exp(LATENCY_JITTER * z)`` are replayed whole,
+    ``exp`` included, because two libraries' ``exp`` may round the same
+    argument to neighbouring floats."""
+
+    def __init__(self, gumbel, latency, uniform=None, device="cpu"):
         self._gumbel = torch.as_tensor(np.asarray(gumbel, np.float32), device=device)
-        self._normal = torch.as_tensor(np.asarray(normal, np.float32), device=device)
+        self._latency = torch.as_tensor(np.asarray(latency, np.float32),
+                                        device=device)
         self._uniform = (None if uniform is None else
                          torch.as_tensor(np.asarray(uniform, np.float32),
                                          device=device))
@@ -132,8 +144,8 @@ class ReplayDraws:
     def gumbel(self, round_idx: int, n: int) -> torch.Tensor:
         return self._row(self._gumbel, round_idx, n)
 
-    def normal(self, round_idx: int, n: int) -> torch.Tensor:
-        return self._row(self._normal, round_idx, n)
+    def latency_factor(self, round_idx: int, n: int) -> torch.Tensor:
+        return self._row(self._latency, round_idx, n)
 
     def uniform(self, round_idx: int, n: int, d: int) -> torch.Tensor:
         if self._uniform is None:

@@ -216,11 +216,13 @@ class FedAREngine:
         self.model = model
         self.fed, self.req, self.lr = fed, req, lr
         self.sgd_route = resolve_impl(fed.sgd_impl, "sgd", self.device)
-        if self.sgd_route == "kernel" and not model.supports_fused:
-            raise ValueError(
-                f"sgd_impl={fed.sgd_impl!r} resolves to the fused kernel, but "
-                f"model family {model.family!r} has none"
-            )
+        if self.sgd_route == "kernel":
+            if not model.supports_fused:
+                raise ValueError(
+                    f"sgd_impl={fed.sgd_impl!r} resolves to the fused kernel, but "
+                    f"model family {model.family!r} has none"
+                )
+            model.check_fused(fed.local_batch_size)
         resolve_impl(fed.agg_impl, "agg", self.device)
         resolve_impl(fed.defense_impl, "defense", self.device)
         resolve_impl(fed.compress_impl, "compress", self.device)
@@ -610,7 +612,8 @@ class FedAREngine:
         # --- virtual time: latency per client, straggler = late vs timeout
         lat = round_latency(
             state.resources, train_flops=train_flops,
-            model_bytes=self.dim * 4.0, normal=self.draws.normal(r, N),
+            model_bytes=self.dim * 4.0,
+            factor=self.draws.latency_factor(r, N),
         )
         if force_straggler is not None:
             lat = torch.where(force_straggler, fed.timeout * 3.0, lat)

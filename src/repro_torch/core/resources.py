@@ -34,6 +34,8 @@ STARVED_FRAC = 1.0 / 6.0  # paper §IV.A: 2 of 12 robots are resource-starved
 POISON_FRAC = 1.0 / 6.0  # ... and 2 of 12 are unreliable/poisoning
 # battery cost of one training round; idle clients recharge at 1/4 of it
 BATTERY_COST = 0.02
+# sigma of the log-normal latency jitter (the reference's round_latency default)
+LATENCY_JITTER = 0.15
 
 
 def make_fleet(
@@ -108,14 +110,18 @@ def round_latency(
     *,
     train_flops: float,
     model_bytes: float,
-    normal: torch.Tensor,
-    jitter: float = 0.15,
+    factor: torch.Tensor,
 ) -> torch.Tensor:
     """Virtual seconds for one local round per client (compute + upload)
-    with multiplicative log-normal jitter; ``normal`` is this round's (N,)
-    standard-normal draw from the engine's draw provider."""
-    base = train_flops / (res.compute * 1e6) + model_bytes / (res.bandwidth * 1e6)
-    return base * torch.exp(jitter * normal)
+    times ``factor``, this round's (N,) log-normal jitter
+    ``exp(LATENCY_JITTER * z)`` from the engine's draw provider
+    (``latency_factor``).  The scalars divide as float32 tensors: a Python
+    number over a tensor is a reciprocal and a product in PyTorch, two
+    roundings where the reference has one."""
+    flops = torch.tensor(train_flops, dtype=torch.float32)
+    nbytes = torch.tensor(model_bytes, dtype=torch.float32)
+    base = flops / (res.compute * 1e6) + nbytes / (res.bandwidth * 1e6)
+    return base * factor
 
 
 def drain_battery(

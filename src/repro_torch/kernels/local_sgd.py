@@ -2,20 +2,44 @@
 
 ClientUpdate (Algorithm 2 lines 16-21) is the round's FLOP-dominant op:
 every client runs E epochs of batch SGD on its local shard.  The CUDA
-kernel (``csrc/local_sgd.cu``, one thread block per client) runs each
-client's whole epochs x batches loop in one launch.  ``local_sgd`` takes the
-dense (R, n) sample rectangle and replaces the Pallas TPU kernel
+kernel (``csrc/local_sgd.cu``) runs each client's whole epochs x batches
+chain in one launch on a thread-block cluster of K CTAs, each CTA holding
+an H/K-column slice of w1 in shared memory (K from ``plan``).  ``local_sgd``
+takes the dense (R, n) sample rectangle and replaces the Pallas TPU kernel
 ``repro/kernels/local_sgd.py::local_sgd_fused``; ``local_sgd_ragged`` takes
 the packed layout's batch-tile buffer, each client reading its own tiles,
 and replaces ``local_sgd_fused_ragged``.  Both are one CUDA template, so a
-client's row is bit-equal between the two.  Their plain PyTorch versions
-are ``ref.local_sgd_ref`` and ``ref.local_sgd_ragged_ref``.
+client's row is bit-equal between the two.  Clusters take the clients
+longest chain first (``longest_first``); the rows do not depend on that
+order.  Their plain PyTorch versions are ``ref.local_sgd_ref`` and
+``ref.local_sgd_ragged_ref``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import ops, ref
+
+
+def longest_first(counts):
+    """The int32 order of clients by descending chain length ``counts``
+    (R,), ties in client order (a stable sort), computed where ``counts``
+    lies, with no host sync."""
+    return torch.sort(counts, descending=True, stable=True).indices.to(torch.int32)
+
+
+def live_batches(mask, batch_size: int):
+    """(R,) count of each client's batches, of ``batch_size`` samples
+    along the (R, n) ``mask``, with at least one sample set (the steps an
+    epoch of its local SGD runs)."""
+    R, n = mask.shape
+    nb = -(-n // batch_size)
+    m = mask.to(torch.float32)
+    if nb * batch_size != n:
+        m = torch.nn.functional.pad(m, (0, nb * batch_size - n))
+    return m.view(R, nb, batch_size).any(-1).sum(1)
 
 
 def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
@@ -27,7 +51,8 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
     (R, n) bool or float32 validity (padding contributes zero gradient,
     all-padding batches are skipped).  The sample axis is zero-padded up to
     a whole number of batches (mask-False), matching the reference kernel's
-    ceil batching.  Returns the (R, D) post-SGD flat rows, float32.
+    ceil batching.  Clusters take the clients in ``longest_first`` order of
+    their live batches.  Returns the (R, D) post-SGD flat rows, float32.
 
     On CPU tensors this is the plain version; on CUDA tensors it launches
     the kernel, or raises if the shapes do not fit it."""
@@ -56,14 +81,16 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
         y = torch.nn.functional.pad(y, (0, pad))
         m = torch.nn.functional.pad(m, (0, pad))
     lib = ops.library()
-    smem = _smem_bytes(lib, I, H, C, B)
+    plan(I, H, C, B)
+    _require_aligned(x, "x")
     out = torch.empty((R, D), dtype=torch.float32, device=dev)
     if R == 0:
         return out
+    order = longest_first(live_batches(m, B))
     err = lib.fedar_local_sgd(
         g_flat.data_ptr(), x.data_ptr(), y.data_ptr(), act.data_ptr(),
-        m.data_ptr(), out.data_ptr(), R, nb * B, I, H, C, B, epochs, lr,
-        smem, ops.stream_ptr(x),
+        m.data_ptr(), order.data_ptr(), out.data_ptr(), R, nb * B, I, H, C, B,
+        epochs, lr, ops.stream_ptr(x),
     )
     ops.check_launch(err, "local_sgd")
     local_sgd.launches += 1
@@ -73,14 +100,42 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
 local_sgd.launches = 0
 
 
-def _smem_bytes(lib, I: int, H: int, C: int, B: int) -> int:
-    smem = lib.fedar_local_sgd_smem_bytes(I, H, C, B)
-    if smem > ops.MAX_SMEM_BYTES:
+def plan(I: int, H: int, C: int, B: int) -> tuple[int, int, int]:
+    """The kernel's cluster size K, threads a CTA and one CTA's dynamic
+    shared bytes for (I, H, C, B); raises for a shape that fits no K."""
+    K, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if ops.library().fedar_local_sgd_plan(I, H, C, B, ctypes.byref(K),
+                                          ctypes.byref(threads),
+                                          ctypes.byref(smem)) != 0:
         raise ValueError(
-            f"local_sgd kernel needs {smem} bytes of shared memory for "
-            f"I={I}, H={H}, C={C}, B={B}; a block may use {ops.MAX_SMEM_BYTES}"
-        )
-    return smem
+            f"local_sgd kernel cannot take I={I}, H={H}, C={C}, B={B}: I must be "
+            "a multiple of 4 (16-byte rows for the bulk copy), H split into at "
+            "most 8 slices of 8 or 16 columns, C at most 16")
+    if smem.value > ops.MAX_SMEM_BYTES:
+        raise ValueError(
+            f"local_sgd kernel needs {smem.value} bytes of shared memory a CTA "
+            f"for I={I}, H={H}, C={C}, B={B} (cluster of {K.value}); a block may "
+            f"use {ops.MAX_SMEM_BYTES}")
+    return K.value, threads.value, smem.value
+
+
+def kernel_attrs(I: int, H: int, C: int, B: int) -> dict:
+    """The dense instance's resources at (I, H, C, B): cluster size, threads
+    and dynamic shared bytes a CTA, registers and spilled (local) bytes a
+    thread as ``cudaFuncGetAttributes`` reports them, and the clusters that
+    fit on the card at once (``cudaOccupancyMaxActiveClusters``)."""
+    K, threads, smem = plan(I, H, C, B)
+    vals = [ctypes.c_int() for _ in range(3)]
+    ops.check_launch(ops.library().fedar_local_sgd_attrs(
+        I, H, C, B, *(ctypes.byref(v) for v in vals)), "local_sgd_attrs")
+    return dict(cluster=K, threads=threads, dynamic_smem=smem,
+                **dict(zip(("registers", "local_bytes", "max_clusters"),
+                           (v.value for v in vals))))
+
+
+def _require_aligned(t, name):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary for the bulk copy")
 
 
 def local_sgd_ragged(g_flat, xt, yt, mt, act, nb, off, *, hidden: int,
@@ -93,8 +148,9 @@ def local_sgd_ragged(g_flat, xt, yt, mt, act, nb, off, *, hidden: int,
     g_flat (D,) float32 (flat order ``b1, b2, w1, w2``); xt (T, B, I)
     float32; yt (T, B) int32; mt (T, B) bool or float32 validity; act, nb,
     off (R,) int32, each client's tiles within the buffer (checked: one
-    device-to-host read of a flag per call).  Returns the (R, D) post-SGD
-    flat rows, float32.
+    device-to-host read of a flag per call).  Clusters take the clients in
+    ``longest_first(nb)`` order.  Returns the (R, D) post-SGD flat rows,
+    float32.
 
     On CPU tensors this is the plain version; on CUDA tensors it launches
     the kernel, or raises if the shapes do not fit it."""
@@ -119,16 +175,18 @@ def local_sgd_ragged(g_flat, xt, yt, mt, act, nb, off, *, hidden: int,
     if B < 1 or epochs < 0:
         raise ValueError(f"batch_size={B}, epochs={epochs}")
     lib = ops.library()
-    smem = _smem_bytes(lib, I, H, C, B)
+    plan(I, H, C, B)
+    _require_aligned(xt, "xt")
     out = torch.empty((R, D), dtype=torch.float32, device=dev)
     if R == 0:
         return out
     if bool(((nb < 0) | (off < 0) | (off.to(torch.int64) + nb > T)).any()):
         raise ValueError(f"nb / off address tiles outside the {T}-tile buffer")
+    order = longest_first(nb)
     err = lib.fedar_local_sgd_ragged(
         g_flat.data_ptr(), xt.data_ptr(), yt.data_ptr(), act.data_ptr(),
-        m.data_ptr(), nb.data_ptr(), off.data_ptr(), out.data_ptr(), R, I, H,
-        C, B, epochs, lr, smem, ops.stream_ptr(xt),
+        m.data_ptr(), nb.data_ptr(), off.data_ptr(), order.data_ptr(),
+        out.data_ptr(), R, I, H, C, B, epochs, lr, ops.stream_ptr(xt),
     )
     ops.check_launch(err, "local_sgd_ragged")
     local_sgd_ragged.launches += 1

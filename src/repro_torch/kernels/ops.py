@@ -118,13 +118,16 @@ def _build(lib_path: Path, nvcc: str) -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.fedar_local_sgd.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, P]
+    PI = ctypes.POINTER(I)
+    lib.fedar_local_sgd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
     lib.fedar_local_sgd.restype = I
-    lib.fedar_local_sgd_ragged.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, F,
-                                           I, P]
+    lib.fedar_local_sgd_ragged.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                           F, P]
     lib.fedar_local_sgd_ragged.restype = I
-    lib.fedar_local_sgd_smem_bytes.argtypes = [I, I, I, I]
-    lib.fedar_local_sgd_smem_bytes.restype = I
+    lib.fedar_local_sgd_plan.argtypes = [I, I, I, I, PI, PI, PI]
+    lib.fedar_local_sgd_plan.restype = I
+    lib.fedar_local_sgd_attrs.argtypes = [I, I, I, I, PI, PI, PI]
+    lib.fedar_local_sgd_attrs.restype = I
     lib.fedar_fedavg_agg.argtypes = [P, P, P, P, I, L, P]
     lib.fedar_fedavg_agg.restype = I
     lib.fedar_sketch_similarity.argtypes = [P, P, P, P, I, I, I, I, I, P]
@@ -137,7 +140,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_topk_decode.restype = I
     lib.fedar_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.fedar_flash_attention.restype = I
-    PI = ctypes.POINTER(I)
     lib.fedar_flash_attention_attrs.argtypes = [I, PI, PI, PI, PI]
     lib.fedar_flash_attention_attrs.restype = I
     lib.fedar_ssm_scan.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]

@@ -63,6 +63,14 @@ class ClientModel:
         is one client's dense sample-block shape (sample axis first)."""
         raise NotImplementedError
 
+    def check_fused(self, batch_size: int) -> None:
+        """Raise ``ValueError`` if the fused kernels cannot take this model
+        at ``batch_size``; the engine asks once, when it picks the kernel
+        route.  Only families with ``supports_fused`` implement it."""
+        raise NotImplementedError(
+            f"model family {self.family!r} has no fused local-SGD kernel"
+        )
+
     def fused_block_update(self, global_flat, fields, sample_mask, *,
                            lr, batch_size, epochs):
         """Fused-kernel ClientUpdate over a whole client block -> the

@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.fedar_mnist import MnistConfig
 from repro_torch.kernels.local_sgd import local_sgd as local_sgd_kernel
-from repro_torch.kernels.local_sgd import local_sgd_ragged
+from repro_torch.kernels.local_sgd import local_sgd_ragged, plan
 from repro_torch.models.client import ClientModel
 
 
@@ -142,6 +142,9 @@ class MnistClientModel(ClientModel):
         return float(
             2 * epochs * sample_shape[0] * self.cfg.input_dim * self.cfg.hidden
         )
+
+    def check_fused(self, batch_size: int) -> None:
+        plan(self.cfg.input_dim, self.cfg.hidden, self.cfg.num_classes, batch_size)
 
     def fused_block_update(self, global_flat, fields, sample_mask, *,
                            lr, batch_size, epochs):

@@ -20,27 +20,33 @@ from repro.data.datasets import make_federated
 from repro_torch.configs.fedar_mnist import fleet_fed, small_model
 from repro_torch.convert import ReplayDraws, params_from_jax
 from repro_torch.core.fedar import FedARServer
-from repro_torch.core.resources import TaskRequirement
+from repro_torch.core.resources import LATENCY_JITTER, TaskRequirement
 from repro_torch.data.federated import table2_fleet
 
 COMPRESS_KEY_FOLD = 0xC0DEC  # repro/core/engine.py's domain separator
 
 
 def reference_draws(seed, rounds, n, dim=None):
-    """(gumbel, normal) of shape (rounds, n), plus the (rounds, n, dim) QSGD
-    uniforms when ``dim`` is given."""
-    g, z, u = [], [], []
+    """``ReplayDraws`` keyword arguments: the (rounds, n) Gumbel draws and
+    latency factors ``exp(LATENCY_JITTER * normal)``, plus the (rounds, n, dim)
+    QSGD uniforms when ``dim`` is given.  The factor is one jitted
+    computation, as inside the reference engine's jitted round: XLA folds
+    the jitter into the normal's own scale there, which rounds otherwise
+    than an eager ``normal`` followed by ``exp``."""
+    factor = jax.jit(lambda k: jnp.exp(LATENCY_JITTER * jax.random.normal(k, (n,))))
+    g, lat, u = [], [], []
     for r in range(rounds):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), r)
         k_sel, k_lat, _ = jax.random.split(key, 3)
         g.append(np.asarray(jax.random.gumbel(k_sel, (n,))))
-        z.append(np.asarray(jax.random.normal(k_lat, (n,))))
+        lat.append(np.asarray(factor(k_lat)))
         if dim is not None:
             keys = client_keys(jax.random.fold_in(key, COMPRESS_KEY_FOLD),
                                jnp.arange(n, dtype=jnp.int32))
             u.append(np.asarray(
                 jax.vmap(lambda k: jax.random.uniform(k, (dim,)))(keys)))
-    return (np.stack(g), np.stack(z)) + ((np.stack(u),) if dim is not None else ())
+    return dict(gumbel=np.stack(g), latency=np.stack(lat),
+                uniform=np.stack(u) if dim is not None else None)
 
 
 def run_both(rounds, *, hidden=32, samples=60, force=None, **overrides):
@@ -60,8 +66,8 @@ def run_both(rounds, *, hidden=32, samples=60, force=None, **overrides):
     )
     params, _ = params_from_jax(jeng.template)
     needs_unif = overrides.get("compress") == "qsgd"
-    draws = ReplayDraws(*reference_draws(0, rounds, 12,
-                                         jeng.dim if needs_unif else None))
+    draws = ReplayDraws(**reference_draws(0, rounds, 12,
+                                          jeng.dim if needs_unif else None))
     server = FedARServer(
         small_model(hidden), fleet_fed(12, **overrides), TaskRequirement(),
         device="cpu", draws=draws, init_params=params,

@@ -53,7 +53,7 @@ def _sgd_inputs(dev, I=16, H=8, C=10, R=4, n=37, seed=0):
     return tuple(t.to(dev) for t in (g, x, y, act, mask))
 
 
-@pytest.mark.parametrize("I,H", [(16, 8), (784, 128)])
+@pytest.mark.parametrize("I,H", [(16, 8), (784, 128), (784, 64)])
 def test_local_sgd_kernel_matches_plain(cuda_device, I, H):
     g, x, y, act, mask = _sgd_inputs(cuda_device, I=I, H=H)
     kw = dict(hidden=H, classes=10, lr=0.1, batch_size=20, epochs=3)
@@ -63,6 +63,88 @@ def test_local_sgd_kernel_matches_plain(cuda_device, I, H):
     torch.testing.assert_close(got, ref.local_sgd_ref(g, x, y, act, mask, **kw),
                                rtol=1e-5, atol=1e-5)
     assert torch.equal(got[2], g)  # all-False client: unchanged
+
+
+def test_local_sgd_kernel_skips_dead_batches_between_live_ones(cuda_device):
+    """Live batches around all-masked ones (the mask is read before the x
+    tile, and a dead batch is neither loaded nor stepped), at the main
+    path's width with mixed activations."""
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=784, H=128, n=140)
+    mask[:] = True
+    mask[0, 20:60] = False   # batches 1 and 2 dead, 3.. live
+    mask[1, 0:20] = False    # the first batch dead
+    mask[1, 100:] = False    # the last two dead
+    mask[3, 40:60] = False
+    mask[3, 80:100] = False  # dead, live, dead, live
+    kw = dict(hidden=128, classes=10, lr=0.1, batch_size=20, epochs=3)
+    got = local_sgd(g, x, y, act, mask, **kw)
+    torch.testing.assert_close(got, ref.local_sgd_ref(g, x, y, act, mask, **kw),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_local_sgd_kernel_long_chain(cuda_device):
+    """A 350-step chain (5 epochs of 70 batches, phase 7's longest client)
+    against the plain version; fp32 sums in another order over 350
+    sequential steps, the tolerance chip_smoke.py holds the main path to."""
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=784, H=128, n=1400)
+    g = g / 6  # the 0.05 init scale of chip_smoke.py's main-path check
+    mask[:] = True
+    kw = dict(hidden=128, classes=10, lr=0.1, batch_size=20, epochs=5)
+    got = local_sgd(g, x, y, act, mask, **kw)
+    torch.testing.assert_close(got, ref.local_sgd_ref(g, x, y, act, mask, **kw),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("I,H", [(16, 8), (784, 128)])
+def test_local_sgd_rows_do_not_depend_on_client_order(cuda_device, I, H):
+    """The clients' rows given in reverse, so that the stable longest-first
+    sort hands tied clients to other clusters, give bit-equal rows, in
+    both forms."""
+    from repro_torch.kernels.local_sgd import live_batches, longest_first
+
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=I, H=H, R=6, n=57)
+    mask[4, 40:] = False
+    R = act.shape[0]
+    fwd = longest_first(live_batches(mask, 20)).tolist()
+    bwd = longest_first(live_batches(mask.flip(0), 20)).tolist()
+    assert fwd != [R - 1 - c for c in bwd]  # the clusters train other clients
+    kw = dict(hidden=H, classes=10, lr=0.1, epochs=2)
+    base = local_sgd(g, x, y, act, mask, batch_size=20, **kw)
+    back = local_sgd(g, x.flip(0), y.flip(0), act.flip(0), mask.flip(0),
+                     batch_size=20, **kw).flip(0)
+    assert torch.equal(back, base)
+    xt, yt, mt, nb, off = _ragged_from_dense(x, y, mask, 20)
+    ragged = local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw)
+    assert torch.equal(ragged, base)
+    back = local_sgd_ragged(g, xt, yt, mt, act.flip(0), nb.flip(0), off.flip(0),
+                            **kw).flip(0)
+    assert torch.equal(back, ragged)
+
+
+def test_local_sgd_shape_that_fits_no_cluster_raises(cuda_device):
+    """A batch of 80 rows of 784 (two x tiles of 251 KB) fits no cluster
+    size; I = 18 is no whole number of 16-byte rows."""
+    from repro_torch.kernels.local_sgd import plan
+
+    assert plan(784, 128, 10, 20)[0] == 8
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=784, H=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        local_sgd(g, x, y, act, mask, hidden=128, classes=10, lr=0.1, batch_size=80,
+                  epochs=1)
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=18, H=8)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        local_sgd(g, x, y, act, mask, hidden=8, classes=10, lr=0.1, batch_size=20,
+                  epochs=1)
+
+
+@pytest.mark.parametrize("hidden", [100, 256])
+def test_engine_rejects_a_width_the_kernel_cannot_take(cuda_device, hidden):
+    """A hidden width with no cluster plan (100: not 8 or 16 columns a
+    CTA; 256: more than 8 CTAs) raises when the server is built on the
+    kernel route, before any round; the plain route takes it."""
+    with pytest.raises(ValueError, match="cannot take"):
+        FedARServer(small_model(hidden), fleet_fed(12), TaskRequirement())
+    FedARServer(small_model(hidden), fleet_fed(12, sgd_impl="einsum"), TaskRequirement())
 
 
 def test_fedavg_agg_kernel_matches_plain(cuda_device):
@@ -213,7 +295,7 @@ def _ragged_from_dense(x, y, mask, B):
             nb, off)
 
 
-@pytest.mark.parametrize("I,H", [(16, 8), (784, 128)])
+@pytest.mark.parametrize("I,H", [(16, 8), (784, 128), (784, 64)])
 def test_local_sgd_ragged_kernel_matches_plain_and_dense(cuda_device, I, H):
     """The ragged kernel against its plain version (fp32 sums in another
     order), and bit-equal to the dense kernel on the same clients: one

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_parity import reference_draws
+from _torch_parity import assert_bookkeeping_equal, reference_draws, run_both
 
 from repro.configs.fedar_mnist import fleet_fed as jfleet_fed
 from repro.configs.fedar_mnist import small_model as jsmall_model
@@ -62,7 +62,7 @@ def test_golden_config_matches_live_reference(aggregation, defense):
     server = FedARServer(
         small_model(32), fleet_fed(12, defense=defense, aggregation=aggregation),
         TaskRequirement(), device="cpu",
-        draws=ReplayDraws(*reference_draws(0, ROUNDS, 12)), init_params=params,
+        draws=ReplayDraws(**reference_draws(0, ROUNDS, 12)), init_params=params,
     )
     hist = server.run(data, rounds=ROUNDS, eval_set=ev)
 
@@ -85,6 +85,22 @@ def test_golden_config_matches_live_reference(aggregation, defense):
     np.testing.assert_array_equal(server.resources.battery.numpy(),
                                   np.asarray(jstate.resources.battery))
     assert server.round_idx == ROUNDS
+
+
+@pytest.mark.parametrize("aggregation", ["fedar", "fedavg", "async"])
+def test_dense_foolsgold_trajectory_matches_live_reference(aggregation):
+    """Dense FoolsGold (the quickstart's 12-robot default, similarity over
+    the full D-wide history) at the golden config: trust, the masks, the
+    counters and the round times exactly; params and the defense history
+    within atol = rtol = 2e-4."""
+    jstate, jouts, server, hist = run_both(ROUNDS, aggregation=aggregation,
+                                           defense="foolsgold")
+    assert_bookkeeping_equal(jstate, jouts, server, hist)
+    np.testing.assert_allclose(server.state.params.numpy(),
+                               np.asarray(jstate.params), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(server.fg_history.numpy(),
+                               np.asarray(jstate.fg_history), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(hist["acc"], np.asarray(jouts.acc), atol=2e-4)
 
 
 def test_imports_leave_out_jax_and_reference():

@@ -107,6 +107,24 @@ def test_local_sgd_plain_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), _jax_flat(new), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_longest_first_is_a_stable_descending_sort(seed):
+    """The kernels' cluster order: clients by descending live-batch count,
+    ties in client order, as numpy's stable sort of the negated counts."""
+    from repro_torch.kernels.local_sgd import live_batches, longest_first
+
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 6, 40).astype(np.int32)  # many ties
+    got = longest_first(torch.as_tensor(counts))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.argsort(-counts, kind="stable"))
+    mask = rng.random((5, 57)) < 0.3
+    mask[1] = False
+    mask[2, 20:] = False
+    want = [sum(mask[r, b:b + 20].any() for b in range(0, 57, 20)) for r in range(5)]
+    np.testing.assert_array_equal(live_batches(torch.as_tensor(mask), 20).numpy(), want)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_model_local_sgd_matches_reference(masked):
     """``models.mnist.local_sgd`` (autograd) against the reference's

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_parity import reference_draws
 
 from repro.common.config import FedConfig as JFedConfig
 from repro.core import aggregation as jagg
@@ -21,6 +22,7 @@ from repro.core.selection import select_clients as jselect
 from repro.data import federated as jfed_data
 from repro.data import synthetic as jsyn
 from repro_torch.common.config import FedConfig
+from repro_torch.convert import ReplayDraws
 from repro_torch.core import aggregation as tagg
 from repro_torch.core import foolsgold as tfg
 from repro_torch.core import resources as tres
@@ -94,9 +96,8 @@ def test_fleets_and_digits_bit_equal():
 
 
 def test_resource_score_check_resource_latency_battery():
-    """CheckResource and the headroom score exactly; latency with the
-    reference's normal draw within 1 ulp-scale (exp of the jitter, rtol
-    1e-6); battery drain exactly."""
+    """CheckResource, the headroom score, the latency (with the
+    reference's jitter factor replayed) and the battery drain, exactly."""
     tr, _ = tres.make_fleet(24, seed=1)
     jr, _ = jres.make_fleet(24, seed=1)
     req = tres.TaskRequirement()
@@ -106,13 +107,32 @@ def test_resource_score_check_resource_latency_battery():
                                   np.asarray(jres.resource_score(jr, req)))
     key = jax.random.PRNGKey(7)
     want = jres.round_latency(jr, train_flops=3e8, model_bytes=4e5, key=key)
+    # eager, as the eager reference call computes it
+    factor = jnp.exp(tres.LATENCY_JITTER * jax.random.normal(key, (24,)))
     got = tres.round_latency(tr, train_flops=3e8, model_bytes=4e5,
-                             normal=_t(jax.random.normal(key, (24,))))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+                             factor=_t(factor))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     part = np.random.default_rng(2).random(24) < 0.5
     np.testing.assert_array_equal(
         tres.drain_battery(tr, _t(part)).battery.numpy(),
         np.asarray(jres.drain_battery(jr, jnp.asarray(part)).battery))
+
+
+def test_round_latency_replayed_factor_exact_over_200_rounds():
+    """The port's latency with the replayed jitter factor equals the
+    reference's jitted ``round_latency`` on all 2,400 client-rounds of the
+    12-robot fleet (an ``exp`` of the port's own rounds a few hundred of
+    them one ulp away)."""
+    tr, _ = tres.make_fleet(12)
+    jr, _ = jres.make_fleet(12)
+    draws = ReplayDraws(**reference_draws(0, 200, 12))
+    ref_lat = jax.jit(lambda res, k: jres.round_latency(
+        res, train_flops=3.7e9, model_bytes=407080.0, key=k))
+    for r in range(200):
+        k_lat = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), r), 3)[1]
+        got = tres.round_latency(tr, train_flops=3.7e9, model_bytes=407080.0,
+                                 factor=draws.latency_factor(r, 12))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref_lat(jr, k_lat)))
 
 
 def test_select_clients_replayed_gumbel_exact():

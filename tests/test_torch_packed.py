@@ -140,7 +140,7 @@ def port_run(jeng, fed_kw, data, rounds, hidden):
     params, _ = params_from_jax(jeng.template)
     server = FedARServer(small_model(hidden), fleet_fed(n, **fed_kw),
                          TaskRequirement(), device="cpu",
-                         draws=ReplayDraws(*reference_draws(0, rounds, n)),
+                         draws=ReplayDraws(**reference_draws(0, rounds, n)),
                          init_params=params)
     hist = server.run(data, rounds=rounds)
     return server, hist
