@@ -144,6 +144,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_flash_attention_attrs.restype = I
     lib.fedar_ssm_scan.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.fedar_ssm_scan.restype = I
+    lib.fedar_ssm_scan_attrs.argtypes = [PI, PI, PI, PI]
+    lib.fedar_ssm_scan_attrs.restype = I
     lib.fedar_cuda_error_string.argtypes = [I]
     lib.fedar_cuda_error_string.restype = ctypes.c_char_p
 

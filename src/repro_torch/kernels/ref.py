@@ -184,17 +184,19 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32)).to(q.dtype)
 
 
-def ssm_scan_ref(xd, logdecay, Bc, Cc):
+def ssm_scan_ref(xd, logdecay, Bc, Cc, dtype=torch.float32):
     """Sequential (exact) SSD recurrence, one step per position:
     ``state = exp(l_t) * state + B_t (x) x_t``, ``y_t = C_t . state``.
     xd: (B, S, nh, hd) dt-scaled inputs; logdecay: (B, S, nh);
-    Bc, Cc: (B, S, st).  Returns y (B, S, nh, hd) float32."""
+    Bc, Cc: (B, S, st).  Returns y (B, S, nh, hd) in ``dtype``, the type
+    every input is widened to and the state is carried in (float64 gives
+    the yardstick that the float32 versions' rounding is measured by)."""
     B, S, nh, hd = xd.shape
     st = Bc.shape[-1]
-    x = xd.to(torch.float32)
-    a = torch.exp(logdecay.to(torch.float32))
-    Bf, Cf = Bc.to(torch.float32), Cc.to(torch.float32)
-    state = torch.zeros((B, nh, st, hd), dtype=torch.float32, device=xd.device)
+    x = xd.to(dtype)
+    a = torch.exp(logdecay.to(dtype))
+    Bf, Cf = Bc.to(dtype), Cc.to(dtype)
+    state = torch.zeros((B, nh, st, hd), dtype=dtype, device=xd.device)
     ys = []
     for t in range(S):
         upd = torch.einsum("bs,bnh->bnsh", Bf[:, t], x[:, t])

@@ -25,7 +25,7 @@ from repro_torch.kernels.defense_sim import sketch_similarity
 from repro_torch.kernels.fedavg_agg import fedavg_agg
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.local_sgd import local_sgd, local_sgd_ragged
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import kernel_attrs, plan, ssm_scan
 from repro_torch.models.model import Model
 
 pytestmark = pytest.mark.cuda
@@ -431,6 +431,113 @@ def test_ssm_scan_kernel_matches_plain(cuda_device, dtype, B, S, nh, hd, st):
     assert got.dtype == dtype and got.shape == xd.shape
     want = ref.ssm_scan_ref(xd, logdecay, Bc, Cc).to(dtype)
     _close(got, want, 1e-4 if dtype == torch.float32 else BF16_RTOL)
+
+
+def _model_scan_inputs(dev, B, S, nh, hd, st, seed):
+    """As the model makes them: dt = softplus(.), A = -linspace(1, 16, nh),
+    x scaled by dt."""
+    gen = torch.Generator().manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, nh, generator=gen))
+    logdecay = dt * -torch.linspace(1.0, 16.0, nh)
+    xd = torch.randn(B, S, nh, hd, generator=gen) * dt[..., None]
+    Bc, Cc = (torch.randn(B, S, st, generator=gen) for _ in "BC")
+    return tuple(t.to(dev) for t in (xd, logdecay, Bc, Cc))
+
+
+# the fp32 scan against the float64 recurrence: each row within this many
+# times the fp32 plain version's largest error relative to its row (its
+# chunked decays are differences of cumsums, so its rounding follows the
+# chunk's decay history, not the row; chip_smoke.compare_scan_fp32)
+FP32_SCAN_FACTOR = 4
+
+
+def _close_to_fp64(got, plain, want64):
+    row_max = want64.abs().amax(dim=-1, keepdim=True).clamp_min(1e-300)
+    rel = ((plain.double() - want64).abs().amax(dim=-1, keepdim=True) / row_max).max()
+    err = (got.double() - want64).abs()
+    limit = FP32_SCAN_FACTOR * rel * row_max
+    assert bool((err <= limit).all()), (
+        f"largest error / tolerance {(err / limit).max().item():.3f} "
+        f"(the plain version's relative error {rel.item():.3e})")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,nh,hd,st", [
+    (1, 200, 4, 64, 32),    # ragged S, st != hd
+    (2, 1000, 3, 32, 48),   # ragged S over 16 chunks
+    (1, 4096, 2, 64, 64),   # B = 1, 64 chunks
+    (1, 333, 5, 16, 24),    # hd 16: one slice, half of it past hd
+    (2, 130, 2, 48, 16),    # hd 48: the second 32-column slice is half full
+])
+def test_ssm_scan_over_shapes_at_the_model_decay_range(cuda_device, B, S, nh, hd, st,
+                                                       dtype):
+    """The model's own decays (log-decays down to ~-11 a step).  bf16: row
+    by row at ``BF16_RTOL`` against the sequential recurrence; fp32 (the
+    FMA instance): against the float64 recurrence."""
+    xd, logdecay, Bc, Cc = _model_scan_inputs(cuda_device, B, S, nh, hd, st, S + hd)
+    xd, Bc, Cc = (t.to(dtype) for t in (xd, Bc, Cc))
+    n0 = ssm_scan.launches
+    got = ssm_scan(xd, logdecay, Bc, Cc)
+    assert ssm_scan.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == xd.shape
+    plain = ref.ssm_scan_ref(xd, logdecay, Bc, Cc)
+    if dtype == torch.bfloat16:
+        _close(got, plain.to(dtype), BF16_RTOL)
+    else:
+        _close_to_fp64(got, plain,
+                       ref.ssm_scan_ref(xd, logdecay, Bc, Cc, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("seed", [0, 28])
+def test_ssm_scan_bf16_keeps_the_state_near_fp32(cuda_device, seed):
+    """S = 2,048, 32 heads of 64, state 64, the model's decays, from numpy
+    seeds on which the emulation in tests/test_torch_ssm_scan.py misses
+    BF16_RTOL when the state (both seeds) or B_j exp(lc_L - lc_j) (seed 28)
+    enters its product as one bf16 value: the kernel's hi + lo pairs hold."""
+    B, S, nh, hd, st = 1, 2048, 32, 64, 64
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, nh))))
+    logdecay = torch.as_tensor((dt * -np.linspace(1.0, 16.0, nh)).astype(np.float32))
+    xd = torch.as_tensor((rng.standard_normal((B, S, nh, hd)) * dt[..., None])
+                         .astype(np.float32))
+    Bc, Cc = (torch.as_tensor(rng.standard_normal((B, S, st)).astype(np.float32))
+              for _ in "BC")
+    xd, Bc, Cc = (t.to(cuda_device, torch.bfloat16) for t in (xd, Bc, Cc))
+    logdecay = logdecay.to(cuda_device)
+    got = ssm_scan(xd, logdecay, Bc, Cc)
+    _close(got, ref.ssm_scan_ref(xd, logdecay, Bc, Cc).to(torch.bfloat16), BF16_RTOL)
+
+
+def test_ssm_scan_bf16_refuses_what_it_cannot_copy(cuda_device):
+    """hd and st multiples of 8 (16-byte rows) and 16-byte aligned
+    storage: anything else raises before a launch."""
+    dev = cuda_device
+    n0 = ssm_scan.launches
+    ld = torch.zeros(1, 8, 2, device=dev)
+    bc = torch.randn(1, 8, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssm_scan(torch.randn(1, 8, 2, 20, device=dev, dtype=torch.bfloat16), ld, bc, bc)
+    xd = torch.randn(1, 8, 2, 16, device=dev, dtype=torch.bfloat16)
+    odd = torch.randn(1, 8, 12, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ssm_scan(xd, ld, odd, odd)
+    shifted = torch.randn(xd.numel() + 1, device=dev, dtype=torch.bfloat16)[1:].view(xd.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        ssm_scan(shifted, ld, bc, bc)
+    assert ssm_scan.launches == n0
+    # the fp32 instance takes those shapes
+    x32 = torch.randn(1, 8, 2, 20, device=dev)
+    b32 = torch.randn(1, 8, 12, device=dev)
+    got = ssm_scan(x32, ld, b32, b32)
+    _close(got, ref.ssm_scan_ref(x32, ld, b32, b32), 1e-4)
+
+
+def test_ssm_scan_resources_match_the_plan(cuda_device):
+    a = kernel_attrs()
+    assert a["smem_bytes"] == plan(1, 64, 1, 64, 64)["smem_bytes"]
+    assert a["local_bytes"] == 0 and 0 < a["registers"] <= 128
+    assert a["blocks_per_sm"] == 4
 
 
 def test_lm_kernel_wrappers_validate_arguments(cuda_device):
