@@ -32,7 +32,10 @@ Phases (any failure raises and the script exits non-zero):
    carried tensor must be identical.
 6. Top-k at full width, 12 robots: the Table II fleet, fedar + ``compress=
    "topk"`` (k = D // 32 = 3180); ``topk_decode`` must launch, and the same
-   route check.
+   route check.  Then phase 4's 512-client fleet with the same top-k, 6
+   rounds (round 1 warm-up): ``topk_decode`` must launch twice a round
+   (the residual's decode in ``encode`` and the server's), the state must
+   stay finite, and the route check.
 7. Gated packed at full width, 512 clients: a quantity-skewed digits fleet
    (``make_federated("digits", 512, scenario="quantity_skew", seed=7)``,
    1-1394 samples per client), ``prepare_data`` picks the packed layout,
@@ -74,8 +77,10 @@ with each bf16 instance's registers and shared bytes.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits non-zero and prints no result.  ``--profile DIR`` also writes a
-``torch.profiler`` table of one round of phases 3, 4, 5, 7 (both layouts)
-and 8, and of each profiled request of phase 9.
+``torch.profiler`` table of one round of phases 3, 4, 5, 6 (both fleets,
+with a compressed round's device time split into ``torch.topk``, the
+gather, the two decodes, ``local_sgd`` and the rest), 7 (both layouts) and
+8, and of each profiled request of phase 9.
 """
 from __future__ import annotations
 
@@ -465,9 +470,9 @@ def compare_exact(name, got, want):
 def codec_phase(ref, codecs):
     """Phase 2, the uplink codecs: each kernel vs its plain version on the
     card, bit-equal, at the shapes of phases 5 (pack and unpack, N = 512) and
-    6 (top-k decode, N = 12), plus N = 12 / 512 beside them, an odd D,
-    duplicate indices and k = 0.  Returns the JSON entries of those
-    main-path shapes."""
+    6 (top-k decode, N = 12 and 512), plus N = 12 / 512 beside them, an odd
+    D, duplicate indices and k = 0; top-k decode's launch plan and one
+    launch a call.  Returns the JSON entries of the N = 512 shapes."""
     pack_codes, unpack_codes, topk_decode = codecs
     gen = torch.Generator().manual_seed(1)
     entries = {}
@@ -502,37 +507,49 @@ def codec_phase(ref, codecs):
                     max_abs_err=err, ms=timings[name][0], plain_ms=timings[name][1],
                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
+    from repro_torch.kernels.compress import topk_decode_attrs, topk_plan
+
     print("topk_decode (distinct indices and pairs: bit-equal; triples: fp32 "
           "sums of three in another order, tolerance 1e-6 + 1e-6 * max|plain|)")
     k = D // 32
-    for N in (12, 512):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N, dim in ((12, D), (512, D), (12, D + 1), (512, D + 1)):
+        plan = topk_plan(N, k, dim, sms=sms)
+        print(f"  plan N={N}, D={dim}: {plan}; on the card "
+              f"{topk_decode_attrs(plan['smem_bytes'])}")
         vals = torch.randn(N, k, generator=gen).to(DEV)
-        idx = torch.stack([torch.randperm(D, generator=gen)[:k] for _ in range(N)])
-        idx64 = idx.to(DEV)
+        idx64 = torch.stack([torch.randperm(dim, generator=gen)[:k]
+                             for _ in range(N)]).to(DEV)
         idx = idx64.to(torch.int32)
-        err = compare_exact(f"N={N}, k={k}, distinct", topk_decode(vals, idx, D),
-                            ref.topk_decode_ref(vals, idx, D))
+        before = topk_decode.launches
+        err = compare_exact(f"N={N}, D={dim}, k={k}, distinct", topk_decode(vals, idx, dim),
+                            ref.topk_decode_ref(vals, idx, dim))
+        if topk_decode.launches != before + 1:
+            raise AssertionError("topk_decode must launch its kernel once a call")
         pairs = torch.cat([idx[:, :k // 2], idx[:, :k - k // 2]], dim=1).contiguous()
-        compare_exact(f"N={N}, k={k}, every index twice", topk_decode(vals, pairs, D),
-                      ref.topk_decode_ref(vals, pairs, D))
+        compare_exact(f"N={N}, D={dim}, k={k}, every index twice",
+                      topk_decode(vals, pairs, dim), ref.topk_decode_ref(vals, pairs, dim))
         triples = torch.randint(0, k // 3, (N, k), generator=gen, dtype=torch.int32).to(DEV)
-        compare(f"N={N}, k={k}, ~3 per index", topk_decode(vals, triples, D),
-                ref.topk_decode_ref(vals, triples, D), atol=1e-6, rtol=1e-6)
+        compare(f"N={N}, D={dim}, k={k}, ~3 per index", topk_decode(vals, triples, dim),
+                ref.topk_decode_ref(vals, triples, dim), atol=1e-6, rtol=1e-6)
         before = topk_decode.launches
         empty = torch.empty(N, 0, device=DEV)
-        zero = topk_decode(empty, empty.to(torch.int32), D)
+        zero = topk_decode(empty, empty.to(torch.int32), dim)
         if topk_decode.launches != before or not torch.equal(
-                zero, torch.zeros(N, D, device=DEV)):
+                zero, torch.zeros(N, dim, device=DEV)):
             raise AssertionError("topk_decode with k = 0 must give zeros without a launch")
-        print(f"  N={N}, k=0: zeros, no launch ok")
-        k_ms = time_ms(lambda: topk_decode(vals, idx, D), reps=20)
-        p_ms = time_ms(lambda: ref.topk_decode_ref(vals, idx, D), reps=20)
-        lib_ms = time_ms(lambda: torch.zeros(N, D, device=DEV).scatter_add_(1, idx64, vals),
+        print(f"  N={N}, D={dim}, k=0: zeros, no launch ok")
+        k_ms = time_ms(lambda: topk_decode(vals, idx, dim), reps=20)
+        p_ms = time_ms(lambda: ref.topk_decode_ref(vals, idx, dim), reps=20)
+        lib_ms = time_ms(lambda: torch.zeros(N, dim, device=DEV).scatter_add_(1, idx64, vals),
                          reps=20)
-        b_ms, b_by = bound_ms(4 * N * D + 8 * N * k, 0)
+        # the writes alone: a fill of an output of the same size
+        fill_ms = time_ms(lambda: torch.empty(N, dim, device=DEV).zero_(), reps=20)
+        b_ms, b_by = bound_ms(4 * N * dim + 8 * N * k, 0)
         print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms (zeros + scatter_add_), bound {b_ms:.3g} ms ({b_by})")
-        if N == 12:
+              f"{lib_ms:.4f} ms (zeros + scatter_add_), bound {b_ms:.3g} ms ({b_by}), "
+              f"{b_ms / k_ms:.0%} of it; a fill of the output {fill_ms:.4f} ms")
+        if (N, dim) == (512, D):
             entries["topk_decode"] = dict(
                 name="topk_decode", route="cuda", source="src/repro_torch/csrc/compress.cu",
                 replaces="src/repro/kernels/compress.py:139", max_abs_err=err,
@@ -656,9 +673,11 @@ def check_codec_routes(kernel_engine, plain_engine, data, starts, force) -> None
           f"history, trust and masks identical with compress_impl='einsum'")
 
 
-def profile_round(server, data, eval_set, path: Path, label: str, force=None):
+def profile_round(server, data, eval_set, path: Path, label: str, force=None,
+                  topk=False):
     """One round under ``torch.profiler``: writes the full table by device
-    time and prints the device busy share of the round's wall time."""
+    time and prints the device busy share of the round's wall time; with
+    ``topk``, also a compressed round's device time by part."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server.run_round(data, eval_set=eval_set, force_straggler=force)
@@ -676,6 +695,28 @@ def profile_round(server, data, eval_set, path: Path, label: str, force=None):
           f"{path / f'profile_{label}.txt'}")
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:70]}")
+    if topk:
+        print(topk_split(events, on_device, busy_ms))
+
+
+def topk_split(events, on_device, busy_ms) -> str:
+    """A compressed round's device ms by part: ``torch.topk`` (the
+    ``aten::topk`` op with the kernels it launches: its select and its
+    sort), every ``aten::gather``, the two ``topk_decode`` launches,
+    ``local_sgd``, and the rest."""
+    def op_ms(name):
+        return sum(e.device_time_total for e in events
+                   if e.device_type == DeviceType.CPU and e.key == name) / 1e3
+
+    def kernel_ms(part):
+        return sum(e.self_device_time_total for e in on_device if part in e.key) / 1e3
+
+    parts = {"torch.topk": op_ms("aten::topk"), "gather": op_ms("aten::gather"),
+             "topk_decode": kernel_ms("topk_decode_kernel"),
+             "local_sgd": kernel_ms("local_sgd_kernel")}
+    parts["the rest"] = busy_ms - sum(parts.values())
+    return "  device ms by part: " + ", ".join(
+        f"{k} {v:.3f} ({v / busy_ms:.1%})" for k, v in parts.items())
 
 
 # bf16 outputs: the kernel and the plain version each round an fp32 result
@@ -1324,7 +1365,7 @@ def main() -> int:
     for name in ("pack_codes", "unpack_codes"):
         entries[name]["launches"] = launches5[name]
 
-    # --- phase 6: top-k at full width, 12 robots
+    # --- phase 6: top-k at full width, 12 robots, then 512 clients
     fed_topk = fleet_fed(12, compress="topk", defense="foolsgold_sketch")
     print("\n[fedar + topk] 12 robots, k = D // 32")
     server = FedARServer(MnistConfig(), fed_topk, req, device=DEV)
@@ -1340,7 +1381,35 @@ def main() -> int:
     plain = FedARServer(MnistConfig(), dataclasses.replace(fed_topk, compress_impl="einsum"),
                         req, device=DEV)
     check_codec_routes(server.engine, plain.engine, data, starts, None)
+    if args.profile:
+        profile_round(server, data, eval_set, Path(args.profile), "n12_topk", topk=True)
+
+    # the same at 512 clients: phase 4's fleet, 6 rounds (round 1 warm-up)
+    fed_topk512 = fleet_fed(512, compress="topk", defense="foolsgold_sketch")
+    print("\n[fedar + topk] 512 clients, k = D // 32")
+    server = FedARServer(MnistConfig(), fed_topk512, req, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, launches6, starts = timed_rounds(
+        server, big_dev, eval_set, rounds512, kernels + codecs[2:], every)
+    if launches6["topk_decode"] != 2 * rounds512:
+        raise AssertionError(f"topk_decode launched {launches6['topk_decode']} times in "
+                             f"{rounds512} rounds, not 2 a round")
+    st = server.state
+    print(f"acc {[round(a, 4) for a in server.history['acc']]}")
+    print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"residual L2 {torch.linalg.vector_norm(st.compress_residual).item():.6f}")
+    for t in (st.params, st.compress_residual):
+        if not torch.isfinite(t).all():
+            raise AssertionError("512-client topk run produced non-finite state")
+    plain = FedARServer(MnistConfig(),
+                        dataclasses.replace(fed_topk512, compress_impl="einsum"),
+                        req, device=DEV)
+    check_codec_routes(server.engine, plain.engine, big_dev, starts, None)
     entries["topk_decode"]["launches"] = launches6["topk_decode"]
+    if args.profile:
+        profile_round(server, big_dev, eval_set, Path(args.profile), "n512_topk",
+                      topk=True)
 
     # --- phase 7: gated packed at full width, 512 quantity-skewed clients
     skew_packed, skew_dense = prepare_skew()

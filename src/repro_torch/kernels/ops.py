@@ -136,8 +136,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_pack_codes4.restype = I
     lib.fedar_unpack_codes4.argtypes = [P, P, L, L, L, P]
     lib.fedar_unpack_codes4.restype = I
-    lib.fedar_topk_decode.argtypes = [P, P, P, L, L, L, P]
+    lib.fedar_topk_decode.argtypes = [P, P, P, L, L, L, I, I, I, P]
     lib.fedar_topk_decode.restype = I
+    lib.fedar_topk_decode_attrs.argtypes = [I, PI, PI]
+    lib.fedar_topk_decode_attrs.restype = I
     lib.fedar_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
     lib.fedar_flash_attention.restype = I
     lib.fedar_flash_attention_attrs.argtypes = [I, PI, PI, PI, PI]

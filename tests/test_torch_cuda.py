@@ -8,6 +8,9 @@ Each kernel is held against its plain PyTorch version on the same inputs;
 the tolerances cover fp32 sums taken in another order.
 """
 import dataclasses
+import re
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,7 +22,7 @@ from repro_torch.core.fedar import FedARServer
 from repro_torch.core.resources import TaskRequirement
 from repro_torch.data.datasets import make_federated
 from repro_torch.data.federated import table2_fleet
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
 from repro_torch.kernels.defense_sim import sketch_similarity
 from repro_torch.kernels.fedavg_agg import fedavg_agg
@@ -203,26 +206,159 @@ def test_pack_unpack_kernels_match_plain(cuda_device, n, dim):
     assert (pack_codes.launches, unpack_codes.launches) == (n0 + 1, u0 + 1)
 
 
+def _distinct(gen, N, k, D):
+    return torch.stack([torch.randperm(D, generator=gen)[:k] for _ in range(N)]).to(torch.int32)
+
+
+def _poison(dev, numel):
+    """Leave NaN in the block the caching allocator hands the next output of
+    ``numel`` floats, so an element the kernel never writes shows."""
+    torch.full((numel,), float("nan"), device=dev)
+
+
+# (N, k, D): the main path's shapes at D = 101,770 (D * 4 is 8 mod 16:
+# windows start mid-row, about one in twelve straddles two rows) and an odd
+# D; a k that is not a multiple of 4 and an output whose last window ends in
+# a partial 16-byte unit (33 * 101,771 = 3 mod 4); one window over every
+# row, at D = 5, 10 and 13 (a remainder of 0, 2 and 1 floats); 32 windows of
+# 128 rows each, with k = D (every element from an add) and k = 1
+_TOPK_SHAPES = [(12, 3180, 101770), (512, 3180, 101770), (12, 3180, 101771),
+                (512, 3180, 101771), (33, 3181, 101771), (64, 3, 5), (7, 4, 10),
+                (9, 2, 13), (4096, 64, 64), (4096, 1, 64)]
+
+
 def test_topk_decode_kernel_matches_plain(cuda_device):
-    """Distinct indices (the path's case) and pairs of duplicates are exact;
-    triples may sum in another order, within a few ulp of the sum."""
-    dev, dim = cuda_device, 101770
+    """Distinct indices (the path's case) and pairs of duplicates are exact
+    at every shape of ``_TOPK_SHAPES``; triples may sum in another order,
+    within a few ulp of the sum.  One launch a call; k = 0 launches
+    nothing."""
+    dev = cuda_device
     gen = torch.Generator().manual_seed(1)
+    for N, k, D in _TOPK_SHAPES:
+        vals = torch.randn(N, k, generator=gen).to(dev)
+        idx = _distinct(gen, N, k, D).to(dev)
+        pairs = torch.cat([idx[:, :k // 2], idx[:, :k - k // 2]], dim=1).contiguous()
+        for name, ix in (("distinct", idx), ("pairs", pairs)):
+            _poison(dev, N * D)
+            n0 = topk_decode.launches
+            got = topk_decode(vals, ix, D)
+            assert topk_decode.launches == n0 + 1
+            assert torch.equal(got, ref.topk_decode_ref(vals, ix, D)), (name, N, k, D)
     vals = torch.randn(12, 3180, generator=gen).to(dev)
-    idx = torch.stack([torch.randperm(dim, generator=gen)[:3180] for _ in range(12)])
-    idx = idx.to(torch.int32).to(dev)
-    assert torch.equal(topk_decode(vals, idx, dim), ref.topk_decode_ref(vals, idx, dim))
-    pairs = torch.cat([idx[:, :1590], idx[:, :1590]], dim=1).contiguous()
-    assert torch.equal(topk_decode(vals, pairs, dim), ref.topk_decode_ref(vals, pairs, dim))
     triples = torch.randint(0, 1000, (12, 3180), generator=gen, dtype=torch.int32).to(dev)
-    torch.testing.assert_close(topk_decode(vals, triples, dim),
-                               ref.topk_decode_ref(vals, triples, dim),
+    torch.testing.assert_close(topk_decode(vals, triples, 101770),
+                               ref.topk_decode_ref(vals, triples, 101770),
                                rtol=1e-5, atol=1e-5)
     n0 = topk_decode.launches
     empty = torch.empty(12, 0, device=dev)
-    out = topk_decode(empty, empty.to(torch.int32), dim)
-    assert torch.equal(out, torch.zeros(12, dim, device=dev))
+    out = topk_decode(empty, empty.to(torch.int32), 101770)
+    assert torch.equal(out, torch.zeros(12, 101770, device=dev))
     assert topk_decode.launches == n0
+
+
+def test_topk_decode_kernel_drops_out_of_range_and_keeps_non_finite(cuda_device):
+    """An index outside [0, D) is dropped; a NaN, an inf and a subnormal
+    stay on their own element.  Held against the plain version on the CPU
+    on the in-range pairs: the plain version raises on an index out of
+    range, and on the card its scatter (global float atomics) flushes
+    subnormals to zero, where the kernel's shared-memory adds keep them."""
+    dev, D = cuda_device, 101771
+    gen = torch.Generator().manual_seed(2)
+    vals = torch.randn(12, 3180, generator=gen)
+    idx = _distinct(gen, 12, 3180, D)
+    idx[0, 5], idx[1, 7], idx[2, 9], idx[3, 0] = D, -1, D + 1000, 2**31 - 1
+    vals[4, 3], vals[5, 4], vals[6, 6] = float("nan"), float("inf"), -float("inf")
+    vals[7, 10], vals[7, 11] = 1e-40, -3e-42
+    valid = (idx >= 0) & (idx < D)
+    want = ref.topk_decode_ref(torch.where(valid, vals, 0.0), torch.where(valid, idx, 0), D)
+    got = topk_decode(vals.to(dev), idx.to(dev), D).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert int(got[4].isnan().sum()) == 1 and int(got[5].isinf().sum()) == 1
+    assert got[7, idx[7, 10]].item() == want[7, idx[7, 10]].item() != 0.0
+
+
+@pytest.mark.parametrize("offsets", [(1, 1), (1, 2), (3, 0), (2, 2)])
+def test_topk_decode_kernel_takes_unaligned_pairs(cuda_device, offsets):
+    """vals and idx starting 4, 8 or 12 bytes past a 16-byte boundary, alike
+    (a scalar head, then 16-byte groups) or not (every pair scalar)."""
+    dev, N, k, D = cuda_device, 12, 3181, 101770
+    gen = torch.Generator().manual_seed(3)
+    v_base = torch.randn(N * k + 3, generator=gen).to(dev)
+    i_base = torch.zeros(N * k + 3, dtype=torch.int32)
+    ov, oi = offsets
+    i_base[oi:oi + N * k] = _distinct(gen, N, k, D).flatten()
+    v = v_base[ov:ov + N * k].view(N, k)
+    i = i_base.to(dev)[oi:oi + N * k].view(N, k)
+    assert torch.equal(topk_decode(v, i, D), ref.topk_decode_ref(v, i, D))
+
+
+def test_topk_plan_is_one_wave_on_the_card(cuda_device):
+    """The persistent grid of ``topk_plan`` fits the card at once: the
+    occupancy API holds as many blocks an SM as the plan counts on."""
+    from repro_torch.kernels.compress import topk_decode_attrs, topk_plan
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    p = topk_plan(512, 3180, 101770, sms=sms)
+    attrs = topk_decode_attrs(p["smem_bytes"])
+    assert p["blocks"] <= sms * attrs["blocks_per_sm"]
+
+
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+_JUMPS = ("BRA", "BRX", "JMP", "JMX", "CALL", "RET", "EXIT", "BREAK", "KILL")
+_SHARED_WRITES = ("STS", "ATOMS", "LDGSTS", "STSM")
+
+
+def _sass(text: str, kernel: str) -> list[tuple[int, bool, str, str]]:
+    """(address, predicated, opcode, operands) of each instruction of
+    ``kernel`` in ``cuobjdump -sass`` output."""
+    funcs = [f for f in text.split("Function : ")[1:] if kernel in f.split("\n", 1)[0]]
+    assert len(funcs) == 1, f"{kernel}: {len(funcs)} functions in the SASS"
+    return [(int(a, 16), bool(pred), op, args)
+            for a, pred, op, args in _SASS_LINE.findall(funcs[0])]
+
+
+def check_fenced_bulk_copies(code) -> None:
+    """Every thread executes a proxy fence (``FENCE.VIEW.ASYNC.S``) after
+    its last shared-memory write and before the block barrier that precedes
+    each bulk copy (``UBLKCP``).  The fence runs unpredicated, and from it
+    to the barrier the code is straight-line (no jump out, no jump in), so
+    every thread that reaches the barrier has fenced; from the barrier to
+    the copy no shared memory is written and no jump enters from outside."""
+    addrs = [a for a, *_ in code]
+    jumps = [(a, int(t, 16)) for a, _p, op, args in code if op.startswith(_JUMPS)
+             for t in re.findall(r"0x[0-9a-f]+", args)[:1]]
+    copies = [i for i, (_a, _p, op, _x) in enumerate(code) if op.startswith("UBLKCP")]
+    assert copies, "no bulk copy in the kernel"
+    for c in copies:
+        bars = [i for i in range(c) if code[i][2].startswith("BAR.SYNC")]
+        assert bars, f"no barrier before the copy at {addrs[c]:#x}"
+        bar = bars[-1]
+        fences = [i for i in range(bar) if code[i][2] == "FENCE.VIEW.ASYNC.S"]
+        assert fences, f"no proxy fence before the barrier at {addrs[bar]:#x}"
+        f = fences[-1]
+        assert not code[f][1], f"the fence at {addrs[f]:#x} is predicated"
+        assert not any(op.startswith(_JUMPS + _SHARED_WRITES)
+                       for _a, _p, op, _x in code[f:bar]), \
+            f"a jump or a shared write between the fence at {addrs[f]:#x} and the barrier"
+        assert not any(addrs[f] < t <= addrs[bar] for _a, t in jumps), \
+            f"a jump lands between the fence at {addrs[f]:#x} and the barrier"
+        assert not any(op.startswith(_SHARED_WRITES) for _a, _p, op, _x in code[bar:c]), \
+            f"a shared write between the barrier and the copy at {addrs[c]:#x}"
+        assert not any(addrs[bar] < t <= addrs[c] and not addrs[bar] < a < addrs[c]
+                       for a, t in jumps), \
+            f"a jump from outside lands between the barrier and the copy at {addrs[c]:#x}"
+
+
+def test_topk_decode_machine_code_fences_before_each_bulk_copy(cuda_device):
+    """The built kernel, not its source, orders each window's shared writes,
+    every thread's proxy fence, the barrier and the bulk copy
+    (``check_fenced_bulk_copies``).  A fence that is missing, compiled out,
+    moved into a branch or put after the barrier fails here; at the test
+    sizes the copies have read the right bytes without it."""
+    tool = Path(ops._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", ops.library()._name], check=True,
+                          capture_output=True, text=True).stdout
+    check_fenced_bulk_copies(_sass(text, "topk_decode_kernel"))
 
 
 @pytest.mark.parametrize("overrides", [
