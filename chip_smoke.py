@@ -27,9 +27,8 @@ Phases (any failure raises and the script exits non-zero):
    1 warm-up).  ``local_sgd``, ``fedavg_agg``, ``sketch_similarity``,
    ``pack_codes`` and ``unpack_codes`` must each launch; each round is then
    run again from the same state on the kernel route and with
-   ``compress_impl="einsum"``, under deterministic algorithms (the count
-   sketch's ``index_add_`` otherwise adds in a varying order), and every
-   carried tensor must be identical.
+   ``compress_impl="einsum"``, and every carried tensor must be identical
+   (every op of the round adds in a fixed order, the count sketch included).
 6. Top-k at full width, 12 robots: the Table II fleet, fedar + ``compress=
    "topk"`` (k = D // 32 = 3180); ``topk_decode`` must launch, and the same
    route check.  Then phase 4's 512-client fleet with the same top-k, 6
@@ -64,6 +63,22 @@ Phases (any failure raises and the script exits non-zero):
    (``attn_impl = ssm_impl = "einsum"``) from the same params: logits within
    tolerance and the same greedy token.
 
+10. The host-store cohort engine (``CohortEngine`` through ``FedARServer``)
+   with chaos faults, at full width.  10a: ``VirtualFleet(1_000_000)``, K =
+   256, fedar + foolsgold_sketch, 6 rounds (round 1 warm-up), a 1.07 GB
+   host store.  10b: ``VirtualFleet(10_000)``, K = 256, async + 4-bit QSGD,
+   6 rounds, 8.14 GB of residual and pending columns on the host.  Each
+   prints rounds/s, the round's wall time by part (``CohortEngine.
+   timings``), the fault slots (crashed, corrupted, unavailable,
+   quarantined) and the kernel launches of every round.  Every round of 10a
+   and rounds 1-2 of 10b are held against the plain route (``*_impl=
+   "einsum"``) from the same store and params: cohort, trust, masks and
+   bookkeeping columns identical, params within 2e-4, the cohort's history
+   rows within phase 4's kink bound (10b: residual, pending and history up
+   to QSGD code flips).  10b saves the store after round 3 and resumes it
+   in a fresh engine: rounds 4-6 must end bit-equal to the uninterrupted
+   run.  ``local_sgd`` is held against its plain version at R = 256.
+
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
 longest client's steps on its cluster's SMs at their share of the fp32
@@ -89,8 +104,10 @@ import dataclasses
 import json
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -379,7 +396,40 @@ def kernel_phase(ref, kernels, fleet):
                 replaces="src/repro/kernels/defense_sim.py:68",
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
+    count_sketch(gen, D)
     return entries
+
+
+def count_sketch(gen, D: int) -> None:
+    """Phase 2, the defense's count sketch D -> 256 (not a kernel port): the
+    product with the (D, r) sign matrix that the round runs against a
+    scatter-add (``index_add_``), timed, and each run ten times on the same
+    rows to count the distinct results: the product must give one (a
+    scatter-add's order varies on the card)."""
+    from repro_torch.common.config import FedConfig
+    from repro_torch.core.defense import SketchedFoolsGold
+
+    sk = SketchedFoolsGold(FedConfig(defense="foolsgold_sketch"), D, DEV)
+    print("count sketch D -> 256 (tolerance: fp32 sums in another order)")
+    for n in (12, 256, 512):
+        rows = (torch.randn(n, D, generator=gen) * 0.01).to(DEV)
+
+        def scatter():
+            out = torch.zeros(n, sk.r, device=DEV)
+            return out.index_add_(1, sk.bucket, rows * sk.sign[None, :])
+
+        compare(f"N={n}, product vs index_add_", sk.sketch(rows), scatter(),
+                atol=1e-6, rtol=1e-5)
+
+        def distinct(fn) -> int:
+            return len({fn().cpu().numpy().tobytes() for _ in range(10)})
+
+        ours = distinct(lambda: sk.sketch(rows))
+        print(f"    product {time_ms(lambda: sk.sketch(rows), reps=20):.4f} ms, "
+              f"index_add_ {time_ms(scatter, reps=20):.4f} ms; distinct results in 10 "
+              f"runs: {ours} and {distinct(scatter)}")
+        if ours != 1:
+            raise AssertionError("the count sketch differs between runs on the same rows")
 
 
 def ragged_phase(ref, local_sgd_ragged, local_sgd, packed, dense):
@@ -649,26 +699,22 @@ def timed_rounds(server, data, eval_set, rounds: int, kernels, every,
 
 def check_codec_routes(kernel_engine, plain_engine, data, starts, force) -> None:
     """Each round run again from its starting state on the kernel route and
-    with ``compress_impl="einsum"`` (the only difference), under
-    deterministic algorithms: every carried tensor must be identical."""
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        for r, start in enumerate(starts):
-            got, out = kernel_engine.step(start, data, force_straggler=force)
-            want, want_out = plain_engine.step(start, data, force_straggler=force)
-            for name in ("params", "fg_history", "pending_delta", "pending_weight",
-                         "pending_issued", "pending_arrival", "pending_valid",
-                         "compress_residual"):
-                if not torch.equal(getattr(got, name), getattr(want, name)):
-                    raise AssertionError(f"round {r}: {name} differs between the "
-                                         "codec kernels and their plain versions")
-            for a, b, name in ((got.trust.score, want.trust.score, "trust"),
-                               (out.selected, want_out.selected, "selected"),
-                               (out.on_time, want_out.on_time, "on_time")):
-                if not torch.equal(a, b):
-                    raise AssertionError(f"round {r}: {name} differs between routes")
-    finally:
-        torch.use_deterministic_algorithms(False)
+    with ``compress_impl="einsum"`` (the only difference): every carried
+    tensor must be identical."""
+    for r, start in enumerate(starts):
+        got, out = kernel_engine.step(start, data, force_straggler=force)
+        want, want_out = plain_engine.step(start, data, force_straggler=force)
+        for name in ("params", "fg_history", "pending_delta", "pending_weight",
+                     "pending_issued", "pending_arrival", "pending_valid",
+                     "compress_residual"):
+            if not torch.equal(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"round {r}: {name} differs between the "
+                                     "codec kernels and their plain versions")
+        for a, b, name in ((got.trust.score, want.trust.score, "trust"),
+                           (out.selected, want_out.selected, "selected"),
+                           (out.on_time, want_out.on_time, "on_time")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"round {r}: {name} differs between routes")
     print(f"  rounds 0-{len(starts) - 1}: params, residual, pending buffer, defense "
           f"history, trust and masks identical with compress_impl='einsum'")
 
@@ -1130,6 +1176,274 @@ def serve_phase(cfg, lm_kernels, every, requests, check_shape, expect_params,
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+# the store columns a cohort round must leave identical on both routes
+STORE_EXACT = ("score", "participations", "failures", "battery", "last_selected",
+               "pending_weight", "pending_issued", "pending_arrival", "pending_valid")
+
+
+def store_copy(store) -> dict:
+    """A deep copy of a ``ClientStore``'s columns and round counter."""
+    return {k: np.array(v, copy=True) for k, v in store.state_dict().items()}
+
+
+def record_levels(engine) -> list:
+    """Wraps the engine's QSGD decode so that every round's largest level
+    (scale / L) is appended to the returned list, as a device scalar."""
+    comp = engine.compression
+    levels, decode = [], comp.decode
+
+    def recording(payload, dim):
+        levels.append(payload["scale"].max() / comp.levels)
+        return decode(payload, dim)
+
+    comp.decode = recording
+    return levels
+
+
+def compare_flips(name, got, want, level, flips_row=None):
+    """Rows of a QSGD run on two routes.  A code whose uniform lies within
+    the routes' ~1e-7 SGD difference of its rounding boundary rounds the
+    other way on one of them and moves its element by one level, so: every
+    element within ``level`` + 2e-4 and at most 1e-3 of them over 2e-4
+    (residual, pending buffer).  With ``flips_row`` (the residual's flipped
+    elements per row) each sketch row is held within that many levels +
+    2e-4 instead.  Returns the residual's flips per row."""
+    err = (got - want).abs()
+    over = err > 2e-4 + 2e-4 * want.abs()
+    if flips_row is None:
+        share = over.float().mean().item()
+        ok = err.max().item() <= level + 2e-4 and share <= 1e-3
+        print(f"  {name}: max_abs_err={err.max().item():.3e}, {share:.2e} of elements "
+              f"over 2e-4 (at most 1e-3, each within one level {level:.3e} + 2e-4) "
+              f"{'ok' if ok else 'FAIL'}")
+    else:
+        row_err = err.amax(dim=1)
+        bound = flips_row * level + 2e-4
+        ok = bool((row_err <= bound).all())
+        print(f"  {name}: max_abs_err={row_err.max().item():.3e}, every row within its "
+              f"flipped codes x {level:.3e} + 2e-4 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} differs between the kernel and plain routes "
+                             "beyond QSGD code flips")
+    return over.sum(dim=1)
+
+
+def check_cohort_round(r, kernel, plain, levels):
+    """The last cohort round of the kernel-route server against the plain
+    route's from the same store and params: the cohort, trust, the masks
+    and every bookkeeping column identical; params within the goldens'
+    band; the cohort's history rows within phase 4's kink bound, or, under
+    QSGD, the residual, pending buffer and history up to code flips
+    (``compare_flips``)."""
+    idx, valid = kernel.history["cohort"][-1]
+    pidx, pvalid = plain.history["cohort"][-1]
+    if not (np.array_equal(idx, pidx) and np.array_equal(valid, pvalid)):
+        raise AssertionError(f"round {r}: the cohort differs from the plain route")
+    for key in ("trust", "selected", "on_time"):
+        if not np.array_equal(kernel.history[key][-1], plain.history[key][-1]):
+            raise AssertionError(f"round {r}: {key} differs from the plain route")
+    ks, ps = kernel.engine.store, plain.engine.store
+    for name in STORE_EXACT:
+        if not np.array_equal(getattr(ks, name), getattr(ps, name)):
+            raise AssertionError(f"round {r}: store column {name} differs from the "
+                                 "plain route")
+    compare(f"round {r} params vs plain route", kernel.engine.params,
+            plain.engine.params, atol=2e-4, rtol=2e-4)
+    rows = idx[valid]
+
+    def dev(store, name):
+        return torch.as_tensor(getattr(store, name)[rows], device=DEV)
+
+    if levels is None:
+        compare_rows(f"round {r} cohort history rows vs plain route",
+                     dev(ks, "history"), dev(ps, "history"), atol=2e-4, rtol=2e-4,
+                     kink_atol=2e-2)
+        return
+    level = max(float(v) for v in levels)
+    flips = compare_flips(f"round {r} cohort residual rows", dev(ks, "residual"),
+                          dev(ps, "residual"), level)
+    compare_flips(f"round {r} cohort pending rows", dev(ks, "pending_delta"),
+                  dev(ps, "pending_delta"), level)
+    compare_flips(f"round {r} cohort history rows", dev(ks, "history"),
+                  dev(ps, "history"), level, flips_row=flips)
+
+
+def cohort_rounds(server, fleet, eval_set, rounds, kernels, every, plain=None,
+                  check=(), save_after=None):
+    """Phase 10's run: sets every launch count to 0, runs ``rounds`` cohort
+    rounds through ``FedARServer.run_round`` (host clock around each, the
+    engine's per-part split on), and reads the counts; fails if a kernel of
+    this path (``kernels``) never launched.  Before each round in ``check``
+    the plain-route server ``plain`` is set to the kernel route's store and
+    params, runs the same round, and ``check_cohort_round`` holds the two.
+    After round ``save_after`` the store is saved (``save_store``, outside
+    the round's clock) to a temporary file, whose path is returned.
+    Returns (per-round seconds, per-round launches, checkpoint path)."""
+    from repro_torch.checkpoint.ckpt import save_store
+
+    eng = server.engine
+    eng.timings = {}
+    levels = (record_levels(eng.engine) if plain is not None
+              and eng.compression.active else None)
+    ckpt = None
+    for k in every:
+        k.launches = 0
+    torch.cuda.synchronize()
+    times, per_round = [], []
+    for r in range(rounds):
+        if r in check:
+            plain.engine.store.load_state_dict(eng.store.state_dict())
+            plain.engine.params = eng.params.clone()
+        if levels is not None:
+            levels.clear()
+        before = {k.__name__: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        server.run_round(fleet, eval_set=eval_set)
+        times.append(time.perf_counter() - t0)
+        per_round.append({k.__name__: k.launches - before[k.__name__] for k in kernels})
+        valid = server.history["cohort"][-1][1]
+        counts = {k: int(v.sum().item()) for k, v in eng.engine.fault_masks.items()}
+        print(f"round {r}: {times[-1]:.6f} s, acc {server.history['acc'][-1]:.4f}, "
+              f"{int(valid.sum())} valid slots, {int(server.history['selected'][-1].sum())} "
+              f"selected; fault slots {counts}; launches {per_round[-1]}")
+        if not torch.isfinite(eng.params).all():
+            raise AssertionError(f"round {r}: non-finite params")
+        if r in check:
+            plain.run_round(fleet, eval_set=eval_set)
+            check_cohort_round(r, server, plain, levels)
+        if r == save_after:
+            ckpt = Path(tempfile.mkdtemp(prefix="cohort_ckpt_")) / "store.pt"
+            t0 = time.perf_counter()
+            save_store(str(ckpt), eng.store, params=eng.params, step=r + 1)
+            print(f"  save_store after round {r}: {ckpt.stat().st_size / 1e9:.3f} GB "
+                  f"in {time.perf_counter() - t0:.2f} s")
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"rounds/s over all {rounds}: {rounds / sum(times):.3f}; steady (rounds "
+          f"2-{rounds}): {(rounds - 1) / sum(times[1:]):.3f}; launches in this run: "
+          f"{launches}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} never launched on this path")
+    split = {part: statistics.mean(eng.timings[part][1:]) * 1e3 for part in eng.PARTS}
+    print("steady round by part (ms, mean of rounds 2 on, the card synchronized at each "
+          "boundary): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; sum {sum(split.values()):.3f}")
+    eng.timings = None
+    return times, per_round, ckpt
+
+
+def check_resume(fed, fleet, eval_set, req, ckpt, whole, rounds_after) -> None:
+    """A fresh cohort server restored from ``ckpt`` runs ``rounds_after``
+    rounds; every store column, params and trust must equal the
+    uninterrupted run's (``whole``) bit for bit."""
+    from repro_torch.checkpoint.ckpt import restore_store
+    from repro_torch.configs.fedar_mnist import MnistConfig
+    from repro_torch.core.fedar import FedARServer
+
+    server = FedARServer(MnistConfig(), fed, req, device=DEV)
+    t0 = time.perf_counter()
+    params, step = restore_store(str(ckpt), server.engine.store, with_params=True)
+    server.engine.params = params.to(DEV)
+    print(f"  restore_store: round {step} in {time.perf_counter() - t0:.2f} s")
+    server.run(fleet, rounds=rounds_after, eval_set=eval_set)
+    want, got = whole.engine.store, server.engine.store
+    for name, col in want.state_dict().items():
+        if not np.array_equal(got.state_dict()[name], col):
+            raise AssertionError(f"resumed run: store column {name} differs from the "
+                                 "uninterrupted run")
+    if not torch.equal(server.engine.params, whole.engine.params):
+        raise AssertionError("resumed run: params differ from the uninterrupted run")
+    print(f"  resumed after round {step}, {rounds_after} rounds: every store column, "
+          f"params and trust bit-equal to the uninterrupted run")
+
+
+def cohort_sgd_check(server, fleet, ref, local_sgd) -> dict:
+    """``local_sgd`` at the cohort's shape (R = K, n = 200, the last round's
+    cohort with its sample mask) against its plain version, timed."""
+    eng = server.engine
+    idx, valid = server.history["cohort"][-1]
+    data = eng.engine.device_data(fleet.cohort_arrays(idx, valid))
+    g = eng.params
+    args = (data["x"], data["y"], data["activations"], data["mask"])
+    kw = dict(hidden=128, classes=10, lr=0.1, batch_size=20, epochs=5)
+    want = ref.local_sgd_ref(g, *args, **kw)
+    err = compare_rows(f"local_sgd at R={len(idx)}, n={data['x'].shape[1]} vs plain",
+                       local_sgd(g, *args, **kw), want, atol=1e-4, rtol=1e-4,
+                       kink_atol=2e-3)
+    k_ms = time_ms(lambda: local_sgd(g, *args, **kw), reps=5)
+    p_ms = time_ms(lambda: ref.local_sgd_ref(g, *args, **kw), reps=3)
+    xb, yb, ab, mb = args
+    b_ms, b_by = bound_ms(4 * (xb.numel() + yb.numel() + mb.numel() + ab.numel()
+                               + eng.dim * (1 + xb.shape[0])),
+                          sgd_flops(mb, 20, 784, 128, 10, 5))
+    print(f"  kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3g} ms ({b_by})")
+    return dict(shape=f"R={len(idx)}, n={xb.shape[1]}", max_abs_err=err, ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def cohort_phase(req, eval_set, kernels, codecs, every, ref, local_sgd, entries):
+    """Phase 10: the host-store cohort engine with chaos faults."""
+    import dataclasses as dc
+
+    from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
+    from repro_torch.core.fedar import FedARServer
+    from repro_torch.data.datasets import VirtualFleet
+
+    def plain_of(fed):
+        return dc.replace(fed, sgd_impl="einsum", agg_impl="einsum",
+                          defense_impl="einsum", compress_impl="einsum")
+
+    # --- 10a: chaos at a million clients, K = 256
+    t0 = time.perf_counter()
+    fleet = VirtualFleet(1_000_000, samples_per_client=200)
+    fed = fleet_fed(1_000_000, cohort_size=256, aggregation="fedar",
+                    defense="foolsgold_sketch", faults="chaos")
+    server = FedARServer(MnistConfig(), fed, req, device=DEV)
+    plain = FedARServer(MnistConfig(), plain_of(fed), req, device=DEV)
+    store = server.engine.store
+    print(f"\n[cohort, chaos] 1,000,000 clients, K = 256, fedar + foolsgold_sketch; "
+          f"host store {store.nbytes / 1e9:.3f} GB (history {store.history.nbytes / 1e9:.3f}); "
+          f"fleet, store and engines built in {time.perf_counter() - t0:.2f} s (set-up)")
+    rounds = 6
+    _, per_round, _ = cohort_rounds(server, fleet, eval_set, rounds, kernels, every,
+                                    plain=plain, check=range(rounds))
+    print(f"  rounds 0-{rounds - 1}: cohort, trust, masks and store bookkeeping identical "
+          f"to the plain route from the same store")
+    sgd = cohort_sgd_check(server, fleet, ref, local_sgd)
+    del server, plain, fleet, store
+
+    # --- 10b: the quickstart's compressed async line at a fleet the host holds
+    fed_b = fleet_fed(10_000, cohort_size=256, aggregation="async", compress="qsgd",
+                      compress_bits=4, defense="foolsgold_sketch", faults="chaos")
+    fleet = VirtualFleet(10_000, samples_per_client=200)
+    server = FedARServer(MnistConfig(), fed_b, req, device=DEV)
+    plain = FedARServer(MnistConfig(), plain_of(fed_b), req, device=DEV)
+    store = server.engine.store
+    print(f"\n[cohort, async + qsgd-4 + chaos] 10,000 clients, K = 256; host store "
+          f"{store.nbytes / 1e9:.3f} GB (residual and pending columns "
+          f"{(store.residual.nbytes + store.pending_delta.nbytes) / 1e9:.3f} GB; the "
+          f"quickstart's 100,000 clients would need "
+          f"{(store.residual.nbytes + store.pending_delta.nbytes) * 10 / 1e9:.1f} GB for "
+          f"those two)")
+    _, per_round_b, ckpt = cohort_rounds(server, fleet, eval_set, rounds,
+                                         kernels + codecs[:2], every, plain=plain,
+                                         check=(0, 1), save_after=2)
+    print(f"  rounds 0-1: cohort, trust, masks and store bookkeeping identical to the "
+          f"plain route from the same store")
+    del plain
+    check_resume(fed_b, fleet, eval_set, req, ckpt, server, rounds - 3)
+    shutil.rmtree(ckpt.parent)
+    launches10 = {}
+    for p in per_round + per_round_b:
+        for name, count in p.items():
+            launches10[name] = launches10.get(name, 0) + count
+    print(f"launches in phase 10 (10a and 10b, 12 rounds): {launches10}")
+    for name, count in launches10.items():
+        entries[name]["phase10"] = {"launches": count}
+    entries["local_sgd"].setdefault("phase10", {}).update(sgd)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1508,6 +1822,10 @@ def main() -> int:
         6_750_498_384, Path(args.profile) if args.profile else None)
     for name, count in launches9.items():
         entries[name]["launches"] = count
+    torch.cuda.empty_cache()
+
+    # --- phase 10: the host-store cohort engine, chaos faults, checkpoints
+    cohort_phase(req, eval_set, kernels, codecs, every, ref, local_sgd, entries)
 
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",
              "pack_codes", "unpack_codes", "topk_decode", "flash_attention", "ssm_scan")

@@ -7,8 +7,9 @@ init.  ``lm_params_from_jax`` does the same for the LM's ``Model`` tree.
 
 The draw provider is the one place the round takes random numbers from:
 ``gumbel(round_idx, n)`` for selection, ``latency_factor(round_idx, n)``
-for the latency jitter and ``uniform(round_idx, n, d)`` for QSGD's stochastic
-rounding.  ``GeneratorDraws`` serves standalone runs from seeded
+for the latency jitter, ``uniform(round_idx, n, d)`` for QSGD's stochastic
+rounding and ``fault_coins(round_idx, n)`` for the fault schedule's
+per-round coins.  ``GeneratorDraws`` serves standalone runs from seeded
 ``torch.Generator``s; ``ReplayDraws`` replays draws made elsewhere, which is
 how the parity tests feed the port the reference's threefry draws (torch
 cannot reproduce those bits).
@@ -115,23 +116,30 @@ class GeneratorDraws:
         gen = self._generator(round_idx, 2, self.device)
         return torch.rand((n, d), generator=gen, device=self.device)
 
+    def fault_coins(self, round_idx: int, n: int) -> torch.Tensor:
+        """The (n, 2) uniform coin table of the fault schedule (stream 3)."""
+        u = torch.rand((n, 2), generator=self._generator(round_idx, 3))
+        return u.to(self.device)
+
 
 class ReplayDraws:
     """Replays (rounds, N) arrays of Gumbel draws and latency factors and,
-    optionally, a (rounds, N, D) array of uniforms, row ``round_idx`` for
-    round ``round_idx``.
+    optionally, a (rounds, N, D) array of uniforms and a (rounds, N, 2)
+    array of fault coins, row ``round_idx`` for round ``round_idx``.
 
     The latency factors ``exp(LATENCY_JITTER * z)`` are replayed whole,
     ``exp`` included, because two libraries' ``exp`` may round the same
     argument to neighbouring floats."""
 
-    def __init__(self, gumbel, latency, uniform=None, device="cpu"):
-        self._gumbel = torch.as_tensor(np.asarray(gumbel, np.float32), device=device)
-        self._latency = torch.as_tensor(np.asarray(latency, np.float32),
-                                        device=device)
-        self._uniform = (None if uniform is None else
-                         torch.as_tensor(np.asarray(uniform, np.float32),
-                                         device=device))
+    def __init__(self, gumbel, latency, uniform=None, faults=None, device="cpu"):
+        def table(a):
+            return (None if a is None else
+                    torch.as_tensor(np.asarray(a, np.float32), device=device))
+
+        self._gumbel = table(gumbel)
+        self._latency = table(latency)
+        self._uniform = table(uniform)
+        self._faults = table(faults)
 
     def _row(self, table, round_idx: int, n: int) -> torch.Tensor:
         if round_idx >= table.shape[0] or table.shape[1] != n:
@@ -154,3 +162,8 @@ class ReplayDraws:
         if row.shape[1] != d:
             raise IndexError(f"replayed uniforms are {row.shape[1]} wide, not {d}")
         return row
+
+    def fault_coins(self, round_idx: int, n: int) -> torch.Tensor:
+        if self._faults is None:
+            raise IndexError("no replayed fault coins were given")
+        return self._row(self._faults, round_idx, n)

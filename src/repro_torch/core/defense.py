@@ -27,9 +27,12 @@ class DefenseStrategy:
     ``update_history`` -- fold this round's deltas (N, D) into the history.
     ``weights``        -- (N,) aggregation weights in [0, 1], or ``None``
                           when the strategy does not re-weight.
+    ``cohort_compatible`` -- whether the per-client history is small enough
+                          for the cohort engine's host store.
     """
 
     name = "none"
+    cohort_compatible = True
 
     def history_dim(self, model_dim: int) -> int:
         return 0
@@ -50,6 +53,7 @@ class FoolsGoldDefense(DefenseStrategy):
     (N, N) block product is ``sketch_similarity`` with K = D."""
 
     name = "foolsgold"
+    cohort_compatible = False  # an O(N * D) host table would defeat the store
 
     def __init__(self, fed: FedConfig, model_dim: int, device):
         self.decay = fed.defense_history_decay
@@ -70,7 +74,13 @@ class SketchedFoolsGold(DefenseStrategy):
 
     Coordinate d adds ``sign[d] * x[d]`` into bucket ``bucket[d]``.  The
     tables come from ``np.random.default_rng(seed + 0x5EED)`` exactly as in
-    the reference, so they are bit-identical to its tables."""
+    the reference, so they are bit-identical to its tables.
+
+    The sketch is one fp32 product with the (D, r) matrix ``proj`` that
+    holds ``sign[d]`` at (d, ``bucket[d]``) and zeros elsewhere, so each
+    output sums in the same order on every run.  A scatter-add
+    (``index_add_``) adds in a varying order on the card, which would make
+    a resumed run differ from an uninterrupted one."""
 
     name = "foolsgold_sketch"
 
@@ -86,15 +96,15 @@ class SketchedFoolsGold(DefenseStrategy):
                                       dtype=torch.int64, device=device)
         self.sign = torch.as_tensor(rng.choice(np.float32([-1.0, 1.0]), model_dim),
                                     device=device)
+        self.proj = torch.zeros((model_dim, self.r), device=device)
+        self.proj[torch.arange(model_dim, device=device), self.bucket] = self.sign
 
     def history_dim(self, model_dim: int) -> int:
         return self.r
 
     def sketch(self, rows):
         """(n, D) -> (n, r) signed-bucket count sketch."""
-        out = torch.zeros((rows.shape[0], self.r), dtype=rows.dtype,
-                          device=rows.device)
-        return out.index_add_(1, self.bucket, rows * self.sign[None, :])
+        return rows @ self.proj
 
     def update_history(self, history, deltas, active):
         return fg.update_history(history, self.sketch(deltas), active,

@@ -40,6 +40,11 @@ walks, each client reading its own tiles, and every round-invariant table
 built there.  A drift schedule ``round_mask`` (W, N, n) trains round t on
 window ``t mod W``, on the dense and on the packed layout.
 
+Fault injection (``FedConfig.faults``, ``core/faults.py``) adds crashed,
+corrupted and unavailable clients to the round.  ``CohortEngine`` drives
+the same round at a cohort of K clients sampled each round from a host-side
+``ClientStore`` of the whole fleet, for fleets larger than the card holds.
+
 The kernels of the round run on the card through the routing knobs
 ``FedConfig.sgd_impl`` (local SGD), ``agg_impl`` (aggregation),
 ``defense_impl`` (the similarity block) and ``compress_impl`` (the uplink
@@ -49,6 +54,8 @@ raises when there is no CUDA device: it never falls back to the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
@@ -58,8 +65,10 @@ from repro_torch.common.config import FedConfig
 from repro_torch.configs.fedar_mnist import MnistConfig
 from repro_torch.convert import GeneratorDraws
 from repro_torch.core import aggregation as agg
+from repro_torch.core.client_store import ClientStore
 from repro_torch.core.compress import make_compression, make_residual
 from repro_torch.core.defense import make_defense
+from repro_torch.core.faults import make_faults
 from repro_torch.core.resources import (
     ResourceState,
     TaskRequirement,
@@ -67,7 +76,7 @@ from repro_torch.core.resources import (
     make_fleet,
     round_latency,
 )
-from repro_torch.core.selection import select_clients
+from repro_torch.core.selection import sample_cohort, select_clients
 from repro_torch.core.trust import TrustState, init_trust, update_trust
 from repro_torch.data.datasets import FederatedDataset
 from repro_torch.kernels.ops import resolve_impl
@@ -167,26 +176,14 @@ class PackedLayout(NamedTuple):
     n_max: int  # the dense rectangle width (latency model)
 
 
-# data keys a later slice reads, with the ROADMAP item that ports them
-_LATER_DATA_KEYS = {
-    "cohort_valid": "Queue 1 item 11 (cohort engine)",
-}
-
-
 def _check_slice(fed: FedConfig) -> None:
     """Reject the features a later port slice brings, naming its item."""
     if fed.aggregation not in ("fedar", "fedavg", "async", "async_seq"):
         raise ValueError(f"unknown aggregation {fed.aggregation!r}")
-    later = []
-    if fed.faults != "none":
-        later.append(f"faults={fed.faults!r}: Queue 1 item 10")
     if fed.mesh_shape is not None and fed.mesh_shape > 1:
-        later.append(f"mesh_shape={fed.mesh_shape}: Queue 1 item 12")
-    if fed.cohort_size is not None:
-        later.append(f"cohort_size={fed.cohort_size}: Queue 1 item 11")
-    if later:
         raise NotImplementedError(
-            "not ported yet (see ROADMAP.md): " + "; ".join(later)
+            f"not ported yet (see ROADMAP.md): mesh_shape={fed.mesh_shape}: "
+            f"Queue 1 item 12"
         )
 
 
@@ -196,7 +193,11 @@ class FedAREngine:
     ``step`` runs one communication round, ``run`` R rounds.  ``draws`` is
     the draw provider (``convert.GeneratorDraws`` by default, seeded by
     ``FedConfig.seed``); ``init_params`` optionally replaces the model's
-    own init (e.g. ``convert.params_from_jax`` of the reference's)."""
+    own init (e.g. ``convert.params_from_jax`` of the reference's).
+
+    Under a fault schedule, ``fault_masks`` holds the last round's (N,)
+    masks of crashed, corrupted, unavailable and quarantined clients, on
+    the device (``None`` with ``faults="none"``), for fault reports."""
 
     def __init__(
         self,
@@ -236,6 +237,9 @@ class FedAREngine:
         self.dim = flatten(self.template).shape[0]
         self.defense = make_defense(fed, self.dim, self.device)
         self.compression = make_compression(fed, self.dim)
+        self.faults = make_faults(fed, self.device)
+        self.fault_masks = None
+        self._client_ids = torch.arange(fed.num_clients, device=self.device)
         self.resources0, self.poison_mask = make_fleet(
             fed.num_clients,
             num_starved=fed.num_starved,
@@ -289,14 +293,10 @@ class FedAREngine:
         float32, masks bool); numpy arrays are copied over once.  A packed
         dict (``data["packed"]``) becomes a ``PackedLayout``; one that
         already is passes through."""
-        for key, item in _LATER_DATA_KEYS.items():
-            if key in data:
-                raise NotImplementedError(
-                    f'data[{key!r}] is not ported yet: ROADMAP.md {item}'
-                )
         dtypes = {"x": torch.float32, "y": torch.int32,
                   "activations": torch.int32, "sizes": torch.float32,
-                  "mask": torch.bool, "round_mask": torch.bool}
+                  "mask": torch.bool, "round_mask": torch.bool,
+                  "cohort_valid": torch.bool}
         out = {}
         for k, v in data.items():
             if k == "packed":
@@ -570,15 +570,38 @@ class FedAREngine:
         """One communication round.  ``data``: the model's stacked
         per-client tensors (``x`` (N, n, 784), ``y`` (N, n), ``activations``
         (N,)), ``sizes`` (N,), and optionally ``mask`` (N, n) bool marking
-        the real samples of ragged shards."""
+        the real samples of ragged shards, and ``cohort_valid`` (N,) bool,
+        the cohort engine's host-side selection."""
         fed = self.fed
         N = fed.num_clients
         r = state.round_idx
 
-        # --- Algorithm 2 lines 6-10: CheckResource + trust sort + sample
-        selected, ok = select_clients(
-            self.draws.gumbel(r, N), state.trust, state.resources, self.req, fed
-        )
+        # --- fault injection: this round's realization; faults="none" takes
+        # no draw at all
+        fdraw = None
+        if self.faults.active:
+            fdraw = self.faults.draw(self.draws.fault_coins(r, N),
+                                     self._client_ids, r)
+
+        # --- Algorithm 2 lines 6-10: CheckResource + trust sort + sample.
+        # In cohort mode the host already selected (``sample_cohort``): every
+        # valid slot is a participant and no Gumbel draw is taken.
+        if "cohort_valid" in data:
+            selected = ok = data["cohort_valid"]
+            if fdraw is not None:
+                # flapping / battery-dead clients fail CheckResource even
+                # though the host sampled them before the fault draw
+                selected = ok = selected & ~fdraw.unavailable
+        else:
+            res_sel = state.resources
+            if fdraw is not None:
+                # an offline window reads as a dead battery to CheckResource;
+                # the persistent battery column is untouched
+                res_sel = res_sel._replace(battery=torch.where(
+                    fdraw.unavailable, 0.0, res_sel.battery))
+            selected, ok = select_clients(
+                self.draws.gumbel(r, N), state.trust, res_sel, self.req, fed
+            )
 
         # --- lines 16-21 (ClientUpdate); non-participants are masked out
         # of the aggregate, or with select_frac not trained at all
@@ -608,6 +631,14 @@ class FedAREngine:
         # deviation and the fedar / fedavg reduction only need the cohort
         # rows (the rest are exact zeros)
         delta_c = None if locals_c is None else locals_c - g_flat[None, :]
+        crashed = None
+        if fdraw is not None:
+            # mid-round crash: the client trained (its battery burns below)
+            # but its uplink never reaches the server
+            crashed = selected & fdraw.crash
+            # corruption and quarantine rewrite client-order rows, so the
+            # compact gated view is dropped under an active schedule
+            delta_c = cohort = None
 
         # --- virtual time: latency per client, straggler = late vs timeout
         lat = round_latency(
@@ -618,9 +649,11 @@ class FedAREngine:
         if force_straggler is not None:
             lat = torch.where(force_straggler, fed.timeout * 3.0, lat)
         on_time = lat <= fed.timeout
-        # the rows the server can ever receive this round (the faults slice,
-        # ROADMAP Queue 1 item 10, takes crashed clients out of it)
-        uplinked = selected
+        if crashed is not None:
+            # a crashed client reads as a missed deadline, never an arrival
+            on_time = on_time & ~crashed
+        # the rows the server can ever receive this round
+        uplinked = selected if crashed is None else selected & ~crashed
         # rows visible server-side: fedavg waits for stragglers and async
         # buffers them; fedar and async_seq skip on timeout
         if fed.aggregation in ("fedavg", "async"):
@@ -653,6 +686,13 @@ class FedAREngine:
                 deltas, residual, transmit, unif
             )
 
+        # --- corrupt uplinks: garbage replaces the row the server RECEIVES
+        # (after the decode, before the quarantine)
+        if fdraw is not None:
+            corrupt = fdraw.corrupt & (transmit if self.compression.active
+                                       else seen)
+            deltas = torch.where(corrupt[:, None], fdraw.fill[:, None], deltas)
+
         # --- non-finite quarantine (always on): a NaN/Inf row, or one past
         # the magnitude cap, contributes exact zeros and is branded deviated
         row_ok = torch.isfinite(deltas)
@@ -661,6 +701,10 @@ class FedAREngine:
             row_ok = row_ok & (deltas.abs() <= cap)
         quarantined = ~row_ok.all(dim=-1)
         deltas = torch.where(quarantined[:, None], 0.0, deltas)
+        if fdraw is not None:
+            self.fault_masks = dict(crashed=crashed, corrupted=corrupt,
+                                    unavailable=fdraw.unavailable,
+                                    quarantined=quarantined)
         if cohort is not None:
             delta_c = torch.where(quarantined[cohort[0]][:, None], 0.0, delta_c)
         if self.compression.active:
@@ -827,3 +871,204 @@ class FedAREngine:
                 state, out = self._round_step(state, data, eval_set, force, flops)
                 outs.append(out)
         return state, RoundOutputs(*(torch.stack(f) for f in zip(*outs)))
+
+
+class CohortEngine:
+    """Host-store cohort engine: fleets larger than the card holds.
+
+    The full fleet lives in a numpy ``ClientStore`` on the host, and each
+    round
+
+      1. ``selection.sample_cohort`` draws a static-shape cohort of
+         K = ``FedConfig.cohort_size`` clients from the store (trust and
+         CheckResource over the host columns, keyed ``(seed, round)``),
+      2. the fleet object materializes only those K clients' samples
+         (``cohort_arrays``) and the store gathers their rows (``gather``),
+      3. a sub-``FedAREngine`` built at ``num_clients=K`` on this engine's
+         device runs the unchanged round body, with ``cohort_valid`` as its
+         selection and the store's absolute round as its round (its
+         latency, QSGD and fault draws are taken at ``(seed, round)`` for K
+         clients),
+      4. the cohort's trust / battery / history (and residual, and async
+         slot) rows go back (``scatter_round``) and ``finish_round`` evolves
+         the rest of the fleet on the host.
+
+    Device memory is O(K * D + K * samples), independent of N; the host
+    holds O(N * smallstate), plus O(N * D) for the residual and the async
+    buffer when those are on.  The fault schedule's traits follow the
+    cohort SLOT, not the fleet client, as in the reference (ROADMAP Queue 3
+    R9).  K >= N is not this class's job: ``FedARServer`` drops
+    ``cohort_size`` and runs the resident engine.
+
+    ``timings``: set it to a dict to record each part of ``run_round`` in
+    wall seconds (lists keyed by part, ``PARTS``); the card is synchronized
+    at every part boundary then, and never otherwise."""
+
+    PARTS = ("sample_cohort", "cohort_arrays", "gather", "host_to_device",
+             "device_round", "device_to_host", "scatter_round", "finish_round")
+
+    def __init__(
+        self,
+        model: Union[ClientModel, MnistConfig],
+        fed: FedConfig,
+        req: TaskRequirement,
+        *,
+        lr: float = 0.1,
+        device=None,
+        draws=None,
+        init_params=None,
+    ):
+        if fed.cohort_size is None:
+            raise ValueError("CohortEngine needs FedConfig.cohort_size set")
+        if fed.cohort_size >= fed.num_clients:
+            raise ValueError(
+                f"cohort_size={fed.cohort_size} >= num_clients="
+                f"{fed.num_clients}: the whole fleet fits on device; use "
+                f"the resident engine (FedARServer does this automatically)"
+            )
+        if fed.aggregation == "async_seq":
+            raise ValueError(
+                "aggregation='async_seq' folds every client's full local "
+                "model sequentially per round (O(N) and no per-client "
+                "buffer to persist), which a resampled cohort cannot "
+                "replay; use aggregation='async': its pending-delta "
+                "buffer lives in the client store and follows the cohort"
+            )
+        if fed.select_frac is not None:
+            raise ValueError(
+                "select_frac gating composes with the resident engine "
+                "only; the cohort IS the statically-capped set: drop "
+                "select_frac and lower cohort_size instead"
+            )
+        self.fed, self.req, self.lr = fed, req, lr
+        # the device round is the resident round body at fleet size K; the
+        # fleet's starved / poisoner layout is the store's, not the
+        # sub-engine's
+        sub = dataclasses.replace(
+            fed, num_clients=fed.cohort_size, cohort_size=None,
+            num_starved=0, num_poisoners=0, tree_reduce=True,
+        )
+        self.engine = FedAREngine(model, sub, req, lr=lr, device=device,
+                                  draws=draws, init_params=init_params)
+        if not self.engine.defense.cohort_compatible:
+            raise ValueError(
+                f"defense {self.engine.defense.name!r} is not cohort-"
+                f"compatible: its per-client history is O(model_dim), so "
+                f"the host store would be O(N*D); use 'foolsgold_sketch' "
+                f"(O(N*r)) or 'none'"
+            )
+        self.device = self.engine.device
+        self.model = self.engine.model
+        self.template = self.engine.template
+        self.dim = self.engine.dim
+        self.compression = self.engine.compression
+        self.faults = self.engine.faults
+        self.store = ClientStore(
+            fed, self.engine.defense.history_dim(self.dim),
+            residual_dim=self.compression.residual_dim(self.dim),
+            pending_dim=self.dim if fed.aggregation == "async" else 0,
+        )
+        self.poison_mask = self.store.poison_mask
+        self.params = flatten(self.template)
+        self._state0 = self.engine.init_state()
+        self.timings = None
+
+    @property
+    def round_idx(self) -> int:
+        return int(self.store.round_idx)
+
+    def _mark(self, part: str, t0: float) -> float:
+        """Record the part that ran since ``t0`` (when timing) and return
+        the time the next part starts."""
+        if self.timings is None:
+            return t0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.timings.setdefault(part, []).append(now - t0)
+        return now
+
+    def _device_state(self, rows, round_idx: int) -> EngineState:
+        """The sub-engine's starting state from the cohort's store rows."""
+        def dev(name):
+            return torch.as_tensor(rows[name], device=self.device)
+
+        state = self._state0._replace(
+            params=self.params,
+            trust=TrustState(dev("score"), dev("participations"),
+                             dev("failures")),
+            resources=ResourceState(dev("memory"), dev("bandwidth"),
+                                    dev("battery"), dev("compute")),
+            fg_history=dev("history"),
+            compress_residual=dev("residual"),
+            round_idx=round_idx,
+        )
+        if self.store.pending_dim:
+            # issue / arrival tags are absolute rounds, so an update whose
+            # client sat out a few rounds lands (staleness-discounted) when
+            # it rejoins
+            state = state._replace(
+                pending_delta=dev("pending_delta"),
+                pending_weight=dev("pending_weight"),
+                pending_issued=dev("pending_issued"),
+                pending_arrival=dev("pending_arrival"),
+                pending_valid=dev("pending_valid"),
+            )
+        return state
+
+    def run_round(self, fleet, *, eval_set=None):
+        """One store-sampled round -> (idx, valid, RoundOutputs).  ``idx`` /
+        ``valid`` name the (K,) cohort; the outputs' client axis is the
+        cohort's (row j belongs to fleet client ``idx[j]`` where
+        ``valid[j]``)."""
+        t = time.perf_counter()
+        r = self.round_idx
+        idx, valid, elig = sample_cohort(
+            self.store.score, self.store.resources_view(), self.req, self.fed,
+            cohort_size=self.fed.cohort_size, round_idx=r,
+        )
+        t = self._mark("sample_cohort", t)
+        data = self.engine.device_data(fleet.cohort_arrays(idx, valid))
+        t = self._mark("cohort_arrays", t)
+        rows = self.store.gather(idx)
+        t = self._mark("gather", t)
+        state = self._device_state(rows, r)
+        t = self._mark("host_to_device", t)
+        new, out = self.engine.step(state, data, eval_set=eval_set)
+        t = self._mark("device_round", t)
+
+        def host(x):
+            return x.cpu().numpy()
+
+        trust = TrustState(*(host(c) for c in new.trust))
+        battery, history = host(new.resources.battery), host(new.fg_history)
+        residual = host(new.compress_residual)
+        pending = None
+        if self.store.pending_dim:
+            pending = {name: host(getattr(new, name)) for name in (
+                "pending_delta", "pending_weight", "pending_issued",
+                "pending_arrival", "pending_valid")}
+        t = self._mark("device_to_host", t)
+        self.params = new.params
+        self.store.scatter_round(idx, valid, trust=trust, battery=battery,
+                                 history=history, residual=residual,
+                                 pending=pending)
+        t = self._mark("scatter_round", t)
+        self.store.finish_round(idx, valid, elig)
+        self._mark("finish_round", t)
+        return idx, valid, out
+
+    def run(self, fleet, *, rounds: int, eval_set=None):
+        """``rounds`` store-sampled rounds -> a list of per-round ``(idx,
+        valid, RoundOutputs of numpy arrays)``."""
+        if fleet.num_clients != self.fed.num_clients:
+            raise ValueError(
+                f"fleet has {fleet.num_clients} clients but FedConfig."
+                f"num_clients={self.fed.num_clients}"
+            )
+        outs = []
+        for _ in range(rounds):
+            idx, valid, out = self.run_round(fleet, eval_set=eval_set)
+            outs.append((idx, valid,
+                         RoundOutputs(*(f.cpu().numpy() for f in out))))
+        return outs

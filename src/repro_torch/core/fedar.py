@@ -2,9 +2,11 @@
 
 Simulates the robot fleet of §IV (heterogeneous resources, stragglers,
 poisoners, trust evolution) through :class:`repro_torch.core.engine
-.FedAREngine`.  ``FedARServer`` keeps the reference's public API
-(``run_round`` / ``run`` and a ``history`` dict of per-round rows) and runs
-the resident engine on the card unless ``device="cpu"`` is passed.
+.FedAREngine`, or, with ``FedConfig.cohort_size`` below the fleet size,
+through the host-store :class:`repro_torch.core.engine.CohortEngine`.
+``FedARServer`` keeps the reference's public API (``run_round`` / ``run``
+and a ``history`` dict of per-round rows) and runs on the card unless
+``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
@@ -15,7 +17,12 @@ from typing import Any, Dict, List
 import numpy as np
 
 from repro_torch.common.config import FedConfig
-from repro_torch.core.engine import FedAREngine, RoundOutputs, unflatten
+from repro_torch.core.engine import (
+    CohortEngine,
+    FedAREngine,
+    RoundOutputs,
+    unflatten,
+)
 from repro_torch.core.resources import TaskRequirement
 from repro_torch.data.datasets import FederatedDataset
 
@@ -42,11 +49,14 @@ class FedARServer:
         if (self.fed.cohort_size is not None
                 and self.fed.cohort_size >= self.fed.num_clients):
             self.fed = dataclasses.replace(self.fed, cohort_size=None)
-        self.engine = FedAREngine(
+        self.cohort_mode = self.fed.cohort_size is not None
+        engine = CohortEngine if self.cohort_mode else FedAREngine
+        self.engine = engine(
             self.cfg, self.fed, self.req, lr=self.lr, device=self.device,
             draws=self.draws, init_params=self.init_params,
         )
-        self.state = self.engine.init_state()
+        # in cohort mode the server state lives in engine.store / params
+        self.state = None if self.cohort_mode else self.engine.init_state()
         self.template = self.engine.template
         self.dim = self.engine.dim
         self.poison_mask = self.engine.poison_mask
@@ -54,25 +64,39 @@ class FedARServer:
             "trust": [], "selected": [], "on_time": [], "loss": [], "acc": [],
             "round_time": [],
         }
+        if self.cohort_mode:
+            # per-round (K,) client indices and slot validity; the trust /
+            # selected / on_time rows are cohort-indexed in this mode (row j
+            # belongs to fleet client cohort[r][0][j])
+            self.history["cohort"] = []
 
     @property
     def params(self):
-        return unflatten(self.state.params, self.template)
+        flat = self.engine.params if self.cohort_mode else self.state.params
+        return unflatten(flat, self.template)
 
     @property
     def trust(self):
+        if self.cohort_mode:
+            return self.engine.store.trust_view()
         return self.state.trust
 
     @property
     def resources(self):
+        if self.cohort_mode:
+            return self.engine.store.resources_view()
         return self.state.resources
 
     @property
     def fg_history(self):
+        if self.cohort_mode:
+            return self.engine.store.history
         return self.state.fg_history
 
     @property
     def round_idx(self) -> int:
+        if self.cohort_mode:
+            return self.engine.round_idx
         return self.state.round_idx
 
     def _append(self, out: RoundOutputs, rounds: int, with_eval: bool):
@@ -94,8 +118,12 @@ class FedARServer:
                 self.history["acc"].append(float(acc[r]))
 
     def _resident_data(self, data):
-        """A ``FederatedDataset`` passed instead of a data dict is prepared
-        here (``FedAREngine.prepare_data``: dense or packed, per fleet)."""
+        """A fleet object passed instead of a data dict is prepared here
+        (``FedAREngine.prepare_data``: dense or packed, per fleet); a
+        ``VirtualFleet`` is materialized first, so the same fleet can go to
+        a cohort server and a resident one."""
+        if hasattr(data, "materialize"):
+            data = data.materialize()
         if isinstance(data, FederatedDataset):
             return self.engine.prepare_data(data)
         return data
@@ -105,7 +133,18 @@ class FedARServer:
         arrays x (N, n, 784), y (N, n), sizes (N,), activations (N,)
         (0=relu, 1=softmax, Table II), optionally mask (N, n) and
         round_mask (W, N, n); or a packed dict (``data["packed"]``); or a
-        ``FederatedDataset``."""
+        fleet object (``FederatedDataset``, ``VirtualFleet``), which cohort
+        mode requires."""
+        if self.cohort_mode:
+            if force_straggler is not None:
+                raise ValueError(
+                    "force_straggler is a resident-engine test hook; the "
+                    "cohort engine has no stable client axis to force"
+                )
+            idx, valid, out = self.engine.run_round(data, eval_set=eval_set)
+            self._append(out, 1, eval_set is not None)
+            self.history["cohort"].append((idx, valid))
+            return out.selected.cpu().numpy(), out.on_time.cpu().numpy()
         data = self._resident_data(data)
         self.state, out = self.engine.step(
             self.state, data, eval_set=eval_set, force_straggler=force_straggler
@@ -114,7 +153,13 @@ class FedARServer:
         return out.selected.cpu().numpy(), out.on_time.cpu().numpy()
 
     def run(self, data, rounds: int, eval_set=None, force_straggler=None):
-        """Run ``rounds`` communication rounds; returns ``history``."""
+        """Run ``rounds`` communication rounds; returns ``history``.  Cohort
+        mode samples a fresh cohort from the store each round."""
+        if self.cohort_mode:
+            for _ in range(rounds):
+                self.run_round(data, eval_set=eval_set,
+                               force_straggler=force_straggler)
+            return self.history
         data = self._resident_data(data)
         self.state, outs = self.engine.run(
             self.state, data, rounds=rounds, eval_set=eval_set,

@@ -19,15 +19,20 @@ are zero-padded to a rectangle and carry a ``mask``; ``sizes`` holds the
 true n_u for aggregation weighting.  ``robot_drift`` also carries a
 ``round_mask`` (windows, N, n) schedule: round t trains on window
 ``t mod windows``.  ``packed_arrays`` builds the padding-free bucketed
-layout the engine's packed path takes.
+layout the engine's packed path takes, and ``cohort_arrays`` the K clients
+of one cohort-engine round.  ``VirtualFleet`` is a lazy fleet of any size
+for the cohort engine: it keeps 24 profile shards on the device and
+materializes only each round's cohort.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
+from repro_torch.core.resources import POISON_FRAC
 from repro_torch.data.federated import scaled_fleet, table2_fleet
 from repro_torch.data.scenarios import (
     bucket_widths,
@@ -43,8 +48,9 @@ def inert_clients(count: int, samples: int, dim: int, *, windows: int = 0,
     """``count`` clients that can never contribute to a round: all-False
     sample ``mask`` (the masked local-SGD delta is exactly zero) and
     ``sizes == 0`` (aggregation weight exactly zero).  Used for mesh padding
-    (``padded_to``) and bucket fill rows (``packed_arrays``); an all-False
-    ``round_mask`` rides along when ``windows > 0``."""
+    (``padded_to``), bucket fill rows (``packed_arrays``) and the cohort
+    underfill (``cohort_arrays``); an all-False ``round_mask`` rides along
+    when ``windows > 0``."""
     out = {
         "x": np.zeros((count, samples, dim), x_dtype),
         "y": np.zeros((count, samples), y_dtype),
@@ -55,6 +61,22 @@ def inert_clients(count: int, samples: int, dim: int, *, windows: int = 0,
     if windows:
         out["round_mask"] = np.zeros((windows, count, samples), bool)
     return out
+
+
+def corrupt_clients(ds: "FederatedDataset", which, fill) -> "FederatedDataset":
+    """Copy of ``ds`` whose clients in the ``which`` mask carry garbage
+    sample features (``fill``: NaN, +-Inf or a huge finite value), so that
+    local SGD makes a garbage delta through the real training path: the
+    data-side counterpart of the engine's corrupt-uplink fault."""
+    which = np.asarray(which, bool)
+    if which.shape != (ds.num_clients,):
+        raise ValueError(
+            f"corrupt_clients: mask shape {which.shape} vs fleet "
+            f"({ds.num_clients},)"
+        )
+    x = np.array(ds.x)
+    x[which] = np.float32(fill)
+    return replace(ds, x=x)
 
 
 @dataclass
@@ -139,10 +161,35 @@ class FederatedDataset:
         )
 
     def cohort_arrays(self, idx, valid=None) -> dict:
-        raise NotImplementedError(
-            "cohort_arrays (the host-store cohort engine) is not ported yet: "
-            "ROADMAP.md Queue 1 item 11"
-        )
+        """The (K,) cohort ``idx``'s shards, for the cohort engine: the K
+        clients' arrays, with underfill slots (``valid`` False) replaced by
+        ``inert_clients``.  ``cohort_valid`` (the host's selection) and a
+        sample ``mask`` (all True on maskless fleets) are always present."""
+        idx = np.asarray(idx)
+        k = idx.shape[0]
+        valid = (np.ones((k,), bool) if valid is None
+                 else np.asarray(valid, bool))
+        out = {
+            "x": self.x[idx],
+            "y": self.y[idx],
+            "sizes": self.sizes[idx].astype(np.float32),
+            "activations": self.activations[idx],
+            "mask": (np.ones((k, self.samples), bool) if self.mask is None
+                     else self.mask[idx]),
+            "cohort_valid": valid,
+        }
+        if self.round_mask is not None:
+            out["round_mask"] = self.round_mask[:, idx]
+        hole = ~valid
+        if hole.any():
+            blank = inert_clients(int(hole.sum()), self.samples,
+                                  self.x.shape[2], windows=self.windows,
+                                  x_dtype=self.x.dtype, y_dtype=self.y.dtype)
+            for key in ("x", "y", "sizes", "activations", "mask"):
+                out[key][hole] = blank[key]
+            if self.round_mask is not None:
+                out["round_mask"][:, hole] = blank["round_mask"]
+        return out
 
     def client_extents(self) -> np.ndarray:
         """(N,) highest valid sample position + 1 per client: the width the
@@ -264,6 +311,104 @@ class FederatedDataset:
                 f"unknown layout {layout!r}: expected auto | dense | packed"
             )
         return self.padded_to(shards).arrays()
+
+
+class VirtualFleet:
+    """Lazy synthetic fleet for the cohort engine: ``num_clients`` is a
+    property of this object, never of a materialized (N, n, dim) array.
+    Client ``i`` inherits Table II profile ``i % 12`` (the ``scaled``
+    fleet's layout) and the last ``num_poisoners`` clients are
+    label-flipped, but only the 24 distinct profile shards (12 honest, the
+    same 12 flipped) are kept, plus one inert row (``inert_clients``), as
+    one (25, n, dim) table on ``device`` (``None`` means the card, which
+    raises without one).  ``cohort_arrays`` moves only the (K,) row indices
+    to the device and gathers there; ``materialize()`` is the dense
+    whole-fleet view for the K >= N resident path."""
+
+    def __init__(self, num_clients: int, *, samples_per_client: int = 200,
+                 num_poisoners: Optional[int] = None, flip_frac: float = 0.6,
+                 seed: int = 0, source=None, device=None):
+        from repro_torch.core.engine import resolve_device
+
+        if num_poisoners is None:
+            num_poisoners = int(round(num_clients * POISON_FRAC))
+        if num_poisoners > num_clients:
+            raise ValueError(
+                f"num_poisoners={num_poisoners} exceeds the "
+                f"{num_clients}-client fleet"
+            )
+        self.name = "virtual"
+        self.num_clients = num_clients
+        self.num_poisoners = num_poisoners
+        self.seed = seed
+        self.device = resolve_device(device)
+        # rows 0-11: the honest Table II profiles; 12-23: the same profiles
+        # with the poisoners' label flip
+        self._base = scaled_fleet(
+            24, seed=seed, num_poisoners=12, flip_frac=flip_frac,
+            samples_per_client=samples_per_client, source=source,
+        )
+        blank = inert_clients(1, self.samples, self._base["x"].shape[2])
+
+        def table(key, dtype):
+            rows = np.concatenate([np.asarray(self._base[key]), blank[key]])
+            return torch.as_tensor(rows.astype(dtype), device=self.device)
+
+        self._table = {"x": table("x", np.float32), "y": table("y", np.int32),
+                       "sizes": table("sizes", np.float32),
+                       "activations": table("activations", np.int32)}
+
+    @property
+    def samples(self) -> int:
+        return self._base["x"].shape[1]
+
+    @property
+    def windows(self) -> int:
+        return 0
+
+    @property
+    def poisoners(self) -> np.ndarray:
+        mask = np.zeros(self.num_clients, bool)
+        if self.num_poisoners:
+            mask[-self.num_poisoners:] = True
+        return mask
+
+    def _profiles(self, idx) -> np.ndarray:
+        """client id -> profile row: honest clients map to their tiled
+        Table II profile, the poisoned tail to its flipped twin."""
+        idx = np.asarray(idx)
+        poisoned = idx >= self.num_clients - self.num_poisoners
+        return np.where(poisoned, idx % 12 + 12, idx % 12).astype(np.int64)
+
+    def cohort_arrays(self, idx, valid=None) -> dict:
+        """The cohort's shards as tensors on the fleet's device, gathered
+        there from the profile table; invalid slots read the inert row 24
+        (all-False mask, zero sizes)."""
+        prof = self._profiles(idx)
+        k = prof.shape[0]
+        valid = (np.ones((k,), bool) if valid is None
+                 else np.asarray(valid, bool))
+        rows = torch.as_tensor(np.where(valid, prof, 24), device=self.device)
+        vld = torch.as_tensor(valid, device=self.device)
+        out = {key: t[rows] for key, t in self._table.items()}
+        out["mask"] = vld[:, None].expand(k, self.samples).contiguous()
+        out["cohort_valid"] = vld
+        return out
+
+    def materialize(self) -> FederatedDataset:
+        """The dense whole-fleet view (a host-side profile gather), for
+        small fleets; maskless, so the resident engine runs its dense
+        path."""
+        prof = self._profiles(np.arange(self.num_clients))
+        return FederatedDataset(
+            name="virtual",
+            x=self._base["x"][prof],
+            y=self._base["y"][prof],
+            sizes=self._base["sizes"][prof].astype(np.float32),
+            activations=self._base["activations"][prof],
+            poisoners=self.poisoners,
+            meta={"profiles": 24, "seed": self.seed},
+        )
 
 
 BUILDERS: Dict[str, Callable] = {}

@@ -136,7 +136,5 @@ def test_unported_pieces_raise():
     with pytest.raises(NotImplementedError, match="item 14"):
         tds.make_federated("digits", 12, scenario="corpus_skew")
     ds = tds.make_federated("digits", 6, scenario="iid", samples_per_client=10)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ds.cohort_arrays(np.arange(3))
     with pytest.raises(ValueError, match="layout"):
         ds.engine_arrays(layout="ragged")

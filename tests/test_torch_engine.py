@@ -105,17 +105,22 @@ def test_dense_foolsgold_trajectory_matches_live_reference(aggregation):
 
 def test_imports_leave_out_jax_and_reference():
     """Importing every module of the port, the LM trunk's and its two
-    kernels' included, pulls in neither JAX nor the reference package."""
+    kernels', the fault schedule's, the cohort engine's and the checkpoints'
+    included, pulls in neither JAX nor the reference package (nor
+    ``msgpack``)."""
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'msgpack')]\n"
         "assert not bad, bad\n"
         "lm = {'repro_torch.models.' + m for m in ('model', 'attention', 'ssm', 'blocks',\n"
         "      'ffn', 'layers')} | {'repro_torch.kernels.flash_attention',\n"
         "      'repro_torch.kernels.ssm_scan', 'repro_torch.configs.zamba2_7b',\n"
         "      'repro_torch.configs.tinyllama_1_1b'}\n"
+        "lm |= {'repro_torch.core.faults', 'repro_torch.core.client_store',\n"
+        "       'repro_torch.checkpoint.ckpt'}\n"
         "assert lm <= set(sys.modules), lm - set(sys.modules)\n"
         "print('ok')\n"
     )
@@ -147,21 +152,15 @@ def test_kernel_route_on_cpu_raises(knob):
 
 
 @pytest.mark.parametrize("override", [
-    dict(faults="chaos"), dict(mesh_shape=4), dict(cohort_size=4),
+    dict(mesh_shape=4), dict(mesh_shape=2, faults="chaos"),
+    dict(mesh_shape=4, cohort_size=4),
 ])
 def test_later_slice_features_raise(override):
+    """A mesh (Queue 1 item 12) is refused, alone and beside the faults and
+    the cohort size this slice ported."""
     fed = fleet_fed(12, defense="none", **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
         FedAREngine(small_model(8), fed, TaskRequirement(), device="cpu")
-
-
-@pytest.mark.parametrize("key", ["cohort_valid"])
-def test_later_slice_data_keys_raise(key):
-    eng = FedAREngine(small_model(8), fleet_fed(12, defense="none"),
-                      TaskRequirement(), device="cpu")
-    data = dict(table2_fleet(samples_per_client=20), **{key: np.zeros(3)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.step(eng.init_state(), data)
 
 
 def test_server_strips_whole_fleet_cohort():
