@@ -58,10 +58,24 @@ Phases (any failure raises and the script exits non-zero):
    launch ``flash_attention`` 13 times and ``ssm_scan`` 81 times.  One
    request of each shape runs again under ``torch.profiler`` for each
    kernel's device ms per request and the device idle share.  Then, in
-   fp32 at the same width (27 GB, after the bf16 model is freed), one
-   1 x 1,024 request through the kernel route and the plain route
-   (``attn_impl = ssm_impl = "einsum"``) from the same params: logits within
-   tolerance and the same greedy token.
+   fp32 at the same width (27 GB, after phase 9b's bf16 runs free the bf16
+   model), one 1 x 1,024 request through the kernel route and the plain
+   route (``attn_impl = ssm_impl = "einsum"``) from the same params, block
+   by block: each block within tolerance and the same greedy token.
+
+9b. Serving decode (``Model.init_cache`` / ``decode_step``, plain PyTorch,
+   as ``examples/serve_decode.py`` runs it): on phase 9's bf16 params, B = 4
+   then B = 1, each a 512-token prompt stepped through a fresh cache and 128
+   greedy tokens after 8 warm-up steps; then tinyllama-1.1b at full width
+   (32 heads over 4 kv heads), B = 4.  Each run prints ms a step (host
+   clock, one sync at the end), generated tokens/s, launches a step and the
+   device idle share (``torch.profiler`` over 4 more steps), peak memory,
+   cache bytes and the step's bytes bound; no kernel may launch, the
+   logits must stay finite and the tokens in the vocabulary.  After phase
+   9's route check, on its fp32 model, and on tinyllama-1.1b in fp32 (also
+   with a 128-slot ring that wraps): every block's plain forward over 2 x
+   256 positions against its decode stepped from an empty cache, row by
+   row, and each Mamba2 layer's final state against ``ssd_chunked``'s.
 
 10. The host-store cohort engine (``CohortEngine`` through ``FedARServer``)
    with chaos faults, at full width.  10a: ``VirtualFleet(1_000_000)``, K =
@@ -95,7 +109,8 @@ exits non-zero and prints no result.  ``--profile DIR`` also writes a
 ``torch.profiler`` table of one round of phases 3, 4, 5, 6 (both fleets,
 with a compressed round's device time split into ``torch.topk``, the
 gather, the two decodes, ``local_sgd`` and the rest), 7 (both layouts) and
-8, and of each profiled request of phase 9.
+8, of each profiled request of phase 9 and of each decode run's profiled
+steps of phase 9b.
 """
 from __future__ import annotations
 
@@ -965,20 +980,22 @@ LM_KERNEL_SYMBOLS = {
 }
 
 
-def profile_request(model, params, tokens, names, path, label):
-    """One request under ``torch.profiler``: each kernel's device ms and
-    launches in it, and the device busy and idle share of its wall time.
-    A profiler row belongs to a kernel when its demangled name holds one of
-    the kernel's ``LM_KERNEL_SYMBOLS`` as a whole word; the GEMM class is a
+def profile_device(run, names, path, label, units=1, unit="request"):
+    """``run()`` (``units`` requests or decode steps, ending in a sync)
+    under ``torch.profiler``: each kernel's device ms and launches per
+    unit, and the device busy and idle share of the wall time.  A profiler
+    row belongs to a kernel when its demangled name holds one of the
+    kernel's ``LM_KERNEL_SYMBOLS`` as a whole word; the GEMM class is a
     guess from library kernel names, so the rows it does not take are
-    printed."""
+    printed.  Returns (wall ms, device busy ms, device launches) per unit."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.prefill(params, {"tokens": tokens}).argmax(-1).cpu()
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     on_device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    launches = sum(e.count for e in on_device)
 
     def owner(key):
         return next((n for n in names if any(re.search(rf"\b{sym}\b", key)
@@ -987,11 +1004,12 @@ def profile_request(model, params, tokens, names, path, label):
     per = {}
     for name in names:
         rows = [e for e in on_device if owner(e.key) == name]
-        per[name] = (sum(e.self_device_time_total for e in rows) / 1e3,
-                     sum(e.count for e in rows))
-    print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}; per request: " + ", ".join(
-              f"{n} {ms:.3f} ms in {c} launches" for n, (ms, c) in per.items()))
+        per[name] = (sum(e.self_device_time_total for e in rows) / 1e3 / units,
+                     sum(e.count for e in rows) / units)
+    print(f"[profile] {label}, {units} {unit}(s): wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, {launches} device "
+          f"launches; per {unit}: " + ", ".join(
+              f"{n} {ms:.3f} ms in {c:g} launches" for n, (ms, c) in per.items()))
     # device time by class: the port's kernels, cuBLAS GEMMs (by the names
     # cuBLAS gives them), and the rest (PyTorch's elementwise, reduction,
     # copy and memset kernels, and any library kernel named otherwise)
@@ -1018,6 +1036,7 @@ def profile_request(model, params, tokens, names, path, label):
         path.mkdir(parents=True, exist_ok=True)
         (path / f"profile_{label}.txt").write_text(
             events.table(sort_by="self_device_time_total", row_limit=-1))
+    return wall_ms / units, busy_ms / units, launches / units
 
 
 def check_blocks(cfg, params, toks):
@@ -1073,13 +1092,12 @@ def check_blocks(cfg, params, toks):
           f"(top-2 gap {(top2[:, 0] - top2[:, 1]).tolist()})")
 
 
-def serve_phase(cfg, lm_kernels, every, requests, check_shape, expect_params,
-                profile_dir):
+def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir):
     """Phase 9: serving prefill.  ``requests`` is a list of (batch, seq)
     shapes, the first a warm-up; each request's launches must be one
     ``flash_attention`` per shared-block application and one ``ssm_scan``
-    per layer.  Then the fp32 route check at ``check_shape``.  Returns the
-    launch counts of the timed run."""
+    per layer.  Returns the launch counts of the timed run, and the model
+    and its params for phase 9b."""
     from repro_torch.models.model import Model, param_count
     from repro_torch.models.ssm import ssm_dims
 
@@ -1129,21 +1147,31 @@ def serve_phase(cfg, lm_kernels, every, requests, check_shape, expect_params,
     _, nh = ssm_dims(cfg)
     dtype = getattr(torch, cfg.dtype)
     for toks in {tuple(t.shape): t for t in prompts}.values():
-        profile_request(model, params, toks, ("flash_attention", "ssm_scan"),
-                        profile_dir, f"prefill_{toks.shape[0]}x{toks.shape[1]}")
+        profile_device(lambda: model.prefill(params, {"tokens": toks}).argmax(-1).cpu(),
+                       ("flash_attention", "ssm_scan"), profile_dir,
+                       f"prefill_{toks.shape[0]}x{toks.shape[1]}")
         fb = attn_bound(*toks.shape, cfg.num_heads, cfg.num_kv_heads,
                         cfg.resolved_head_dim, cfg.sliding_window, dtype)
         sb = ssd_bound(*toks.shape, nh, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
                        dtype)
         print(f"  bound a launch: flash_attention {fb[0]:.4f} ms ({fb[1]}), ssm_scan "
               f"{sb[0]:.4f} ms ({sb[1]})")
-    del params, logits, prompts
-    torch.cuda.empty_cache()
+    del logits, prompts
+    return launches, model, params
 
-    # the route check in fp32: the kernel route against the plain route
+
+def route_phase(cfg, lm_kernels, check_shape):
+    """Phase 9's route check in fp32 at ``check_shape``: the kernel route
+    against the plain route, block by block and free-running.  Returns the
+    fp32 model and its params (seed 2) for phase 9b."""
+    from repro_torch.models.model import Model
+
+    flash, ssm = lm_kernels
+    per_req = (cfg.num_layers // cfg.shared_attn_every, cfg.num_layers)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg32)
     params = model.init_params(torch.Generator(device=DEV).manual_seed(2))
+    gen = torch.Generator(device=DEV).manual_seed(3)
     toks = torch.randint(0, cfg.vocab_size, check_shape, generator=gen, device=DEV)
     before = (flash.launches, ssm.launches)
     got = model.prefill(params, {"tokens": toks})
@@ -1171,9 +1199,234 @@ def serve_phase(cfg, lm_kernels, every, requests, check_shape, expect_params,
           f"max|plain| {want.abs().max().item():.3f}; greedy tokens kernel "
           f"{got.argmax(-1).tolist()}, plain {want.argmax(-1).tolist()}, plain with chunk "
           f"{cfg.ssm_chunk // 2} {other.argmax(-1).tolist()}")
-    del model, params, got, want, other
-    torch.cuda.empty_cache()
-    return launches
+    del got, want, other
+    return model, params
+
+
+# ---------------------------------------------------------------- phase 9b
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a nest of dicts and lists."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tensor_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def block_applications(cfg, params, cache):
+    """(kind, block params, window, cache slot) of each block application
+    of one decode step, in trunk order, as ``Model.decode_step`` walks
+    them."""
+    from repro_torch.models.model import layer_windows
+
+    if "shared_attn" not in params:
+        return [("attn", lp, w, c) for lp, w, c in
+                zip(params["layers"], layer_windows(cfg).tolist(), cache)]
+    apps, slots = [], iter(cache["attn"])
+    for i, (lp, c) in enumerate(zip(params["layers"], cache["mamba"])):
+        apps.append(("mamba", lp, None, c))
+        if (i + 1) % cfg.shared_attn_every == 0:
+            apps.append(("attn", params["shared_attn"], cfg.sliding_window, next(slots)))
+    return apps
+
+
+def decode_step_bytes(cfg, params, cache, batch: int, positions) -> list:
+    """The bytes a decode step must move, at each of ``positions``: every
+    weight it uses read once per use (zamba's shared block once per
+    application), the Mamba2 conv history and fp32 state read and written,
+    the KV slots that hold a position in the window read and the new slot
+    written, the embedding rows read and the logits written."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    fixed = (tensor_bytes(head) + tensor_bytes(params["final_norm"])
+             + batch * (cfg.d_model + cfg.vocab_size) * params["embed"].element_size())
+    kv = []  # (slots, window, bytes a slot) of each attention application
+    for kind, lp, window, c in block_applications(cfg, params, cache):
+        fixed += tensor_bytes(lp)
+        if kind == "mamba":
+            fixed += 2 * tensor_bytes(c)
+        else:
+            clen = c["k"].shape[1]
+            kv.append((clen, window or clen, tensor_bytes(c) // clen))
+    return [fixed + sum(slot * (min(p + 1, w, clen) + 1) for clen, w, slot in kv)
+            for p in positions]
+
+
+def decode_run(model, params, batch, every, gen, profile_dir, prompt_len=512, gen_len=128,
+               warmup=8, profile_steps=4):
+    """Phase 9b: one serving run as ``examples/serve_decode.py`` does it:
+    ``batch`` random prompts of ``prompt_len`` tokens stepped through a
+    fresh cache, then ``gen_len`` greedy tokens, the next token kept on the
+    card (no host sync until the end).  ``warmup`` steps on another cache
+    come first.  No kernel of ``every`` may launch.  Prints ms a step
+    (host clock over all steps), the prompt / generation split (CUDA
+    events), generated tokens/s, launches a step and the device idle share
+    (``torch.profiler`` over ``profile_steps`` more steps), peak memory,
+    cache bytes and the step's bytes bound."""
+    cfg = model.cfg
+    total = prompt_len + gen_len
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=DEV)
+    cache = model.init_cache(batch, total)
+    for t in range(warmup):
+        model.decode_step(params, cache, prompt[:, t:t + 1], t)
+    torch.cuda.synchronize()
+    cache = model.init_cache(batch, total)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in every:
+        k.launches = 0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    finite = torch.ones((), dtype=torch.bool, device=DEV)
+    out = []
+    t0 = time.perf_counter()
+    marks[0].record()
+    for t in range(prompt_len):
+        logits, cache = model.decode_step(params, cache, prompt[:, t:t + 1], t)
+    last_prompt = logits
+    marks[1].record()
+    tok = logits.argmax(-1, keepdim=True)
+    for t in range(prompt_len, total):
+        out.append(tok)
+        finite &= torch.isfinite(logits).all()
+        logits, cache = model.decode_step(params, cache, tok, t)
+        tok = logits.argmax(-1, keepdim=True)
+    marks[2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k.__name__: k.launches for k in every if k.launches}
+    if launched:
+        raise AssertionError(f"decode launched kernels {launched}; it must reach none")
+    gen_toks = torch.cat(out, dim=1)
+    if not (bool(finite) and bool(torch.isfinite(logits).all())):
+        raise AssertionError("decode gave non-finite logits")
+    if gen_toks.shape != (batch, gen_len) or not (
+            (gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all():
+        raise AssertionError("decode gave tokens outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = wall * 1e3 / total
+    gen_ms = marks[1].elapsed_time(marks[2])
+    bound = [n / PEAK_BYTES_PER_S * 1e3
+             for n in decode_step_bytes(cfg, params, cache, batch, range(total))]
+    print(f"  B = {batch}: {total} steps ({prompt_len} prompt + {gen_len} generated) in "
+          f"{wall:.3f} s: {ms_step:.3f} ms a step (host clock), prompt "
+          f"{marks[0].elapsed_time(marks[1]) / prompt_len:.3f} / generation "
+          f"{gen_ms / gen_len:.3f} ms a step (events); generated tokens/s "
+          f"{batch * gen_len / gen_ms * 1e3:.1f}; bound {statistics.mean(bound):.4f} ms a "
+          f"step (bytes at 3.35 TB/s, mean over the run; {bound[-1]:.4f} at the last step)")
+    print(f"  launches of the nine kernels during decode: none ok; cache "
+          f"{tensor_bytes(cache) / 2**30:.4f} GiB; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; greedy tokens of sequence 0: "
+          f"{gen_toks[0, :12].tolist()}")
+
+    def more_steps():
+        step_logits = logits
+        for t in range(total - profile_steps, total):
+            step_logits, _ = model.decode_step(params, cache, step_logits.argmax(-1, keepdim=True),
+                                               t)
+        torch.cuda.synchronize()
+
+    _, busy, launches = profile_device(more_steps, ("flash_attention", "ssm_scan"), profile_dir,
+                                       f"decode_{cfg.name}_B{batch}", profile_steps, "step")
+    print(f"  {launches:g} device launches a step; device busy {busy:.3f} ms a step, idle "
+          f"share against the unprofiled step {1 - busy / ms_step:.3f}")
+    # stepped decode against the kernel-route prefill of the same prompt, in
+    # bf16: no tolerance (Trap 3: the random-init trunk amplifies rounding)
+    pre = model.prefill(params, {"tokens": prompt})
+    print(f"  decode at the prompt's last position vs prefill (kernel route, bf16, no "
+          f"tolerance): max_abs_err {(last_prompt - pre).abs().max().item():.3e}, max|prefill| "
+          f"{pre.abs().max().item():.3f}, greedy tokens equal in "
+          f"{int((last_prompt.argmax(-1) == pre.argmax(-1)).sum())} of {batch}")
+    del cache, pre, last_prompt
+
+
+def serve_decode(model, params, batches, every, gen, profile_dir):
+    """Phase 9b's bf16 runs of one model: ``decode_run`` at each batch."""
+    from repro_torch.models.model import param_count
+
+    cfg = model.cfg
+    print(f"\n[serve decode] {cfg.name}, {cfg.dtype}, {param_count(params):,} params "
+          f"({cfg.num_heads} heads over {cfg.num_kv_heads} kv heads): a 512-token prompt "
+          f"stepped through the cache, then 128 greedy tokens")
+    for batch in batches:
+        decode_run(model, params, batch, every, gen, profile_dir)
+
+
+def decode_checks(model, params, every, gen):
+    """Phase 9b's fp32 decode-vs-prefill checks: ``model`` (zamba2-7b, phase
+    9's route-check params), then tinyllama-1.1b at full width, and the same
+    with a 128-slot ring that wraps once over the 256 positions.  No kernel
+    of ``every`` may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    print("\n[decode vs prefill] fp32, block by block, from the plain prefill's input to "
+          "each block")
+    for k in every:
+        k.launches = 0
+    shape = (2, 256)
+    check_decode_blocks(model, params, torch.randint(0, model.cfg.vocab_size, shape,
+                                                     generator=gen, device=DEV))
+    tiny = dataclasses.replace(get_config("tinyllama-1.1b"), dtype="float32")
+    tiny_model = Model(tiny)
+    tiny_params = tiny_model.init_params(torch.Generator(device=DEV).manual_seed(6))
+    toks = torch.randint(0, tiny.vocab_size, shape, generator=gen, device=DEV)
+    check_decode_blocks(tiny_model, tiny_params, toks)
+    check_decode_blocks(Model(dataclasses.replace(tiny, sliding_window=128)), tiny_params, toks)
+    launched = {k.__name__: k.launches for k in every if k.launches}
+    if launched:
+        raise AssertionError(f"the decode check launched kernels {launched}")
+
+
+def check_decode_blocks(model, params, toks):
+    """Phase 9b's decode-vs-prefill check in fp32, block by block: for each
+    block application, from the plain prefill's input to that block, the
+    block's plain forward over T positions against its decode stepped
+    t = 0..T-1 from an empty cache.  Each position's increment to the
+    residual must agree within atol = rtol = 1e-4 of that row's largest
+    plain increment (``check_blocks``' rule, row by row); each Mamba2
+    layer's final fp32 state must agree with ``ssd_chunked``'s in the same
+    way, a row being one head of one sequence."""
+    from repro_torch.models import blocks
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import decode_cache_len
+
+    cfg = model.cfg
+    B, T = toks.shape
+    worst = {"mamba": 0.0, "attn": 0.0, "state": 0.0}
+
+    def check(what, got, want, dims):
+        limit = 1e-4 + 1e-4 * want.abs().amax(dim=dims, keepdim=True)
+        ratio = ((got - want).abs() / limit).max().item()
+        if not ratio <= 1.0:
+            raise AssertionError(f"{cfg.name}: a {what} is off by {ratio:.3f} of its "
+                                 f"tolerance")
+        worst[what] = max(worst[what], ratio)
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        x = torch.nn.functional.embedding(toks.long(), params["embed"])
+        positions = torch.arange(T, device=DEV)
+        cache = model.init_cache(B, T)
+        apps = block_applications(cfg, params, cache)
+        for kind, lp, window, c in apps:
+            if kind == "mamba":
+                want = blocks.mamba_block_forward(lp, x, cfg, "einsum")
+                got = [blocks.mamba_block_decode(lp, c, x[:, t:t + 1], cfg)[0]
+                       for t in range(T)]
+                *_, xd, logdecay, Bc, Cc = ssm.scan_inputs(
+                    lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+                _, state = ssm.ssd_chunked(xd, logdecay, Bc, Cc, cfg.ssm_chunk)
+                check("state", c["ssm"], state, (2, 3))
+            else:
+                want = blocks.attn_block_forward(lp, x, positions, cfg, window, "einsum")
+                got = [blocks.attn_block_decode(lp, c, x[:, t:t + 1], t, cfg, window)[0]
+                       for t in range(T)]
+            check(kind, torch.cat(got, dim=1) - x, want - x, -1)
+            x = want
+    print(f"  {cfg.name}, window {cfg.sliding_window} ({decode_cache_len(cfg, T)} KV "
+          f"slots): {len(apps)} blocks, {B} x {T} positions each, in "
+          f"{time.perf_counter() - t0:.2f} s; closest to tolerance (row by row): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst.items() if v) + " ok")
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1472,6 +1725,7 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import plan as ssm_plan
     from repro_torch.kernels.ssm_scan import ssm_scan
     from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1817,12 +2071,34 @@ def main() -> int:
     print(f"\n[serve prefill] zamba2-7b, {zamba.num_layers} layers, d_model "
           f"{zamba.d_model}, {zamba.dtype}; card memory in use before: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
-    launches9 = serve_phase(
-        zamba, lm_kernels, every, [(4, 2048)] * 4 + [(1, 8192)], (1, 1024),
-        6_750_498_384, Path(args.profile) if args.profile else None)
+    profile_dir = Path(args.profile) if args.profile else None
+    launches9, model, params = serve_phase(
+        zamba, lm_kernels, every, [(4, 2048)] * 4 + [(1, 8192)], 6_750_498_384, profile_dir)
     for name, count in launches9.items():
         entries[name]["launches"] = count
+
+    # --- phase 9b: serving decode in bf16 at full width on phase 9's params
+    # and on tinyllama-1.1b's; after phase 9's fp32 route check, decode
+    # against prefill block by block on its fp32 model
+    t9b = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    serve_decode(model, params, (4, 1), every, gen, profile_dir)
+    del model, params
     torch.cuda.empty_cache()
+    model = Model(get_config("tinyllama-1.1b"))
+    params = model.init_params(torch.Generator(device=DEV).manual_seed(5))
+    serve_decode(model, params, (4,), every, gen, profile_dir)
+    del model, params
+    torch.cuda.empty_cache()
+    t9b = time.perf_counter() - t9b
+
+    model, params = route_phase(zamba, lm_kernels, (1, 1024))
+    t0 = time.perf_counter()
+    decode_checks(model, params, every, gen)
+    del model, params
+    torch.cuda.empty_cache()
+    t9b += time.perf_counter() - t0
+    print(f"[phase 9b] {t9b:.1f} s (decode runs and checks, set-up included)")
 
     # --- phase 10: the host-store cohort engine, chaos faults, checkpoints
     cohort_phase(req, eval_set, kernels, codecs, every, ref, local_sgd, entries)

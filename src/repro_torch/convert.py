@@ -3,7 +3,9 @@
 ``params_from_jax`` takes the reference engine's ``template`` (or any
 ``{b1, b2, w1, w2}`` dict of arrays) and returns the port's params and flat
 vector in the same order, so a port run can start from the reference's
-init.  ``lm_params_from_jax`` does the same for the LM's ``Model`` tree.
+init.  ``lm_params_from_jax`` does the same for the LM's ``Model`` tree,
+and ``lm_cache_from_jax`` / ``lm_cache_to_numpy`` carry its decode caches
+across in both directions.
 
 The draw provider is the one place the round takes random numbers from:
 ``gumbel(round_idx, n)`` for selection, ``latency_factor(round_idx, n)``
@@ -74,6 +76,43 @@ def lm_params_from_jax(tree, cfg, device, dtype=None):
 
     out["layers"] = [layer(stacked, i) for i in range(cfg.num_layers)]
     return out
+
+
+def _unstack(node, n: int, device):
+    """``{name: (n, ...) array}`` -> n dicts of views of the stacked tensors."""
+    stacked = {k: _leaf_tensor(v).to(device) for k, v in node.items()}
+    for k, t in stacked.items():
+        if t.shape[0] != n:
+            raise ValueError(f"cache leaf {k!r} has {t.shape[0]} rows, expected {n}")
+    return [{k: t[i] for k, t in stacked.items()} for i in range(n)]
+
+
+def lm_cache_from_jax(tree, cfg, device):
+    """The reference's ``Model.init_cache`` tree (numpy or JAX leaves,
+    stacked on a leading layer axis) -> the port's cache on ``device``: a
+    list of per-layer KV dicts for the ``attn`` kind; for ``zamba``,
+    ``{"mamba": [per layer], "attn": [per shared-block application]}``.
+    Each leaf keeps its dtype."""
+    if "mamba" in tree:
+        return {"mamba": _unstack(tree["mamba"], cfg.num_layers, device),
+                "attn": _unstack(tree["attn"], cfg.num_layers // cfg.shared_attn_every,
+                                 device)}
+    return _unstack(tree, cfg.num_layers, device)
+
+
+def lm_cache_to_numpy(cache):
+    """The inverse of ``lm_cache_from_jax``: the reference's stacked tree of
+    numpy arrays, bf16 leaves widened (exactly) to float32."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+    def stack(dicts):
+        return {k: np.stack([leaf(d[k]) for d in dicts]) for k in dicts[0]}
+
+    if isinstance(cache, dict):
+        return {k: stack(v) for k, v in cache.items()}
+    return stack(cache)
 
 
 class GeneratorDraws:

@@ -1,5 +1,5 @@
-"""Attention for the LM trunk's prefill: GQA with full or sliding-window
-causal masks.
+"""Attention for the LM trunk: GQA with full or sliding-window causal masks,
+for prefill and for single-token decode over a KV cache.
 
 The route is the model's ``attn_impl`` (``kernels/ops.resolve_impl``): on
 the card ``gqa_forward`` calls kernel 8 (``ops.flash_attention``) with the
@@ -8,8 +8,11 @@ or with ``attn_impl="einsum"``, it takes ``_attend_chunked``, the
 reference model's q-chunked blockwise attention.  The two compute the same
 function (``tests/test_torch_lm_kernels.py``).
 
-MLA and the decode-time functions (KV caches, ring buffers) are ROADMAP
-Queue 1 item 14 and raise.
+Decode (``gqa_decode``) is plain PyTorch on every device, as in the
+reference: one query against the whole cache, which is full length
+(``cache_len`` = the longest sequence) or, for a window, a ring buffer of
+``cache_len`` = window slots.  It reaches no kernel.  MLA is ROADMAP Queue
+1 item 14.3 and raises.
 """
 from __future__ import annotations
 
@@ -98,6 +101,47 @@ def gqa_forward(params, x, positions, cfg: ModelConfig, window: int = 0,
     return torch.einsum("bshk,hkd->bsd", o, params["wo"])
 
 
+def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device):
+    hd = cfg.resolved_head_dim
+    shape = (batch, cache_len, cfg.num_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_decode(params, cache, x_t, pos: int, cfg: ModelConfig, window: int = 0):
+    """Single-token decode.  x_t: (B, 1, d); pos: the new token's index.
+
+    Writes the token's k and v into slot ``pos % cache_len`` of ``cache``
+    in place, then attends over all ``cache_len`` slots, masking those that
+    hold no position in ``(pos - window, pos]`` (a ring slot holds position
+    ``pos - ((pos - slot) mod cache_len)``).  Scores and softmax in fp32, p
+    cast back to the cache's dtype, as in the reference.  Returns (out (B,
+    1, d), cache)."""
+    cache_len = cache["k"].shape[1]
+    q = torch.einsum("bsd,dhk->bshk", x_t, params["wq"])
+    k_t = torch.einsum("bsd,dhk->bshk", x_t, params["wk"])
+    v_t = torch.einsum("bsd,dhk->bshk", x_t, params["wv"])
+    posv = torch.full((1, 1), pos, device=x_t.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k_t = apply_rope(k_t, posv, cfg.rope_theta)
+
+    slot = pos % cache_len  # == pos whenever cache_len covers the sequence
+    cache["k"][:, slot] = k_t[:, 0]
+    cache["v"][:, slot] = v_t[:, 0]
+    idx = torch.arange(cache_len, device=x_t.device)
+    slot_pos = pos - torch.remainder(pos - idx, cache_len)  # floor-mod
+    w_eff = window if window > 0 else 1 << 30
+    valid = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - w_eff)
+
+    kk = _repeat_kv(cache["k"], cfg.num_heads)
+    vv = _repeat_kv(cache["v"], cfg.num_heads)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kk).to(torch.float32) * q.shape[-1] ** -0.5
+    s = torch.where(valid[None, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1).to(vv.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+    return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache
+
+
 def init_mla(*_args, **_kw):
     raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14)")
 
@@ -106,11 +150,5 @@ def mla_forward(*_args, **_kw):
     raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14)")
 
 
-def gqa_decode(*_args, **_kw):
-    raise NotImplementedError("decode and KV caches are not ported yet "
-                              "(ROADMAP Queue 1 item 14)")
-
-
 def mla_decode(*_args, **_kw):
-    raise NotImplementedError("decode and KV caches are not ported yet "
-                              "(ROADMAP Queue 1 item 14)")
+    raise NotImplementedError("MLA decode is not ported yet (ROADMAP Queue 1 item 14.3)")

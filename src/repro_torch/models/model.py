@@ -1,25 +1,30 @@
-"""The LM trunk's prefill: embeddings, the block stack and the LM head.
+"""The LM trunk: embeddings, the block stack and the LM head, for prefill
+and for cached single-token decode.
 
 Two structural kinds of the reference's three are ported:
   attn   -- homogeneous attention blocks (GQA with a dense gated FFN)
   zamba  -- Mamba2 blocks plus ONE weight-shared attention block applied
             after every ``shared_attn_every``-th layer (Zamba2)
 The ``xlstm`` kind, the stubbed modality frontends, MoE and MLA raise
-``NotImplementedError`` (ROADMAP Queue 1 item 14), as do decode and
-training.
+``NotImplementedError`` (ROADMAP Queue 1 item 14), as does training.
 
 Params are a dict of tensors in the reference's tree, except that
 ``layers`` is a list with one dict per layer (the reference stacks them on
 a leading L axis for ``lax.scan``); the trunk is a Python loop over it.
 ``convert.lm_params_from_jax`` maps the reference's tree onto this one.
+Decode caches mirror that layout (a list per layer; for zamba, lists of
+Mamba2 layers and of shared-block applications) and are updated in place
+(``convert.lm_cache_from_jax`` maps the reference's stacked cache).
 
 Kernel routing is per model: ``attn_impl`` and ``ssm_impl`` (``auto |
 kernel | einsum``, ``kernels/ops.resolve_impl``) pick kernel 8
 (``flash_attention``) and kernel 9 (``ssm_scan``) on the card and the
-reference model's plain PyTorch lowering otherwise.
+reference model's plain PyTorch lowering otherwise.  Decode reaches
+neither kernel: it is plain PyTorch on every device, as in the reference.
 """
 from __future__ import annotations
 
+import operator
 from typing import Any, Dict
 
 import numpy as np
@@ -43,6 +48,15 @@ def layer_windows(cfg: ModelConfig) -> np.ndarray:
             np.int32,
         )
     return np.full((L,), cfg.sliding_window, np.int32)
+
+
+def decode_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Uniform per-layer cache length for decode: the sequence when any
+    layer attends in full, else the widest window (a ring buffer)."""
+    w = layer_windows(cfg)
+    if (w == 0).any():
+        return seq_len
+    return int(w.max())
 
 
 class Model:
@@ -136,6 +150,52 @@ class Model:
         with torch.inference_mode():
             x, _, _ = self.trunk(params, batch)
             return self.logits(params, x[:, -1, :])
+
+    # ------------------------------------------------------------------
+    # decode
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, seq_len: int):
+        """Zeroed decode caches for ``batch`` sequences of up to ``seq_len``
+        tokens, made in inference mode as ``decode_step`` updates them:
+        ``attn`` a list of per-layer KV caches; ``zamba`` ``{"mamba": [per
+        layer conv + fp32 SSM state], "attn": [per shared-block
+        application KV cache]}``.  KV and conv caches in ``cfg.dtype``."""
+        cfg, dtype, dev = self.cfg, self.dtype, self.device
+        clen = decode_cache_len(cfg, seq_len)
+        with torch.inference_mode():
+            if self.kind == "attn":
+                return [blocks.init_attn_block_cache(cfg, batch, clen, dtype, dev)
+                        for _ in range(cfg.num_layers)]
+            n_attn = cfg.num_layers // cfg.shared_attn_every
+            return {
+                "mamba": [blocks.init_mamba_block_cache(cfg, batch, dtype, dev)
+                          for _ in range(cfg.num_layers)],
+                "attn": [blocks.init_attn_block_cache(cfg, batch, clen, dtype, dev)
+                         for _ in range(n_attn)],
+            }
+
+    def decode_step(self, params, cache, tokens, pos: int):
+        """One decode step.  tokens: (B, 1) ints, on the model's device to
+        keep the step free of host syncs; pos: the new token's index, a
+        Python int.  Updates ``cache`` in place and returns (logits (B,
+        vocab), the same cache object)."""
+        cfg = self.cfg
+        pos = operator.index(pos)
+        with torch.inference_mode():
+            x, _ = self.embed(params, {"tokens": tokens})
+            if self.kind == "attn":
+                for lp, lc, w in zip(params["layers"], cache, layer_windows(cfg).tolist()):
+                    x, _ = blocks.attn_block_decode(lp, lc, x, pos, cfg, w)
+            else:
+                shared, every = params["shared_attn"], cfg.shared_attn_every
+                for i, (lp, lc) in enumerate(zip(params["layers"], cache["mamba"])):
+                    x, _ = blocks.mamba_block_decode(lp, lc, x, cfg)
+                    if (i + 1) % every == 0:
+                        ac = cache["attn"][(i + 1) // every - 1]
+                        x, _ = blocks.attn_block_decode(shared, ac, x, pos, cfg,
+                                                        cfg.sliding_window)
+            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            return self.logits(params, x[:, 0, :]), cache
 
 
 def _leaves(tree):

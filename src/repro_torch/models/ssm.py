@@ -1,4 +1,4 @@
-"""Mamba2 block (chunked SSD) for the LM trunk's prefill.
+"""Mamba2 block: the chunked SSD for prefill, the recurrent step for decode.
 
 The route is the model's ``ssm_impl`` (``kernels/ops.resolve_impl``): on
 the card ``mamba2_forward`` takes y from kernel 9 (``ops.ssm_scan``); on
@@ -6,7 +6,9 @@ the CPU, or with ``ssm_impl="einsum"``, from ``ssd_chunked``, the
 reference model's chunked scan in plain PyTorch.  Both compute the SSD
 recurrence from a zero state.
 
-Decode (the conv and SSM caches) is ROADMAP Queue 1 item 14 and raises.
+Decode (``mamba2_decode``) is plain PyTorch on every device, as in the
+reference: one recurrent step over a cache of the last ``ssm_conv - 1``
+conv inputs (model dtype) and the SSM state (fp32).  It reaches no kernel.
 """
 from __future__ import annotations
 
@@ -107,17 +109,25 @@ def ssd_chunked(xd, logdecay, Bc, Cc, chunk: int, init_state=None):
     return torch.stack(ys, dim=1).reshape(B, S, nh, hd), state
 
 
-def mamba2_forward(params, x, cfg: ModelConfig, impl: str = "auto"):
-    """Training / prefill.  x: (B, S, d) -> (B, S, d)."""
-    B, S, d = x.shape
-    d_inner, nh = ssm_dims(cfg)
+def scan_inputs(params, x, cfg: ModelConfig):
+    """Everything the prefill computes before the scan, for x (B, S, d):
+    (z, xh (B, S, nh, hd), and the scan's inputs xd, logdecay, Bc, Cc)."""
+    B, S, _ = x.shape
+    _, nh = ssm_dims(cfg)
     z, xs, Bc, Cc, dt = _project(params, x)
     xs = F.silu(_causal_conv(xs, params["conv_w"]))
     dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])  # (B, S, nh)
     A = -torch.exp(params["A_log"])  # (nh,) negative
     xh = xs.reshape(B, S, nh, cfg.ssm_head_dim)
     xd = xh * dt[..., None].to(xh.dtype)
-    logdecay = dt * A  # (B, S, nh) fp32
+    return z, xh, xd, dt * A, Bc, Cc  # logdecay (B, S, nh) fp32
+
+
+def mamba2_forward(params, x, cfg: ModelConfig, impl: str = "auto"):
+    """Training / prefill.  x: (B, S, d) -> (B, S, d)."""
+    B, S, d = x.shape
+    d_inner, _ = ssm_dims(cfg)
+    z, xh, xd, logdecay, Bc, Cc = scan_inputs(params, x, cfg)
     if ops.resolve_impl(impl, "ssm", x.device) == "kernel":
         y = ops.ssm_scan(xd.contiguous(), logdecay.contiguous(), Bc.contiguous(),
                          Cc.contiguous(), impl="kernel")
@@ -129,6 +139,35 @@ def mamba2_forward(params, x, cfg: ModelConfig, impl: str = "auto"):
     return torch.matmul(y, params["out_proj"])
 
 
-def mamba2_decode(*_args, **_kw):
-    raise NotImplementedError("decode and the SSM caches are not ported yet "
-                              "(ROADMAP Queue 1 item 14)")
+def init_mamba2_cache(cfg: ModelConfig, batch: int, dtype, device):
+    d_inner, nh = ssm_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_inner), dtype=dtype, device=device),
+        "ssm": torch.zeros((batch, nh, cfg.ssm_state, cfg.ssm_head_dim),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def mamba2_decode(params, cache, x_t, cfg: ModelConfig):
+    """Single-token recurrent step.  x_t: (B, 1, d).  Updates ``cache`` in
+    place: the conv history shifts by one input, the fp32 state becomes
+    ``state * exp(dt A) + B (x dt)``.  Returns (out (B, 1, d), cache)."""
+    B = x_t.shape[0]
+    d_inner, nh = ssm_dims(cfg)
+    z, xs, Bc, Cc, dt = _project(params, x_t[:, 0])
+    # conv over (the cached K - 1 inputs, this one)
+    hist = torch.cat([cache["conv"], xs[:, None, :]], dim=1)  # (B, K, d_inner)
+    xs = torch.einsum("bkd,kd->bd", hist, params["conv_w"])
+    cache["conv"].copy_(hist[:, 1:])
+    xs = F.silu(xs)
+    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"])  # (B, nh)
+    A = -torch.exp(params["A_log"])
+    a = torch.exp(dt * A)  # (B, nh)
+    xh = xs.reshape(B, nh, cfg.ssm_head_dim).to(torch.float32)
+    upd = torch.einsum("bs,bnh->bnsh", Bc.to(torch.float32), xh * dt[..., None])
+    state = cache["ssm"].mul_(a[:, :, None, None]).add_(upd)
+    y = torch.einsum("bs,bnsh->bnh", Cc.to(torch.float32), state)
+    y = y + params["D"][None, :, None] * xh
+    y = y.reshape(B, d_inner).to(x_t.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    return torch.matmul(y, params["out_proj"])[:, None], cache

@@ -696,21 +696,96 @@ def test_lm_kernel_wrappers_validate_arguments(cuda_device):
                  torch.randn(1, 8, 65, device=dev))
 
 
+def _check_blocks(cfg, params, tokens):
+    """Each block application of the prefill, from the plain route's input
+    to it: the kernel route's increment to the residual within atol = rtol
+    = 1e-4 of its row's largest plain increment (a row is one position of
+    one sequence), and the logits from the last block's two outputs within
+    1e-4 (``chip_smoke.check_blocks``' bound, row by row)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import layer_windows
+
+    with torch.inference_mode():
+        x = torch.nn.functional.embedding(tokens.long(), params["embed"])
+        pos = torch.arange(x.shape[1], device=x.device)
+        if "shared_attn" in params:
+            apps = []
+            for i, lp in enumerate(params["layers"]):
+                apps.append(lambda x, impl, lp=lp: blocks.mamba_block_forward(lp, x, cfg, impl))
+                if (i + 1) % cfg.shared_attn_every == 0:
+                    apps.append(lambda x, impl: blocks.attn_block_forward(
+                        params["shared_attn"], x, pos, cfg, cfg.sliding_window, impl))
+        else:
+            apps = [lambda x, impl, lp=lp, w=w: blocks.attn_block_forward(lp, x, pos, cfg, w, impl)
+                    for lp, w in zip(params["layers"], layer_windows(cfg).tolist())]
+        for n, app in enumerate(apps):
+            got, want = app(x, "kernel") - x, app(x, "einsum") - x
+            limit = 1e-4 + 1e-4 * want.abs().amax(dim=-1, keepdim=True)
+            worst = ((got - want).abs() / limit).max().item()
+            assert worst <= 1.0, f"block {n}: largest error / tolerance {worst:.3f}"
+            last = x + got
+            x = x + want
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        logits = [rms_norm(h[:, -1], params["final_norm"], cfg.norm_eps) @ head
+                  for h in (last, x)]
+    torch.testing.assert_close(logits[0], logits[1], rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("arch,layers,launches", [
     ("zamba2-7b", 4, (2, 4)), ("tinyllama-1.1b", 2, (2, 0)),
 ])
 def test_lm_prefill_on_the_card_matches_plain_route(cuda_device, arch, layers, launches):
     """``Model`` on its default device runs kernels 8 and 9 once per
-    attention and Mamba2 layer; the plain route (``attn_impl = ssm_impl =
-    "einsum"``) from the same params gives the same logits within 1e-4."""
+    attention and Mamba2 layer, and each block application agrees with the
+    plain route (``attn_impl = ssm_impl = "einsum"``) from the same input
+    (``_check_blocks``), over four seeds of params and tokens, each drawn
+    from a seeded ``torch.Generator``.  The free-running trunk is not held
+    to 1e-4: four random-init layers amplify rounding (ROADMAP Trap 3)."""
     cfg = get_config(arch).reduced(num_layers=layers)
     model = Model(cfg)
     assert model.device.type == "cuda"
-    params = model.init_params(torch.Generator(device=cuda_device).manual_seed(0))
-    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda_device)
+    for seed in range(4):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        params = model.init_params(gen)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device=cuda_device)
+        counts = (flash_attention.launches, ssm_scan.launches)
+        got = model.prefill(params, {"tokens": tokens})
+        assert (flash_attention.launches - counts[0],
+                ssm_scan.launches - counts[1]) == launches
+        assert got.shape == (2, cfg.vocab_size) and torch.isfinite(got).all()
+        _check_blocks(cfg, params, tokens)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("zamba2-7b", {}), ("tinyllama-1.1b", {}), ("tinyllama-1.1b", dict(sliding_window=8)),
+], ids=["zamba2-7b", "tinyllama-1.1b", "tinyllama-ring8"])
+def test_lm_decode_on_the_card_matches_the_cpu(cuda_device, arch, over):
+    """fp32 decode from the same params (drawn on a seeded CPU generator):
+    16 prompt tokens then 8 of the CPU's greedy tokens, both devices fed
+    the same token; logits within 1e-4 at every step, the caches after the
+    last, and no launch of kernel 8 or 9 (decode is plain PyTorch)."""
+    cfg = get_config(arch).reduced(**over)
+    card, cpu = Model(cfg), Model(cfg, device="cpu")
+    params = card.init_params(torch.Generator().manual_seed(0))
+    params_cpu = cpu.init_params(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)))
+    cache, cache_cpu = card.init_cache(2, 24), cpu.init_cache(2, 24)
     counts = (flash_attention.launches, ssm_scan.launches)
-    got = model.prefill(params, {"tokens": tokens})
-    assert (flash_attention.launches - counts[0], ssm_scan.launches - counts[1]) == launches
-    plain = Model(cfg, attn_impl="einsum", ssm_impl="einsum")
-    want = plain.prefill(params, {"tokens": tokens})
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    tok = toks[:, :1]
+    for t in range(24):
+        logits, cache = card.decode_step(params, cache, tok.to(cuda_device), t)
+        want, cache_cpu = cpu.decode_step(params_cpu, cache_cpu, tok, t)
+        torch.testing.assert_close(logits.cpu(), want, rtol=1e-4, atol=1e-4)
+        tok = toks[:, t + 1:t + 2] if t + 1 < 16 else want.argmax(-1, keepdim=True)
+    assert (flash_attention.launches, ssm_scan.launches) == counts
+    for got, want in zip(_leaves(cache), _leaves(cache_cpu)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
