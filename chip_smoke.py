@@ -92,6 +92,25 @@ Phases (any failure raises and the script exits non-zero):
    to QSGD code flips).  10b saves the store after round 3 and resumes it
    in a fresh engine: rounds 4-6 must end bit-equal to the uninterrupted
    run.  ``local_sgd`` is held against its plain version at R = 256.
+11. Federated LM training (``LMClientModel`` through ``FedARServer``) at
+   full width: tinyllama-1.1b (22 layers, d_model 2,048, 32 heads over 4
+   kv heads, d_ff 5,632, vocab 32,000; bf16 weights, fp32 norms; params
+   from ``LMClientModel.init`` on a seeded CUDA generator), ``fleet_fed(4)``
+   with fedar + foolsgold_sketch, E = 2, B = 8, lr 0.05, on the
+   ``federated_lm_corpus`` of ``examples/federated_lm.py`` at 4 clients;
+   the timeout is set from the fleet's own latencies.  4 rounds (round 1
+   warm-up), each printing its wall seconds by part (client training, the
+   sketch, aggregation, the eval, the rest), training tokens/s, launches,
+   held-out loss and token accuracy and peak memory; ``fedavg_agg``,
+   ``sketch_similarity`` and ``count_sketch`` must launch once a round and
+   ``flash_attention`` 22 times (the eval's forward); rounds 2-4 are each
+   held against a plain-route round (``agg_impl = defense_impl =
+   "einsum"``) from the same state.  One more round runs under
+   ``torch.profiler`` for the device's idle share.  Then the count sketch
+   at the path's (4, D) (bit-equal over ten runs), ``fedavg_agg`` at (4, D)
+   (N x D past 2^31) and ``sketch_similarity`` at 4 x 256; then the
+   example's reduced fleet (2 layers, d_model 128, 8 clients, 8 rounds),
+   async + foolsgold_sketch and fedavg + none, with the same route check.
 
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
@@ -101,7 +120,10 @@ plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
 (N, n_max) rectangle; and ``flash_attention`` and ``ssm_scan`` against
 their plain versions at phase 9's shapes, in bf16 and fp32 (the 1 x 8,192
 prompt in bf16; the fp32 scan row by row against the float64 recurrence),
-with each bf16 instance's registers and shared bytes.
+with each bf16 instance's registers and shared bytes; and the defense's
+count sketch (``count_sketch``, a CUDA kernel that sums in a fixed order;
+no TPU kernel) against the reference's scatter-add, run ten times on the
+same rows, where it must give one result.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -411,40 +433,101 @@ def kernel_phase(ref, kernels, fleet):
                 replaces="src/repro/kernels/defense_sim.py:68",
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms)
-    count_sketch(gen, D)
+    entries["count_sketch"] = count_sketch_phase(gen, D)
     return entries
 
 
-def count_sketch(gen, D: int) -> None:
-    """Phase 2, the defense's count sketch D -> 256 (not a kernel port): the
-    product with the (D, r) sign matrix that the round runs against a
-    scatter-add (``index_add_``), timed, and each run ten times on the same
-    rows to count the distinct results: the product must give one (a
-    scatter-add's order varies on the card)."""
+def sketch_bound(n: int, D: int, r: int, ent, start) -> tuple:
+    """The count sketch's bound: the rows read once, the tables once, the
+    (n, r) output written once; one add a coordinate of each row."""
+    nbytes = 4 * n * D + ent.numel() * ent.element_size() \
+        + start.numel() * start.element_size() + 4 * n * r
+    return bound_ms(nbytes, n * D)
+
+
+def sketch_f64(rows, bucket, sign, r: int, step: int = 1 << 27):
+    """The count sketch summed in float64 (a slice of D at a time), the
+    yardstick both fp32 versions are held to."""
+    out = torch.zeros((rows.shape[0], r), dtype=torch.float64, device=rows.device)
+    for d0 in range(0, rows.shape[1], step):
+        sl = slice(d0, d0 + step)
+        out.index_add_(1, bucket[sl], rows[:, sl].double() * sign[sl].double())
+    return out
+
+
+def count_sketch_check(sk, rows, label: str, reps: int = 20) -> dict:
+    """The count sketch kernel on ``rows`` against its plain version (the
+    reference's scatter-add, ``index_add_``, from the decoded tables),
+    timed against it, and run ten times on the same rows to count the
+    distinct results: the kernel must give one (a scatter-add's order
+    varies on the card).  Both fp32 versions are held to the float64 sums:
+    the kernel within 1e-6 + 1e-5 of their largest value, or, where
+    ~4e6 terms a bucket round further than that (D = 1.1e9), within the
+    plain version's own distance from them.  Returns the kernel's JSON
+    fields at this shape."""
+    from repro_torch.kernels.count_sketch import count_sketch, count_sketch_ref
+
+    n, D = rows.shape
+    bucket, sign = sk.bucket, sk.sign
+    got = sk.sketch(rows)
+    want = count_sketch_ref(rows, bucket, sign, sk.r)
+    exact = sketch_f64(rows, bucket, sign, sk.r)
+    err = (got - want).abs().max().item()
+    k64 = (got.double() - exact).abs().max().item()
+    p64 = (want.double() - exact).abs().max().item()
+    limit = max(p64, 1e-6 + 1e-5 * exact.abs().max().item())
+    ok = k64 <= limit
+    print(f"  {label}: kernel vs index_add_ max_abs_err={err:.3e}; against the float64 "
+          f"sums kernel {k64:.3e}, index_add_ {p64:.3e} (tolerance {limit:.3e}: the "
+          f"larger of 1e-6 + 1e-5 * max|float64| and index_add_'s own) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the count sketch is farther from the float64 "
+                             "sums than its tolerance")
+    del exact
+
+    def distinct(fn) -> int:
+        return len({fn().cpu().numpy().tobytes() for _ in range(10)})
+
+    ours = distinct(lambda: sk.sketch(rows))
+    theirs = distinct(lambda: count_sketch_ref(rows, bucket, sign, sk.r))
+    k_ms = time_ms(lambda: count_sketch(rows, *sk.tables), reps=reps)
+    p_ms = time_ms(lambda: count_sketch_ref(rows, bucket, sign, sk.r), reps=reps)
+    signed = rows * sign
+    lib_ms = time_ms(lambda: torch.zeros(n, sk.r, device=DEV).index_add_(1, bucket, signed),
+                     reps=reps)
+    del signed
+    b_ms, b_by = sketch_bound(n, D, sk.r, *sk.tables)
+    print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, index_add_ alone {lib_ms:.4f} ms, "
+          f"bound {b_ms:.4g} ms ({b_by}); distinct results in 10 runs: {ours} and {theirs}")
+    if ours != 1:
+        raise AssertionError("the count sketch differs between runs on the same rows")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
+
+
+def count_sketch_phase(gen, D: int) -> dict:
+    """Phase 2, the defense's count sketch D -> 256 (no TPU kernel: the
+    reference scatters) at the round's shapes.  Returns its JSON entry
+    (N = 12)."""
     from repro_torch.common.config import FedConfig
     from repro_torch.core.defense import SketchedFoolsGold
+    from repro_torch.kernels.count_sketch import sketch_plan
 
     sk = SketchedFoolsGold(FedConfig(defense="foolsgold_sketch"), D, DEV)
-    print("count sketch D -> 256 (tolerance: fp32 sums in another order)")
+    kept = sum(t.numel() * t.element_size() for t in sk.tables)
+    print(f"count_sketch D -> 256 (tolerance: fp32 sums in another order); tables "
+          f"{kept / D:.3f} bytes a coordinate, {sketch_plan(D)[0]} segments")
+    entry = None
     for n in (12, 256, 512):
         rows = (torch.randn(n, D, generator=gen) * 0.01).to(DEV)
-
-        def scatter():
-            out = torch.zeros(n, sk.r, device=DEV)
-            return out.index_add_(1, sk.bucket, rows * sk.sign[None, :])
-
-        compare(f"N={n}, product vs index_add_", sk.sketch(rows), scatter(),
-                atol=1e-6, rtol=1e-5)
-
-        def distinct(fn) -> int:
-            return len({fn().cpu().numpy().tobytes() for _ in range(10)})
-
-        ours = distinct(lambda: sk.sketch(rows))
-        print(f"    product {time_ms(lambda: sk.sketch(rows), reps=20):.4f} ms, "
-              f"index_add_ {time_ms(scatter, reps=20):.4f} ms; distinct results in 10 "
-              f"runs: {ours} and {distinct(scatter)}")
-        if ours != 1:
-            raise AssertionError("the count sketch differs between runs on the same rows")
+        fields = count_sketch_check(sk, rows, f"N={n}")
+        if n == 12:
+            entry = dict(name="count_sketch", route="cuda",
+                         source="src/repro_torch/csrc/count_sketch.cu",
+                         replaces="src/repro/core/defense.py:135 (an XLA scatter, "
+                                  "no Pallas kernel)", **fields)
+    return entry
 
 
 def ragged_phase(ref, local_sgd_ragged, local_sgd, packed, dense):
@@ -638,28 +721,35 @@ def check_routes(server, plain, steps: int) -> None:
             plain.state.fg_history, atol=2e-4, rtol=2e-4)
 
 
-def check_each_round(server, plain_engine, data, starts) -> None:
-    """Each round of the kernel route against one plain-route round from
-    the same starting state: trust and the selected / on-time masks
-    identical, params within the goldens' band, the defense history's rows
-    within it up to kinked clients (``compare_rows``).
-    Starting every round from the kernel route's state keeps fp32 rounding
-    from compounding over rounds, so a kernel's error shows in the round
-    that makes it."""
-    ends = starts[1:] + [server.state]
-    for r, (start, end) in enumerate(zip(starts, ends)):
-        got, out = plain_engine.step(start, data)
-        for key, want in (("selected", out.selected), ("on_time", out.on_time)):
-            if not np.array_equal(server.history[key][r], want.cpu().numpy()):
-                raise AssertionError(f"round {r}: {key} differs from the plain route")
-        if not torch.equal(end.trust.score, got.trust.score):
-            raise AssertionError(f"round {r}: trust differs from the plain route")
-        compare(f"round {r} params vs plain route", end.params, got.params,
-                atol=2e-4, rtol=2e-4)
-        # a row of the sketched history sums ~400 coordinates of one
-        # client's delta, so a kinked client's row moves up to ~20x more
+def check_round(r, server, plain_engine, data, start, end) -> None:
+    """Round ``r`` of the kernel route (``start`` -> ``end``) against one
+    plain-route round from the same starting state: trust and the selected
+    / on-time masks identical, params within the goldens' band, the
+    defense history's rows within it up to kinked clients
+    (``compare_rows``)."""
+    got, out = plain_engine.step(start, data)
+    for key, want in (("selected", out.selected), ("on_time", out.on_time)):
+        if not np.array_equal(server.history[key][r], want.cpu().numpy()):
+            raise AssertionError(f"round {r}: {key} differs from the plain route")
+    if not torch.equal(end.trust.score, got.trust.score):
+        raise AssertionError(f"round {r}: trust differs from the plain route")
+    compare(f"round {r} params vs plain route", end.params, got.params,
+            atol=2e-4, rtol=2e-4)
+    # a row of the sketched history sums ~400 coordinates of one
+    # client's delta, so a kinked client's row moves up to ~20x more
+    if end.fg_history.numel():  # (N, 0) without a defense
         compare_rows(f"round {r} fg_history vs plain route", end.fg_history,
                      got.fg_history, atol=2e-4, rtol=2e-4, kink_atol=2e-2)
+
+
+def check_each_round(server, plain_engine, data, starts) -> None:
+    """Each round of the kernel route against one plain-route round from
+    the same starting state (``check_round``).  Starting every round from
+    the kernel route's state keeps fp32 rounding from compounding over
+    rounds, so a kernel's error shows in the round that makes it."""
+    ends = starts[1:] + [server.state]
+    for r, (start, end) in enumerate(zip(starts, ends)):
+        check_round(r, server, plain_engine, data, start, end)
     print(f"  rounds 0-{len(starts) - 1}: trust, selected and on-time masks "
           f"identical to the plain route from the same state")
 
@@ -1697,6 +1787,306 @@ def cohort_phase(req, eval_set, kernels, codecs, every, ref, local_sgd, entries)
     entries["local_sgd"].setdefault("phase10", {}).update(sgd)
 
 
+# ---------------------------------------------------------------- phase 11
+class PartTimer:
+    """Wall seconds of named parts of a round: ``wrap`` brackets each call
+    of a callable with device syncs and adds its time to its part."""
+
+    def __init__(self):
+        self.parts = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.parts[name] = self.parts.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+
+
+def lm_timeout(fed, model, data, dim: int, rounds: int) -> float:
+    """A timeout from the fleet's own latencies (the engine's latency model
+    and draws, before round 1): the largest, over the run's rounds, of the
+    honest clients' median latency, plus 1%, so that at least two of the
+    three honest robots arrive in time every round.  The example's 10
+    virtual seconds would make every robot late at this width."""
+    from repro_torch.convert import GeneratorDraws
+    from repro_torch.core.resources import make_fleet, round_latency
+
+    N = fed.num_clients
+    res, poison = make_fleet(N, num_starved=fed.num_starved,
+                             num_poisoners=fed.num_poisoners, seed=fed.seed, device=DEV)
+    flops = model.train_flops(tuple(data["tokens"].shape[1:]), epochs=fed.local_epochs)
+    draws = GeneratorDraws(fed.seed, DEV)
+    lat = torch.stack([round_latency(res, train_flops=flops, model_bytes=dim * 4.0,
+                                     factor=draws.latency_factor(r, N))
+                       for r in range(rounds)]).cpu()
+    honest = torch.as_tensor(~poison)
+    timeout = 1.01 * float(lat[:, honest].median(dim=1).values.max())
+    print(f"  virtual latencies (s), rounds x clients: {lat.numpy().round(1).tolist()}; "
+          f"poisoners {np.where(poison)[0].tolist()}; timeout {timeout:.1f} s")
+    return timeout
+
+
+def lm_fleet(cfg, N: int, samples: int, *, attn_impl="auto", **fed_kw):
+    """The LM fleet of ``examples/federated_lm.py``: an ``LMClientModel``, a
+    ``fleet_fed(N)`` and the corpus_skew corpus (24 sequences of 64 a
+    client, 4 topics, the fleet's poisoners' labels scrambled).  Returns
+    (model, fed, data, eval set)."""
+    from repro_torch.configs.fedar_mnist import fleet_fed
+    from repro_torch.core.resources import make_fleet
+    from repro_torch.data.pipeline import federated_lm_corpus
+    from repro_torch.models.model import LMClientModel
+
+    model = LMClientModel(cfg, device=DEV, attn_impl=attn_impl)
+    fed = fleet_fed(N, local_epochs=2, local_batch_size=8, **fed_kw)
+    _, poison = make_fleet(N, num_starved=fed.num_starved,
+                           num_poisoners=fed.num_poisoners, seed=fed.seed)
+    data, meta = federated_lm_corpus(N, vocab=cfg.vocab_size, seq=64,
+                                     samples_per_client=samples, topics=4,
+                                     poisoners=tuple(np.where(poison)[0].tolist()))
+    return model, fed, data, meta["eval"]
+
+
+def lm_train_phase(req, every, entries, smi: str, profile_dir=None) -> None:
+    """Phase 11: federated LM training at full width: tinyllama-1.1b
+    clients through ``FedARServer`` (fedar + foolsgold_sketch, 4 clients,
+    4 rounds), each round held against a plain-route round from the same
+    state; the count sketch and ``fedavg_agg`` at its (4, D); then the
+    example's reduced fleet (async + foolsgold_sketch and fedavg + none, 8
+    clients, 8 rounds) with the same route check."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import aggregation as agg
+    from repro_torch.core.engine import ordered_leaves
+    from repro_torch.core.fedar import FedARServer
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.count_sketch import count_sketch
+    from repro_torch.kernels.defense_sim import sketch_similarity
+    from repro_torch.kernels.fedavg_agg import fedavg_agg
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    t_phase = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    N, rounds, lr = 4, 4, 0.05
+    t0 = time.perf_counter()
+    model, fed, data, eval_set = lm_fleet(cfg, N, 24, aggregation="fedar",
+                                          defense="foolsgold_sketch")
+    params = model.init(torch.Generator(device=DEV).manual_seed(11), DEV)
+    dim = sum(t.numel() for _, t in ordered_leaves(params))
+    print(f"\n[LM training] tinyllama-1.1b at full width: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype} weights and fp32 norms, D = {dim:,}; "
+          f"{N} clients x {data['tokens'].shape[1]} x 64 tokens, fedar + foolsgold_sketch, "
+          f"E = {fed.local_epochs}, B = {fed.local_batch_size}, lr {lr}; {smi}")
+    fed = dc.replace(fed, timeout=lm_timeout(fed, model, data, dim, rounds))
+    server = FedARServer(model, fed, req, lr=lr, device=DEV, init_params=params)
+    data_dev = server.engine.device_data(data)
+    plain_model = type(model)(cfg, device=DEV, attn_impl="einsum")
+    plain = FedARServer(plain_model, dc.replace(fed, agg_impl="einsum",
+                                                defense_impl="einsum"),
+                        req, lr=lr, device=DEV, init_params=params)
+    plain.state = None  # only its engine's step is used, from the kernel route's states
+    torch.cuda.synchronize()
+    print(f"  set-up (params, corpus, two engines with their sketch tables) "
+          f"{time.perf_counter() - t0:.2f} s; card memory in use "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+    marks = {"set-up": time.perf_counter()}
+    timer = PartTimer()
+    bad_rows = []
+
+    def training(*args, **kw):
+        out = model_update(*args, **kw)
+        bad_rows.append((~torch.isfinite(out).all(dim=1)).nonzero().flatten().tolist())
+        return out
+
+    model_update = model.client_update
+    model.client_update = timer.wrap("training", training)
+    model.metrics = timer.wrap("eval", model.metrics)
+    sk = server.engine.defense
+    sk.sketch = timer.wrap("sketch", sk.sketch)
+    agg_fn = agg.fedavg_aggregate
+    agg.fedavg_aggregate = timer.wrap("aggregation", agg_fn)
+    nb = -(-data["tokens"].shape[1] // fed.local_batch_size)
+    tokens = N * fed.local_epochs * nb * fed.local_batch_size * 64
+    real = fed.local_epochs * 64 * int(data["sizes"].sum())
+    poison = server.poison_mask
+    path = (fedavg_agg, sketch_similarity, count_sketch, flash_attention)
+    launches = {k.__name__: 0 for k in path}
+    for k in every:
+        k.launches = 0
+    walls, train_s = [], []
+    try:
+        for r in range(rounds):
+            start = server.state
+            timer.parts = {}
+            before = {k.__name__: k.launches for k in path}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            server.run_round(data_dev, eval_set=eval_set)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            walls.append(wall)
+            peak = torch.cuda.max_memory_allocated()
+            got = {k.__name__: k.launches - before[k.__name__] for k in path}
+            for name, c in got.items():
+                launches[name] += c
+            parts = dict(timer.parts)
+            parts["rest"] = wall - sum(parts.values())
+            train_s.append(parts["training"])
+            sel = server.history["selected"][r]
+            ontime = server.history["on_time"][r] & sel
+            split = ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+            print(f"  round {r}: {wall:.3f} s ({split}); training "
+                  f"{tokens / parts['training']:,.0f} tokens/s ({real} real of {tokens} "
+                  f"a round); selected {np.where(sel)[0].tolist()}, on time "
+                  f"{np.where(ontime)[0].tolist()}; held-out loss "
+                  f"{server.history['loss'][r]:.4f}, token accuracy "
+                  f"{server.history['acc'][r]:.4f}; launches {got}; peak "
+                  f"{peak / 2**30:.3f} GiB; non-finite local rows {bad_rows[-1]}")
+            for name in ("fedavg_agg", "sketch_similarity", "count_sketch"):
+                if got[name] != 1:
+                    raise AssertionError(f"round {r}: {name} launched {got[name]} times")
+            if got["flash_attention"] != cfg.num_layers:
+                raise AssertionError(f"round {r}: the eval launched flash_attention "
+                                     f"{got['flash_attention']} times")
+            if not (ontime & ~poison).any():
+                raise AssertionError(f"round {r}: no honest client arrived in time")
+            if bad_rows[-1]:
+                raise AssertionError(f"round {r}: the quarantine fired on clients "
+                                     f"{bad_rows[-1]} at lr {lr}")
+            if not (torch.isfinite(server.state.params).all()
+                    and np.isfinite(server.history["loss"][r])):
+                raise AssertionError(f"round {r}: the state or the held-out loss is "
+                                     "not finite")
+            if r > 0:  # round 1 is warm-up; rounds 2-4 against the plain route
+                check_round(r, server, plain.engine, data_dev, start, server.state)
+            del start
+    finally:
+        model.client_update = model_update
+        agg.fedavg_aggregate = agg_fn
+        del model.metrics, sk.sketch
+    print(f"  rounds 1-{rounds - 1}: trust, selected and on-time masks identical to the "
+          f"plain route (agg_impl = defense_impl = 'einsum') from the same state")
+    steady = (rounds - 1) / sum(walls[1:])
+    print(f"  steady (rounds 2-{rounds}): {steady:.4f} rounds/s, "
+          f"{tokens * (rounds - 1) / sum(train_s[1:]):,.0f} training tokens/s; "
+          f"launches in phase 11's {rounds} rounds: {launches}; {smi}")
+    if not server.history["loss"][-1] < server.history["loss"][0]:
+        print("  (the held-out loss did not fall over these rounds)")
+
+    def one_round():
+        server.run_round(data_dev, eval_set=eval_set)
+        torch.cuda.synchronize()
+
+    # one more round under torch.profiler: the device's busy and idle share
+    # (the profiler slows the host, so the share is also taken against the
+    # unprofiled steady round)
+    _, busy_ms, _ = profile_device(one_round, ("flash_attention",), profile_dir,
+                                   "lm_train_round", unit="round")
+    print(f"  device busy {busy_ms:.3f} ms of the steady round's "
+          f"{1e3 / steady:.3f} ms: idle share {1 - busy_ms * steady / 1e3:.3f}")
+
+    marks["rounds, route checks and the profiled round"] = time.perf_counter()
+    # the path's kernels at its own shapes: the count sketch at D = 1.1e9
+    # (bit-equal over ten runs), fedavg_agg at (4, D), sketch_similarity
+    # at 4 x 256
+    hist = server.state.fg_history
+    del server, plain, data_dev, params, model, plain_model
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    rows = torch.randn(N, dim, device=DEV, generator=gen).mul_(0.01)
+    print(f"  count_sketch at the path's (4, {dim:,}) deltas:")
+    fields = count_sketch_check(sk, rows, f"N={N}, D={dim:,}", reps=5)
+    entries["count_sketch"]["phase11"] = dict(launches=launches["count_sketch"], **fields)
+    del sk
+    w = torch.rand(N, device=DEV, generator=gen)
+    got = fedavg_agg(rows, w)
+    err = compare(f"fedavg_agg at ({N}, {dim:,}), N x D = {N * dim:,} "
+                  f"({'past' if N * dim > 2**31 else 'within'} 2^31)", got,
+                  ref.fedavg_agg_ref(rows, w), atol=1e-6, rtol=1e-5)
+    k_ms = time_ms(lambda: fedavg_agg(rows, w), reps=5)
+    p_ms = time_ms(lambda: ref.fedavg_agg_ref(rows, w), reps=5)
+    lib_ms = time_ms(lambda: torch.matmul(w, rows), reps=5)
+    b_ms, b_by = bound_ms(4 * (N * dim + N + dim), 2 * N * dim)
+    print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, matmul {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4g} ms ({b_by})")
+    entries["fedavg_agg"]["phase11"] = dict(
+        launches=launches["fedavg_agg"], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del rows, got
+    unit = hist / torch.clamp(torch.linalg.vector_norm(hist, dim=1, keepdim=True), min=1e-9)
+    err = compare("sketch_similarity at the phase's 4 x 256 history",
+                  sketch_similarity(unit, unit), ref.sketch_similarity_ref(unit, unit),
+                  atol=1e-5, rtol=0.0)
+    k_ms = time_ms(lambda: sketch_similarity(unit, unit), reps=20)
+    p_ms = time_ms(lambda: ref.sketch_similarity_ref(unit, unit), reps=20)
+    lib_ms = time_ms(lambda: torch.matmul(unit, unit.T), reps=20)
+    b_ms, b_by = bound_ms(4 * (unit.numel() + N * N), 2 * N * N * unit.shape[1])
+    print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, matmul {lib_ms:.4f} ms, bound "
+          f"{b_ms:.3g} ms ({b_by})")
+    entries["sketch_similarity"]["phase11"] = dict(
+        launches=launches["sketch_similarity"], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    # flash_attention at the eval's shape: 64 sequences of 64 tokens, 32
+    # heads of 64 over 4 kv heads, bf16
+    B, S, H, K, hd = 64, 64, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = torch.randn(B, S, H, hd, device=DEV, generator=gen, dtype=torch.bfloat16)
+    k, v = (torch.randn(B, S, K, hd, device=DEV, generator=gen, dtype=torch.bfloat16)
+            for _ in range(2))
+    err = compare_by_row(f"flash_attention at the eval's (B, S, H, K, hd) = "
+                         f"{(B, S, H, K, hd)}, bf16", flash_attention(q, k, v),
+                         ref.flash_attention_ref(q, k, v), rtol=BF16_RTOL)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    k_ms = time_ms(lambda: flash_attention(q, k, v), reps=20)
+    p_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), reps=20)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+    b_ms, b_by = attn_bound(B, S, H, K, hd, 0, torch.bfloat16)
+    print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms "
+          f"(scaled_dot_product_attention), bound {b_ms:.4f} ms ({b_by})")
+    entries["flash_attention"]["phase11"] = dict(
+        launches=launches["flash_attention"], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    del hist, unit, q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    marks["the kernels at the path's shapes"] = time.perf_counter()
+    # examples/federated_lm.py's reduced model and fleet, both of its runs
+    small = cfg.reduced(num_layers=2, d_model=128, d_ff=256, vocab_size=512)
+    for aggregation, defense, kernels in (
+            ("async", "foolsgold_sketch", path),
+            ("fedavg", "none", (fedavg_agg, flash_attention))):
+        model, fed_s, data, eval_set = lm_fleet(small, 8, 24, timeout=10.0,
+                                                aggregation=aggregation, defense=defense)
+        server = FedARServer(model, fed_s, req, lr=lr, device=DEV)
+        plain = FedARServer(type(model)(small, device=DEV, attn_impl="einsum"),
+                            dc.replace(fed_s, agg_impl="einsum", defense_impl="einsum"),
+                            req, lr=lr, device=DEV, init_params=server.template)
+        data_dev = server.engine.device_data(data)
+        print(f"\n[LM example] examples/federated_lm.py's fleet: 8 clients, 2 layers, "
+              f"d_model 128, vocab 512, {aggregation} + {defense}, 8 rounds")
+        _, _, starts = timed_rounds(server, data_dev, eval_set, 8, kernels, every)
+        h = server.history
+        print(f"  held-out loss {[round(x, 4) for x in h['loss']]}; stragglers a round "
+              f"{[int((~o & s).sum()) for o, s in zip(h['on_time'], h['selected'])]}")
+        check_each_round(server, plain.engine, data_dev, starts)
+        if not (np.isfinite(h["loss"]).all() and torch.isfinite(server.state.params).all()):
+            raise AssertionError(f"the example's {aggregation} run is not finite")
+        del server, plain, starts, data_dev
+    marks["the example's two fleets"] = time.perf_counter()
+    t, parts = t_phase, []
+    for name, at in marks.items():
+        parts.append(f"{name} {at - t:.1f}")
+        t = at
+    print(f"[phase 11] {time.perf_counter() - t_phase:.1f} s ({', '.join(parts)})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -1717,6 +2107,7 @@ def main() -> int:
     from repro_torch.data.synthetic import make_digits
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
+    from repro_torch.kernels.count_sketch import count_sketch
     from repro_torch.kernels.defense_sim import sketch_similarity
     from repro_torch.kernels.fedavg_agg import fedavg_agg
     from repro_torch.kernels.flash_attention import flash_attention, tensor_core_attrs
@@ -1730,10 +2121,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = (local_sgd, fedavg_agg, sketch_similarity)
+    # the round's kernels with the defense's count sketch (every fleet here
+    # runs foolsgold_sketch)
+    sketched = kernels + (count_sketch,)
     codecs = (pack_codes, unpack_codes, topk_decode)
-    packed_kernels = (local_sgd_ragged, fedavg_agg, sketch_similarity)
+    packed_kernels = (local_sgd_ragged, fedavg_agg, sketch_similarity, count_sketch)
     lm_kernels = (flash_attention, ssm_scan)
-    every = kernels + codecs + (local_sgd_ragged,) + lm_kernels
+    every = sketched + codecs + (local_sgd_ragged,) + lm_kernels
 
     # --- phase 1: environment and build
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
@@ -1808,7 +2202,7 @@ def main() -> int:
     server = FedARServer(MnistConfig(), fed, req, device=DEV)
     data = server.engine.device_data(fleet)
     print("\n[main path] 12 robots, 784 -> 128 -> 10, fedar + foolsgold_sketch")
-    _, launches, _ = timed_rounds(server, data, eval_set, rounds, kernels, every)
+    _, launches, _ = timed_rounds(server, data, eval_set, rounds, sketched, every)
     hist = server.history
     print("round  acc     loss    selected  trust")
     for r in range(rounds):
@@ -1846,7 +2240,7 @@ def main() -> int:
     big_dev = server.engine.device_data(big)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _, _, starts = timed_rounds(server, big_dev, eval_set, rounds512, kernels, every)
+    _, _, starts = timed_rounds(server, big_dev, eval_set, rounds512, sketched, every)
     print(f"acc {[round(a, 4) for a in server.history['acc']]}")
     print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     if not torch.isfinite(server.state.params).all():
@@ -1903,7 +2297,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _, launches5, starts = timed_rounds(
-        server, big_dev, eval_set, rounds512, kernels + codecs[:2], every, force)
+        server, big_dev, eval_set, rounds512, sketched + codecs[:2], every, force)
     st = server.state
     print(f"acc {[round(a, 4) for a in server.history['acc']]}")
     print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -1939,7 +2333,7 @@ def main() -> int:
     server = FedARServer(MnistConfig(), fed_topk, req, device=DEV)
     print(f"k = {server.engine.compression.k}")
     _, launches6, starts = timed_rounds(
-        server, data, eval_set, rounds, kernels + codecs[2:], every)
+        server, data, eval_set, rounds, sketched + codecs[2:], every)
     print(f"acc {[round(a, 4) for a in server.history['acc']]}")
     if not torch.isfinite(server.state.params).all():
         raise AssertionError("topk run produced non-finite params")
@@ -1959,7 +2353,7 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _, launches6, starts = timed_rounds(
-        server, big_dev, eval_set, rounds512, kernels + codecs[2:], every)
+        server, big_dev, eval_set, rounds512, sketched + codecs[2:], every)
     if launches6["topk_decode"] != 2 * rounds512:
         raise AssertionError(f"topk_decode launched {launches6['topk_decode']} times in "
                              f"{rounds512} rounds, not 2 a round")
@@ -2030,7 +2424,7 @@ def main() -> int:
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    times7d, _, _ = timed_rounds(dense, skew_dense, eval_set, rounds512, kernels, every)
+    times7d, _, _ = timed_rounds(dense, skew_dense, eval_set, rounds512, sketched, every)
     peak7d = torch.cuda.max_memory_allocated()
     print(f"max_memory_allocated: {peak7d / 2**30:.3f} GiB (resident before the "
           f"run: {resident / 2**30:.3f} GiB)")
@@ -2101,10 +2495,14 @@ def main() -> int:
     print(f"[phase 9b] {t9b:.1f} s (decode runs and checks, set-up included)")
 
     # --- phase 10: the host-store cohort engine, chaos faults, checkpoints
-    cohort_phase(req, eval_set, kernels, codecs, every, ref, local_sgd, entries)
+    cohort_phase(req, eval_set, sketched, codecs, every, ref, local_sgd, entries)
+
+    # --- phase 11: federated LM training, tinyllama-1.1b at full width
+    lm_train_phase(req, every, entries, smi, profile_dir)
 
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",
-             "pack_codes", "unpack_codes", "topk_decode", "flash_attention", "ssm_scan")
+             "pack_codes", "unpack_codes", "topk_decode", "flash_attention", "ssm_scan",
+             "count_sketch")
     print(smi)
     print(json.dumps({"kernels": [entries[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,12 +12,14 @@ per-round update, decay included) and a per-round ``weights`` statistic:
 from __future__ import annotations
 
 import warnings
+import weakref
 
 import numpy as np
 import torch
 
 from repro_torch.common.config import FedConfig
 from repro_torch.core import foolsgold as fg
+from repro_torch.kernels.count_sketch import count_sketch, decode_tables, sketch_tables
 
 
 class DefenseStrategy:
@@ -69,18 +71,31 @@ class FoolsGoldDefense(DefenseStrategy):
         return fg.foolsgold_weights(history, active, impl=self.impl)
 
 
+class _Tables:
+    """A holder a weak reference can point at."""
+
+    def __init__(self, tables):
+        self.tables = tables
+
+
+_SHARED = weakref.WeakValueDictionary()
+
+
 class SketchedFoolsGold(DefenseStrategy):
     """Cluster-aware FoolsGold over a count-sketched (N, r) history.
 
     Coordinate d adds ``sign[d] * x[d]`` into bucket ``bucket[d]``.  The
-    tables come from ``np.random.default_rng(seed + 0x5EED)`` exactly as in
-    the reference, so they are bit-identical to its tables.
+    bucket and sign draws come from ``np.random.default_rng(seed +
+    0x5EED)`` exactly as in the reference, so they are bit-identical to its
+    tables; they are kept on the device as bucket-sorted chunk tables of
+    2.25 bytes a coordinate (``kernels/count_sketch.py``, decoded again by
+    the ``bucket`` and ``sign`` properties) and the host draws are freed.
 
-    The sketch is one fp32 product with the (D, r) matrix ``proj`` that
-    holds ``sign[d]`` at (d, ``bucket[d]``) and zeros elsewhere, so each
-    output sums in the same order on every run.  A scatter-add
-    (``index_add_``) adds in a varying order on the card, which would make
-    a resumed run differ from an uninterrupted one."""
+    On the card the sketch is the ``count_sketch`` kernel, which sums each
+    output in the tables' order, so two runs on the same rows are
+    bit-equal (a scatter-add, ``index_add_``, adds in a varying order
+    there, and a resumed run would then differ from an uninterrupted one);
+    on the CPU it is the reference's scatter-add."""
 
     name = "foolsgold_sketch"
 
@@ -91,20 +106,34 @@ class SketchedFoolsGold(DefenseStrategy):
         self.power = fed.defense_cluster_power
         self.slack = fed.defense_cluster_slack
         self.sharpness = fed.defense_cluster_sharpness
-        rng = np.random.default_rng(fed.seed + 0x5EED)
-        self.bucket = torch.as_tensor(rng.integers(0, self.r, model_dim),
-                                      dtype=torch.int64, device=device)
-        self.sign = torch.as_tensor(rng.choice(np.float32([-1.0, 1.0]), model_dim),
-                                    device=device)
-        self.proj = torch.zeros((model_dim, self.r), device=device)
-        self.proj[torch.arange(model_dim, device=device), self.bucket] = self.sign
+        # the tables depend on (seed, D, r) alone: engines of one model
+        # (a route check's second engine, say) share them while one lives
+        key = (fed.seed, model_dim, self.r, str(torch.device(device)))
+        self._shared = _SHARED.get(key)
+        if self._shared is None:
+            rng = np.random.default_rng(fed.seed + 0x5EED)
+            bucket = rng.integers(0, self.r, model_dim)
+            sign = rng.choice(np.float32([-1.0, 1.0]), model_dim)
+            self._shared = _Tables(sketch_tables(bucket, sign, self.r, device))
+            _SHARED[key] = self._shared
+        self.tables = self._shared.tables
+
+    @property
+    def bucket(self) -> torch.Tensor:
+        """(D,) int64 bucket of each coordinate, decoded from the tables."""
+        return decode_tables(*self.tables)[0]
+
+    @property
+    def sign(self) -> torch.Tensor:
+        """(D,) float32 +-1 sign of each coordinate."""
+        return decode_tables(*self.tables)[1]
 
     def history_dim(self, model_dim: int) -> int:
         return self.r
 
     def sketch(self, rows):
         """(n, D) -> (n, r) signed-bucket count sketch."""
-        return rows @ self.proj
+        return count_sketch(rows, *self.tables)
 
     def update_history(self, history, deltas, active):
         return fg.update_history(history, self.sketch(deltas), active,

@@ -12,7 +12,10 @@ Python loop over ``step``.
 
 Carried state (``EngineState``) -> Algorithm 2 of the paper:
 
-  ``params``      global model w_i, one flat (D,) float32 vector
+  ``params``      global model w_i, one flat (D,) float32 vector (a
+                  nested param tree crosses through ``flatten`` /
+                  ``unflatten`` in the reference's stacked-tree order;
+                  each leaf keeps its dtype in the tree)
   ``trust``       trust scores C_m + the participation / failure counters
   ``resources``   per-robot (M, B, E, F); battery drains with participation
   ``fg_history``  defense history block (N, d): d = D for dense FoolsGold,
@@ -55,6 +58,7 @@ raises when there is no CUDA device: it never falls back to the CPU.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import NamedTuple, Optional, Union
 
@@ -102,25 +106,65 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def ordered_leaves(tree, path=()) -> list:
+    """The leaves of a param tree as (path, tensor) pairs in the flat
+    order: dict keys sorted at every level (``jax.tree.leaves``' order),
+    and a list of per-layer dicts (the LM's ``layers``) leaf by leaf, each
+    leaf over every layer in turn, as the reference's tree stacks it on a
+    leading layer axis."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree)
+                for pair in ordered_leaves(tree[k], path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        per = [ordered_leaves(t, path + (i,)) for i, t in enumerate(tree)]
+        if len({len(p) for p in per}) > 1:
+            raise ValueError(f"the entries of the list at {path} differ in structure")
+        return [p[j] for j in range(len(per[0]) if per else 0) for p in per]
+    return [(path, tree)]
+
+
 def flatten(params, rows: bool = False) -> torch.Tensor:
-    """Param dict -> flat (D,) aggregation-boundary vector, leaves in sorted
-    key order (``b1, b2, w1, w2`` for the MLP).  ``rows=True`` flattens a
-    dict of stacked (R, ...) leaves to (R, D)."""
-    keys = sorted(params)
+    """Param tree -> flat (D,) aggregation-boundary vector in
+    ``ordered_leaves`` order (``b1, b2, w1, w2`` for the MLP); mixed leaf dtypes promote to
+    the widest float (fp32 for the LM's bf16 weights and fp32 norms).
+    ``rows=True`` flattens a tree of stacked (R, ...) leaves to (R, D)."""
+    leaves = [leaf for _, leaf in ordered_leaves(params)]
+    dtype = functools.reduce(torch.promote_types, (t.dtype for t in leaves))
     if rows:
-        return torch.cat([params[k].reshape(params[k].shape[0], -1) for k in keys], 1)
-    return torch.cat([params[k].reshape(-1) for k in keys])
+        return torch.cat([t.reshape(t.shape[0], -1).to(dtype) for t in leaves], 1)
+    return torch.cat([t.reshape(-1).to(dtype) for t in leaves])
 
 
-def unflatten(flat, template) -> dict:
-    """Flat (D,) vector -> dict shaped (and typed) like ``template``."""
-    out, off = {}, 0
-    for k in sorted(template):
-        leaf = template[k]
-        n = leaf.numel()
-        out[k] = flat[off:off + n].reshape(leaf.shape).to(leaf.dtype)
-        off += n
+def _skeleton(tree):
+    if isinstance(tree, dict):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_skeleton(v) for v in tree]
+    return None
+
+
+def with_leaves(template, leaves):
+    """A tree shaped like ``template`` holding ``leaves``, given in the
+    flat order (``ordered_leaves``)."""
+    out = _skeleton(template)
+    for (path, _), leaf in zip(ordered_leaves(template), leaves, strict=True):
+        node = out
+        for key in path[:-1]:
+            node = node[key]
+        node[path[-1]] = leaf
     return out
+
+
+def unflatten(flat, template):
+    """Flat (D,) vector -> a tree shaped like ``template``, each leaf cast
+    to the template leaf's dtype (bf16 round-trips exactly through the
+    fp32 flat view)."""
+    leaves, off = [], 0
+    for _, leaf in ordered_leaves(template):
+        n = leaf.numel()
+        leaves.append(flat[off:off + n].reshape(leaf.shape).to(leaf.dtype))
+        off += n
+    return with_leaves(template, leaves)
 
 
 class EngineState(NamedTuple):
@@ -176,6 +220,16 @@ class PackedLayout(NamedTuple):
     n_max: int  # the dense rectangle width (latency model)
 
 
+def _to_device(tree, device):
+    """A param tree (dicts, lists, arrays or tensors) on ``device``, every
+    leaf in its own dtype."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_device(v, device) for v in tree]
+    return torch.as_tensor(tree, device=device)
+
+
 def _check_slice(fed: FedConfig) -> None:
     """Reject the features a later port slice brings, naming its item."""
     if fed.aggregation not in ("fedar", "fedavg", "async", "async_seq"):
@@ -216,13 +270,17 @@ class FedAREngine:
         self.device = resolve_device(device)
         self.model = model
         self.fed, self.req, self.lr = fed, req, lr
+        # a family without a fused kernel has one ClientUpdate, its plain
+        # client_update, which "auto" names; asking for the kernel raises
+        if fed.sgd_impl == "kernel" and not model.supports_fused:
+            raise ValueError(
+                f'sgd_impl="kernel" asks for the fused local-SGD kernel, but '
+                f"model family {model.family!r} has none"
+            )
         self.sgd_route = resolve_impl(fed.sgd_impl, "sgd", self.device)
-        if self.sgd_route == "kernel":
-            if not model.supports_fused:
-                raise ValueError(
-                    f"sgd_impl={fed.sgd_impl!r} resolves to the fused kernel, but "
-                    f"model family {model.family!r} has none"
-                )
+        if not model.supports_fused:
+            self.sgd_route = "einsum"
+        elif self.sgd_route == "kernel":
             model.check_fused(fed.local_batch_size)
         resolve_impl(fed.agg_impl, "agg", self.device)
         resolve_impl(fed.defense_impl, "defense", self.device)
@@ -231,10 +289,10 @@ class FedAREngine:
             gen = torch.Generator().manual_seed(fed.seed)
             self.template = model.init(gen, self.device)
         else:
-            self.template = {k: torch.as_tensor(v, dtype=torch.float32,
-                                                device=self.device)
-                             for k, v in init_params.items()}
-        self.dim = flatten(self.template).shape[0]
+            # each leaf keeps its dtype (the LM's bf16 weights, fp32 norms)
+            self.template = _to_device(init_params, self.device)
+            model.adopt_template(self.template)
+        self.dim = sum(leaf.numel() for _, leaf in ordered_leaves(self.template))
         self.defense = make_defense(fed, self.dim, self.device)
         self.compression = make_compression(fed, self.dim)
         self.faults = make_faults(fed, self.device)
@@ -296,7 +354,8 @@ class FedAREngine:
         dtypes = {"x": torch.float32, "y": torch.int32,
                   "activations": torch.int32, "sizes": torch.float32,
                   "mask": torch.bool, "round_mask": torch.bool,
-                  "cohort_valid": torch.bool}
+                  "cohort_valid": torch.bool, "tokens": torch.int64,
+                  "labels": torch.int64}
         out = {}
         for k, v in data.items():
             if k == "packed":
@@ -399,8 +458,13 @@ class FedAREngine:
             shards=1, quantum=self.fed.local_batch_size, layout=layout))
 
     def _eval_set(self, eval_set):
+        """An (x, y) pair for the MLP, or a dict of fields (the LM's
+        ``tokens`` / ``labels``), on the engine's device."""
         if eval_set is None:
             return None
+        if isinstance(eval_set, dict):
+            return {k: torch.as_tensor(v, device=self.device).long()
+                    for k, v in eval_set.items()}
         x, y = eval_set
         return (torch.as_tensor(x, dtype=torch.float32, device=self.device),
                 torch.as_tensor(y, dtype=torch.int64, device=self.device))
@@ -423,7 +487,8 @@ class FedAREngine:
             batch_size=fed.local_batch_size, epochs=fed.local_epochs,
             sample_mask=m,
         )
-        return flatten(new, rows=True)
+        # the LM writes its flat rows itself (no stacked copy beside them)
+        return new if isinstance(new, torch.Tensor) else flatten(new, rows=True)
 
     def _gated_block_locals(self, g_flat, fields, m, sel_rows):
         """Selection-gated ClientUpdate on the dense layout: local SGD over
@@ -627,7 +692,10 @@ class FedAREngine:
                 cohort = (idx, valid)
                 locals_flat = self._expand_cohort(locals_c, idx, valid, N,
                                                   g_flat)
-        deltas = locals_flat - g_flat[None, :]
+        if fed.aggregation == "async_seq":  # folds the local models below
+            deltas = locals_flat - g_flat[None, :]
+        else:  # nothing reads the local models again: (N, D) in place
+            deltas = locals_flat.sub_(g_flat[None, :])
         # deviation and the fedar / fedavg reduction only need the cohort
         # rows (the rest are exact zeros)
         delta_c = None if locals_c is None else locals_c - g_flat[None, :]
@@ -700,7 +768,9 @@ class FedAREngine:
         if cap is not None:
             row_ok = row_ok & (deltas.abs() <= cap)
         quarantined = ~row_ok.all(dim=-1)
-        deltas = torch.where(quarantined[:, None], 0.0, deltas)
+        del row_ok
+        # in place: no other name holds this round's received rows
+        deltas = deltas.masked_fill_(quarantined[:, None], 0.0)
         if fdraw is not None:
             self.fault_masks = dict(crashed=crashed, corrupted=corrupt,
                                     unavailable=fdraw.unavailable,

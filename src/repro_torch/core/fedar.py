@@ -152,9 +152,17 @@ class FedARServer:
         self._append(out, 1, eval_set is not None)
         return out.selected.cpu().numpy(), out.on_time.cpu().numpy()
 
-    def run(self, data, rounds: int, eval_set=None, force_straggler=None):
+    def run(self, data, rounds: int, eval_set=None, force_straggler=None,
+            driver: str = "scan"):
         """Run ``rounds`` communication rounds; returns ``history``.  Cohort
-        mode samples a fresh cohort from the store each round."""
+        mode samples a fresh cohort from the store each round.
+
+        ``driver`` keeps the reference's two values: there, ``"scan"`` runs
+        the rounds inside one ``lax.scan`` and ``"python"`` dispatches them
+        one by one.  The port has one host loop over rounds, which both
+        name; any other value raises ``ValueError``."""
+        if driver not in ("scan", "python"):
+            raise ValueError(f'unknown driver {driver!r} (expected "scan" or "python")')
         if self.cohort_mode:
             for _ in range(rounds):
                 self.run_round(data, eval_set=eval_set,

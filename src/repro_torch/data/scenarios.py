@@ -166,9 +166,11 @@ def label_skew_scenario(y, num_clients, samples_per_client, *, seed=0,
 @register_scenario("corpus_skew")
 def corpus_skew_scenario(y, num_clients, samples_per_client, *, seed=0,
                          alpha=0.3):
-    raise NotImplementedError(
-        "scenario 'corpus_skew' belongs to the LM substrate, not ported yet: "
-        "ROADMAP.md Queue 1 item 14"
+    """Dirichlet(alpha) skew over per-sequence topic ids: ``label_skew``'s
+    index math (a topic is a label over sequences) under the text
+    scenario's own name and harsher default alpha."""
+    return label_skew_scenario(
+        y, num_clients, samples_per_client, seed=seed, alpha=alpha
     )
 
 

@@ -1,6 +1,7 @@
-"""Synthetic digits: a procedurally generated 28x28 10-class dataset standing
-in for the paper's MNIST/EMNIST + robot-captured digit mix.  Plain numpy, so
-the arrays are bit-identical to the reference package's for the same seed."""
+"""Synthetic data: a procedurally generated 28x28 10-class digit set standing
+in for the paper's MNIST/EMNIST + robot-captured digit mix, and a token
+stream for the LM.  Plain numpy, so the arrays are bit-identical to the
+reference package's for the same seed."""
 from __future__ import annotations
 
 import numpy as np
@@ -50,3 +51,25 @@ def make_digits(
     if flip_frac > 0:
         flip_labels(rng, y, flip_frac)
     return x, y.astype(np.int32)
+
+
+def token_stream(
+    n_batches: int, batch: int, seq: int, vocab: int, *, seed: int = 0
+):
+    """Yields dict(tokens, labels) int32 (batch, seq): Zipfian unigrams,
+    and with probability 1/2 each step follows the previous token's
+    favored successor."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    succ = rng.integers(0, vocab, vocab)  # favored successor per token
+    for _ in range(n_batches):
+        t = np.empty((batch, seq + 1), np.int32)
+        t[:, 0] = rng.choice(vocab, batch, p=probs)
+        for s in range(seq):
+            follow = rng.random(batch) < 0.5
+            t[:, s + 1] = np.where(
+                follow, succ[t[:, s]], rng.choice(vocab, batch, p=probs)
+            )
+        yield {"tokens": t[:, :-1], "labels": t[:, 1:]}

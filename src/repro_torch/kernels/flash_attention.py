@@ -40,6 +40,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         raise ValueError(f"window={window}")
     if not q.is_cuda:
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    if any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the flash_attention kernel has no backward: an input "
+                           "requires grad, and its output would carry none (take "
+                           'attn_impl="einsum" for a loss)')
     if q.dtype not in _DTYPES:
         raise ValueError(f"q has dtype {q.dtype}; the kernel takes {list(_DTYPES)}")
     if not 1 <= hd <= MAX_HEAD_DIM:

@@ -43,7 +43,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("local_sgd.cu", "fedavg_agg.cu", "defense_sim.cu", "compress.cu",
-           "flash_attention.cu", "ssm_scan.cu")
+           "flash_attention.cu", "ssm_scan.cu", "count_sketch.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -148,6 +148,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_ssm_scan.restype = I
     lib.fedar_ssm_scan_attrs.argtypes = [PI, PI, PI, PI]
     lib.fedar_ssm_scan_attrs.restype = I
+    lib.fedar_count_sketch.argtypes = [P, P, P, P, P, I, L, I, I, I, P]
+    lib.fedar_count_sketch.restype = I
+    lib.fedar_count_sketch_smem.argtypes = [I]
+    lib.fedar_count_sketch_smem.restype = L
     lib.fedar_cuda_error_string.argtypes = [I]
     lib.fedar_cuda_error_string.restype = ctypes.c_char_p
 

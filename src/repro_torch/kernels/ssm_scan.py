@@ -70,6 +70,10 @@ def ssm_scan(xd, logdecay, Bc, Cc):
                          f"{tuple(xd.shape)}, {tuple(Bc.shape)}")
     if not xd.is_cuda:
         return ref.ssm_scan_ref(xd, logdecay, Bc, Cc).to(xd.dtype)
+    if any(t.requires_grad for t in (xd, logdecay, Bc, Cc)):
+        raise RuntimeError("the ssm_scan kernel has no backward: an input requires "
+                           'grad, and its output would carry none (take ssm_impl='
+                           '"einsum" for a loss)')
     B, S, nh, hd = xd.shape
     st = Bc.shape[-1]
     if xd.dtype not in _DTYPES:

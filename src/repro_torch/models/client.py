@@ -5,7 +5,7 @@ The engine carries the global model as one flat ``(D,)`` float32 vector
 defenses all work on flat deltas) and delegates everything model-shaped to
 a ``ClientModel``:
 
-  ``init(generator, device)`` -- one client's params, a dict of tensors
+  ``init(generator, device)`` -- one client's params, a tree of tensors
                                  (``core.engine.flatten`` / ``unflatten``
                                  adapt it to the flat boundary).
   ``loss(params, fields)``    -- training loss on client samples.
@@ -44,6 +44,11 @@ class ClientModel:
         """One client's parameter dict."""
         raise NotImplementedError
 
+    def adopt_template(self, template) -> None:
+        """Called by the engine when it was given init params instead of
+        calling ``init``; a family that counts its params there reads them
+        here."""
+
     def loss(self, params, fields, sample_mask=None):
         """Training loss over client ``fields``."""
         raise NotImplementedError
@@ -51,7 +56,9 @@ class ClientModel:
     def client_update(self, params, fields, *, lr, batch_size, epochs,
                       sample_mask=None):
         """E epochs of local minibatch SGD from the global ``params`` for
-        every client of the block -> dict of stacked (rows, ...) params."""
+        every client of the block -> dict of stacked (rows, ...) params, or
+        the (rows, D) flat rows themselves in ``core.engine.flatten`` order
+        (a family whose stacked params would not fit beside them)."""
         raise NotImplementedError
 
     def metrics(self, params, eval_set):

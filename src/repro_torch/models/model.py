@@ -1,12 +1,13 @@
-"""The LM trunk: embeddings, the block stack and the LM head, for prefill
-and for cached single-token decode.
+"""The LM trunk: embeddings, the block stack and the LM head, for the
+training loss, prefill and cached single-token decode, and
+``LMClientModel``, the LM as a federated client of ``FedAREngine``.
 
 Two structural kinds of the reference's three are ported:
   attn   -- homogeneous attention blocks (GQA with a dense gated FFN)
   zamba  -- Mamba2 blocks plus ONE weight-shared attention block applied
             after every ``shared_attn_every``-th layer (Zamba2)
 The ``xlstm`` kind, the stubbed modality frontends, MoE and MLA raise
-``NotImplementedError`` (ROADMAP Queue 1 item 14), as does training.
+``NotImplementedError`` (ROADMAP Queue 1 item 14).
 
 Params are a dict of tensors in the reference's tree, except that
 ``layers`` is a list with one dict per layer (the reference stacks them on
@@ -19,22 +20,26 @@ Mamba2 layers and of shared-block applications) and are updated in place
 Kernel routing is per model: ``attn_impl`` and ``ssm_impl`` (``auto |
 kernel | einsum``, ``kernels/ops.resolve_impl``) pick kernel 8
 (``flash_attention``) and kernel 9 (``ssm_scan``) on the card and the
-reference model's plain PyTorch lowering otherwise.  Decode reaches
-neither kernel: it is plain PyTorch on every device, as in the reference.
+reference model's plain PyTorch lowering otherwise.  The loss and decode
+reach neither kernel: they are plain PyTorch on every device, as in the
+reference (kernels 8 and 9 have no backward).
 """
 from __future__ import annotations
 
+import functools
 import operator
 from typing import Any, Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
-from repro_torch.core.engine import resolve_device
+from repro_torch.core.engine import ordered_leaves, resolve_device, with_leaves
 from repro_torch.kernels import ops
 from repro_torch.models import blocks
+from repro_torch.models.client import ClientModel
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
 
 
@@ -118,24 +123,36 @@ class Model:
         return torch.matmul(x, head)
 
     # ------------------------------------------------------------------
-    # forward trunk (prefill)
+    # forward trunk (training / prefill)
     # ------------------------------------------------------------------
-    def trunk(self, params, batch):
+    def trunk(self, params, batch, *, remat: bool = False, attn_impl=None,
+              ssm_impl=None):
         """Returns (x_final (B, T, d), aux_loss, text_offset); aux is 0 (no
-        MoE)."""
+        MoE).  ``remat`` recomputes each block in the backward pass
+        (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
+        its scan body); ``attn_impl`` / ``ssm_impl`` override the model's
+        routes for this call."""
         cfg = self.cfg
+        attn_impl = self.attn_impl if attn_impl is None else attn_impl
+        ssm_impl = self.ssm_impl if ssm_impl is None else ssm_impl
         x, offset = self.embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
+
+        def run(block, *args):
+            if remat and torch.is_grad_enabled():
+                return checkpoint(block, *args, use_reentrant=False)
+            return block(*args)
+
         if self.kind == "attn":
             for lp, w in zip(params["layers"], layer_windows(cfg).tolist()):
-                x = blocks.attn_block_forward(lp, x, positions, cfg, w, self.attn_impl)
+                x = run(blocks.attn_block_forward, lp, x, positions, cfg, w, attn_impl)
         else:
             shared = params["shared_attn"]
             for i, lp in enumerate(params["layers"]):
-                x = blocks.mamba_block_forward(lp, x, cfg, self.ssm_impl)
+                x = run(blocks.mamba_block_forward, lp, x, cfg, ssm_impl)
                 if (i + 1) % cfg.shared_attn_every == 0:
-                    x = blocks.attn_block_forward(shared, x, positions, cfg,
-                                                  cfg.sliding_window, self.attn_impl)
+                    x = run(blocks.attn_block_forward, shared, x, positions, cfg,
+                            cfg.sliding_window, attn_impl)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, offset
 
@@ -150,6 +167,52 @@ class Model:
         with torch.inference_mode():
             x, _, _ = self.trunk(params, batch)
             return self.logits(params, x[:, -1, :])
+
+    # ------------------------------------------------------------------
+    # loss
+    # ------------------------------------------------------------------
+    def _nll_sum(self, params, batch, remat: bool, loss_chunk: int, per_row: bool):
+        """The summed next-token NLL, (B,) per row or () in all, and aux.
+        The trunk takes the plain attention and scan routes whatever the
+        model's routes say: kernels 8 and 9 have no backward (their
+        wrappers raise on an input that requires grad), and the reference's
+        loss reaches no Pallas kernel."""
+        x, aux, offset = self.trunk(params, batch, remat=remat, attn_impl="einsum",
+                                    ssm_impl="einsum")
+        x = x[:, offset:, :]
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        B, S = labels.shape
+        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+
+        def ce(xc, yc):
+            lg = torch.matmul(xc, head).to(torch.float32)
+            nll = torch.logsumexp(lg, dim=-1) - torch.gather(lg, -1, yc[..., None])[..., 0]
+            return nll.sum(dim=-1) if per_row else nll.sum()
+
+        if loss_chunk and S % loss_chunk == 0 and S > loss_chunk:
+            # position chunks summed in order, as the reference's scan
+            total = torch.zeros((B,) if per_row else (), dtype=torch.float32,
+                                device=x.device)
+            for c in range(0, S, loss_chunk):
+                total = total + ce(x[:, c:c + loss_chunk], labels[:, c:c + loss_chunk])
+        else:
+            total = ce(x, labels)
+        return total, aux, B, S
+
+    def loss(self, params, batch, remat: bool = True, loss_chunk: int = 0):
+        """Causal LM loss: batch ``tokens`` (B, S) and ``labels`` (B, S),
+        labels[t] predicted from position t.  ``loss_chunk`` takes the
+        logits ``loss_chunk`` positions at a time.  Returns (nll + aux,
+        {"nll", "aux"})."""
+        total, aux, B, S = self._nll_sum(params, batch, remat, loss_chunk, False)
+        nll = total / (B * S)
+        return nll + aux, {"nll": nll, "aux": aux}
+
+    def loss_per_example(self, params, batch, remat: bool = True,
+                         loss_chunk: int = 0):
+        """Per-row mean NLL (B,) and the aux loss."""
+        total, aux, _, S = self._nll_sum(params, batch, remat, loss_chunk, True)
+        return total / S, aux
 
     # ------------------------------------------------------------------
     # decode
@@ -211,3 +274,133 @@ def _leaves(tree):
 
 def param_count(params) -> int:
     return sum(int(leaf.numel()) for leaf in _leaves(params))
+
+
+class LMClientModel(ClientModel):
+    """Transformer LM client behind the engine's ``ClientModel`` surface.
+
+    Wraps ``Model`` (the ported kinds, usually a ``.reduced()`` config) so
+    ``FedAREngine`` runs trust scoring, straggler masking, buffered async
+    aggregation and the sketched defense over transformer clients.  The
+    param tree crosses the aggregation boundary through
+    ``core.engine.flatten`` / ``unflatten`` (per-leaf dtypes survive the
+    fp32 flat view).  ``device`` ``None`` means the card, as for ``Model``.
+
+    Data fields: ``tokens`` (n, S) int sequences and ``labels`` (n, S)
+    shifted targets; one client holds n sequences.  ClientUpdate mirrors
+    the reference's batching: without a sample mask the batch count
+    floors, with one it ceils and pads with mask-False rows, so trailing
+    sequences still train.  The clients of a block train one after
+    another, each straight into its row of one (R, D) flat buffer.
+
+    There is no fused local-SGD kernel for this family
+    (``supports_fused=False``): ``sgd_impl="auto"`` runs ``client_update``
+    and ``"kernel"`` raises; the packed bucketed layout is unsupported.
+    ``metrics`` takes the model's own routes for its forward (kernel 8 on
+    the card, unless ``attn_impl="einsum"``); the loss and its gradient
+    always take the plain ones.
+    """
+
+    family = "lm"
+    data_keys = ("tokens", "labels")
+    supports_fused = False
+    packed_supported = False
+
+    def __init__(self, cfg: ModelConfig, *, remat: bool = False, device=None,
+                 attn_impl: str = "auto"):
+        self.cfg = cfg
+        self.model = Model(cfg, device, attn_impl=attn_impl)
+        self.device = self.model.device
+        self.remat = remat
+        self._dim = None  # the param count, for train_flops
+
+    def init(self, generator, device):
+        if torch.device(device).type != self.device.type:
+            raise ValueError(f"the engine runs on {device}, the model on {self.device}")
+        params = self.model.init_params(generator)
+        self.adopt_template(params)
+        return params
+
+    def adopt_template(self, template) -> None:
+        self._dim = param_count(template)
+
+    def loss(self, params, fields, sample_mask=None):
+        batch = {"tokens": fields["tokens"], "labels": fields["labels"]}
+        per_row, aux = self.model.loss_per_example(params, batch, remat=self.remat)
+        if sample_mask is None:
+            return per_row.mean() + aux
+        m = sample_mask.to(per_row.dtype)
+        return (per_row * m).sum() / torch.clamp(m.sum(), min=1.0) + aux
+
+    def client_update(self, params, fields, *, lr, batch_size, epochs,
+                      sample_mask=None):
+        """E epochs of plain SGD ``p - lr * g`` per leaf, in the leaf's own
+        dtype, for each client of the block in turn.  Returns the (R, D)
+        flat rows (fp32 for a bf16 model), in ``core.engine.flatten``
+        order."""
+        tokens = torch.as_tensor(fields["tokens"], device=self.device).long()
+        labels = torch.as_tensor(fields["labels"], device=self.device).long()
+        leaves = [leaf for _, leaf in ordered_leaves(params)]
+        dtype = functools.reduce(torch.promote_types, (t.dtype for t in leaves))
+        out = torch.empty((tokens.shape[0], sum(t.numel() for t in leaves)),
+                          dtype=dtype, device=self.device)
+        for i in range(tokens.shape[0]):
+            m = None if sample_mask is None else sample_mask[i]
+            off = 0
+            for t in self._local_sgd(params, tokens[i], labels[i], m, lr,
+                                     batch_size, epochs):
+                out[i, off:off + t.numel()] = t.reshape(-1)
+                off += t.numel()
+        return out
+
+    def _local_sgd(self, params, tokens, labels, mask, lr, batch_size, epochs):
+        """One client's ClientUpdate -> its trained leaves in flat order."""
+        n = tokens.shape[0]
+        if mask is None:
+            nb = n // batch_size
+            tb = tokens[:nb * batch_size].reshape(nb, batch_size, -1)
+            lb = labels[:nb * batch_size].reshape(nb, batch_size, -1)
+            mb = [None] * nb
+        else:
+            nb = -(-n // batch_size)  # ceil: never drop real sequences
+            pad = nb * batch_size - n
+            tb = F.pad(tokens, (0, 0, 0, pad)).reshape(nb, batch_size, -1)
+            lb = F.pad(labels, (0, 0, 0, pad)).reshape(nb, batch_size, -1)
+            mb = torch.cat([mask.to(torch.bool),
+                            mask.new_zeros(pad, dtype=torch.bool)]).reshape(nb, batch_size)
+        leaves = [leaf.detach().clone().requires_grad_(True)
+                  for _, leaf in ordered_leaves(params)]
+        # the reference's step size is a weak-typed Python float: it enters
+        # each leaf's update in that leaf's dtype
+        step = {t.dtype: torch.tensor(lr, dtype=t.dtype, device=self.device)
+                for t in leaves}
+        for _ in range(epochs):
+            for b in range(nb):
+                with torch.enable_grad():
+                    loss = self.loss(with_leaves(params, leaves),
+                                     {"tokens": tb[b], "labels": lb[b]}, mb[b])
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                with torch.no_grad():
+                    for p, g in zip(leaves, grads):
+                        if g is not None:
+                            p.sub_(g.mul_(step[p.dtype]))
+        return [t.detach() for t in leaves]
+
+    def metrics(self, params, eval_set):
+        """(loss, token accuracy) on the held-out ``eval_set`` (``tokens``,
+        ``labels``)."""
+        batch = {"tokens": eval_set["tokens"], "labels": eval_set["labels"]}
+        with torch.no_grad():
+            total, _ = self.model.loss(params, batch, remat=self.remat)
+            logits, _ = self.model.forward(params, batch)
+            labels = torch.as_tensor(batch["labels"], device=self.device)
+            acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+        return total, acc
+
+    def train_flops(self, sample_shape, *, epochs) -> float:
+        """6 N_params FLOPs a token (forward and backward) x n sequences of
+        length S x E epochs."""
+        if self._dim is None:
+            raise RuntimeError("call init() before train_flops()")
+        n, seq = sample_shape[0], sample_shape[1]
+        return float(6.0 * epochs * n * seq * self._dim)

@@ -96,10 +96,12 @@ def ssd_chunked(xd, logdecay, Bc, Cc, chunk: int, init_state=None):
         # inter-chunk: y_i += C_i . (exp(lcum_i) * state_prev)
         yin = torch.einsum("bls,bnsh,bln->blnh", cc, state, torch.exp(lcum))
         # intra-chunk quadratic; the gaps above the diagonal are positive and
-        # may overflow to inf, which the mask replaces by 0 before any product
+        # may overflow, so they are masked to -inf before the exponential:
+        # the same values as the reference's where(mask, exp(gap), 0), whose
+        # gradient is 0 * inf = NaN there (ROADMAP R12)
         cb = torch.einsum("bis,bjs->bij", cc, bc)
         gap = lcum[:, :, None, :] - lcum[:, None, :, :]  # (B, i, j, nh)
-        L = torch.where(tri[None, :, :, None], torch.exp(gap), 0.0)
+        L = torch.exp(torch.where(tri[None, :, :, None], gap, -torch.inf))
         yintra = torch.einsum("bij,bijn,bjnh->binh", cb, L, xc)
         # chunk state contribution
         tail = lcum[:, -1:, :] - lcum  # (B, L, nh) decay from j to the chunk's end

@@ -789,3 +789,89 @@ def test_lm_decode_on_the_card_matches_the_cpu(cuda_device, arch, over):
     assert (flash_attention.launches, ssm_scan.launches) == counts
     for got, want in zip(_leaves(cache), _leaves(cache_cpu)):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_lm_kernels_refuse_inputs_that_require_grad(cuda_device):
+    """Kernels 8 and 9 have no backward (ROADMAP Trap 5): an input that
+    requires grad raises instead of giving an output without a gradient."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(1, 64, 4, 64, device=cuda_device, generator=gen, dtype=torch.bfloat16)
+    k = torch.randn(1, 64, 2, 64, device=cuda_device, generator=gen, dtype=torch.bfloat16)
+    for i in range(3):
+        ins = [t.clone() for t in (q, k, k)]
+        ins[i].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention(*ins)
+    xd = torch.randn(1, 64, 4, 32, device=cuda_device, generator=gen)
+    ld = -torch.rand(1, 64, 4, device=cuda_device, generator=gen)
+    Bc = torch.randn(1, 64, 16, device=cuda_device, generator=gen)
+    for i in range(4):
+        ins = [t.clone() for t in (xd, ld, Bc, Bc)]
+        ins[i].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            ssm_scan(*ins)
+    # without grad both still launch
+    flash_attention(q, k, k)
+    ssm_scan(xd, ld, Bc, Bc)
+
+
+def test_lm_client_update_on_the_card_matches_the_cpu(cuda_device):
+    """One reduced LM client block (two clients, E = 2, a ragged sample
+    mask) trained on the card and on the CPU from the same params: the
+    flat rows within 2e-4; the card's engine takes the plain
+    client_update under sgd_impl="auto" and refuses "kernel"."""
+    from repro_torch.core.engine import FedAREngine, flatten, ordered_leaves, with_leaves
+    from repro_torch.models.model import LMClientModel
+
+    cfg = get_config("tinyllama-1.1b").reduced(num_layers=2, d_model=64, d_ff=128,
+                                               vocab_size=128, num_heads=4, num_kv_heads=2)
+    cpu = LMClientModel(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(3), "cpu")
+    rng = np.random.default_rng(4)
+    tok = torch.as_tensor(rng.integers(0, 128, (2, 10, 16)))
+    lab = torch.as_tensor(rng.integers(0, 128, (2, 10, 16)))
+    mask = torch.ones(2, 10, dtype=torch.bool)
+    mask[1, 7:] = False
+    kw = dict(lr=0.05, batch_size=4, epochs=2)
+    want = cpu.client_update(params, {"tokens": tok, "labels": lab}, sample_mask=mask, **kw)
+    card = LMClientModel(cfg, device=cuda_device)
+    on_card = {"tokens": tok.to(cuda_device), "labels": lab.to(cuda_device)}
+    params_card = with_leaves(params, [t.to(cuda_device) for _, t in ordered_leaves(params)])
+    got = card.client_update(params_card, on_card, sample_mask=mask.to(cuda_device), **kw)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-4, atol=2e-4)
+    assert (got.cpu() != flatten(params)).any()
+    engine = FedAREngine(card, fleet_fed(4, defense="foolsgold_sketch"), TaskRequirement(),
+                         device=cuda_device)
+    assert engine.sgd_route == "einsum"
+    with pytest.raises(ValueError, match="has none"):
+        FedAREngine(card, fleet_fed(4, sgd_impl="kernel"), TaskRequirement(),
+                    device=cuda_device)
+
+
+@pytest.mark.parametrize("n,D", [(12, 101_770), (256, 101_770), (4, 5_000_003), (3, 2048)])
+def test_count_sketch_is_bit_equal_run_to_run(cuda_device, n, D):
+    """The count sketch kernel against the float64 sums within 1e-6 +
+    1e-5 of the largest output (its plain version, the reference's fp32
+    scatter-add, rounds about as far off at D = 5e6), NaN where the plain
+    version has it, and bit-equal over ten runs on the same rows; one
+    launch a call."""
+    from repro_torch.common.config import FedConfig
+    from repro_torch.core.defense import SketchedFoolsGold
+    from repro_torch.kernels.count_sketch import count_sketch, count_sketch_ref
+
+    sk = SketchedFoolsGold(FedConfig(defense="foolsgold_sketch", seed=n), D, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(D)
+    rows = torch.randn(n, D, device=cuda_device, generator=gen) * 0.01
+    rows[0, 5] = float("nan")  # stays on its own row
+    want = count_sketch_ref(rows, sk.bucket, sk.sign, sk.r)
+    before = count_sketch.launches
+    runs = [sk.sketch(rows) for _ in range(10)]
+    assert count_sketch.launches == before + 10
+    assert all(torch.equal(r[1:], runs[0][1:]) for r in runs)
+    assert torch.isnan(runs[0][0]).sum() == 1 and torch.isfinite(runs[0][1:]).all()
+    exact = torch.zeros(n, sk.r, dtype=torch.float64, device=cuda_device).index_add_(
+        1, sk.bucket, rows.double() * sk.sign.double())
+    err = (runs[0][1:].double() - exact[1:]).abs().max().item()
+    assert err <= 1e-6 + 1e-5 * exact[1:].abs().max().item()
+    assert torch.equal(torch.isnan(runs[0]), torch.isnan(want))

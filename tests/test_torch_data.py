@@ -133,8 +133,6 @@ def test_unported_pieces_raise():
         tds.make_federated("mnist", 12)
     with pytest.raises(NotImplementedError, match="item 13"):
         tds.make_federated("sybil", 12)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tds.make_federated("digits", 12, scenario="corpus_skew")
     ds = tds.make_federated("digits", 6, scenario="iid", samples_per_client=10)
     with pytest.raises(ValueError, match="layout"):
         ds.engine_arrays(layout="ragged")
