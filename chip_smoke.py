@@ -112,15 +112,38 @@ Phases (any failure raises and the script exits non-zero):
    example's reduced fleet (2 layers, d_model 128, 8 clients, 8 rounds),
    async + foolsgold_sketch and fedavg + none, with the same route check.
 
+12. Dense serving at full width (bf16, params from ``Model.init_params`` on
+   a seeded CUDA generator, counted against the reference's).  12a, yi-9b
+   (``configs/yi_9b.py``, arXiv:2403.04652; 48 layers, 32 heads over 4 kv
+   heads of 128): 4 requests of 4 x 2,048 tokens (the first is warm-up),
+   each launching ``flash_attention`` 48 times, with requests/s, prompt
+   tokens/s, peak memory and one profiled request (kernel device ms, idle
+   share); decode at B = 4, a 64-token prompt through a fresh 128-slot
+   cache and 64 greedy tokens after 8 warm-up steps (cut from phase 9b's
+   512 + 128 to keep the phase short: ~4,400 eager launches a step), no
+   kernel launched and the logits finite; the fp32 route check block by
+   block on one 1 x 1,024 request at full width but 4 layers (cut: 48
+   layers are 35 GB of fp32 params).  12b, gemma3-1b
+   (``configs/gemma3_1b.py``, hf:google/gemma-3-1b-pt; 26 layers, 22 with
+   a 512 window and 4 global, 4 heads over 1 kv head of 256, a tied
+   262,144 vocabulary): the same requests, each launching
+   ``flash_attention`` 26 times (22 handed window 512, 4 causal); decode at
+   B = 4, a 512-token prompt and 128 greedy tokens through a 640-slot cache
+   (the local layers' windows slide), as ``examples/serve_decode.py`` runs
+   gemma3; the fp32 route check at full width and depth; phase 9b's fp32
+   decode-vs-prefill check over 2 x 256 positions.
+
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
 longest client's steps on its cluster's SMs at their share of the fp32
 peak).  It holds ``local_sgd_ragged`` on phase 7's tile buffer against its
 plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
 (N, n_max) rectangle; and ``flash_attention`` and ``ssm_scan`` against
-their plain versions at phase 9's shapes, in bf16 and fp32 (the 1 x 8,192
-prompt in bf16; the fp32 scan row by row against the float64 recurrence),
-with each bf16 instance's registers and shared bytes; and the defense's
+their plain versions at phases 9's and 12's shapes, in bf16 and fp32 (the
+1 x 8,192 prompt in bf16; gemma3-1b's head_dim 256 with and without its
+512 window, a ragged S; yi-9b's 32 heads over 4; the fp32 scan row by row
+against the float64 recurrence), with each bf16 instance's registers,
+spilled and shared bytes; and the defense's
 count sketch (``count_sketch``, a CUDA kernel that sums in a fixed order;
 no TPU kernel) against the reference's scatter-add, run ten times on the
 same rows, where it must give one result.
@@ -131,12 +154,13 @@ exits non-zero and prints no result.  ``--profile DIR`` also writes a
 ``torch.profiler`` table of one round of phases 3, 4, 5, 6 (both fleets,
 with a compressed round's device time split into ``torch.topk``, the
 gather, the two decodes, ``local_sgd`` and the rest), 7 (both layouts) and
-8, of each profiled request of phase 9 and of each decode run's profiled
-steps of phase 9b.
+8, of each profiled request of phases 9 and 12 and of each decode run's
+profiled steps of phases 9b and 12.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import re
@@ -965,16 +989,23 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
     """Phase 2, the LM kernels at phase 9's shapes, each in the dtypes its
     case names, against their plain versions on the same inputs.  ``ssm``
     is the scan's (wrapper, ``kernel_attrs``, ``plan``).  Returns the JSON
-    entries of each kernel's main-path case (its first, in bf16)."""
+    entries of each kernel's main-path case (its first, in bf16); the
+    attention entry also lists every case under ``cases``."""
     entries = {}
+    cases = []
     gen = torch.Generator(device=DEV).manual_seed(3)
     print("flash_attention, row by row (fp32: rtol = 1e-4, sums and exponentials "
           f"in another order; bf16: rtol = {BF16_RTOL}, an ulp of the output and P in "
           "bf16)")
-    for hdp in (64, 128):
-        print(f"  bf16 instance at head-dim padding {hdp}: "
-              f"{flash_attention_attrs(hdp)} (a block: 384 threads; registers at "
-              "launch, the consumers raise theirs to 240)")
+    attrs = {}
+    for hdp in (64, 128, 256):
+        attrs[hdp] = flash_attention_attrs(hdp)
+        print(f"  bf16 instance at head-dim padding {hdp}: {attrs[hdp]} (a block: 384 "
+              "threads; registers at launch, the consumers raise theirs to 240)")
+        if attrs[hdp]["local_bytes"] or (attrs[hdp]["static_smem"]
+                                         + attrs[hdp]["dynamic_smem"] > 232448):
+            raise AssertionError(f"the bf16 attention instance at {hdp} spills or "
+                                 "takes more shared memory than a block may")
     for n, (label, B, S, H, K, hd, window, dtypes) in enumerate(flash_cases):
         q32, k32, v32 = (torch.randn(B, S, h, hd, generator=gen, device=DEV)
                          for h in (H, K, K))
@@ -1003,8 +1034,19 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                 qt, kt, vt, attn_mask=band, is_causal=band is None,
                 enable_gqa=K != H), reps=5)
             b_ms, b_by = attn_bound(B, S, H, K, hd, window, dtype)
+            res = ""
+            case = dict(label=label, shape=[B, S, H, K, hd], window=window,
+                        dtype=str(dtype)[6:], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            if not fp32:
+                hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
+                case["resources"] = attrs[hdp]
+                res = (f"; instance {hdp}: {attrs[hdp]['registers']} registers, "
+                       f"{attrs[hdp]['local_bytes']} local bytes, "
+                       f"{attrs[hdp]['static_smem'] + attrs[hdp]['dynamic_smem']} shared bytes")
+            cases.append(case)
             print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library {lib_ms:.3f} ms "
-                  f"(scaled_dot_product_attention), bound {b_ms:.4f} ms ({b_by})")
+                  f"(scaled_dot_product_attention), bound {b_ms:.4f} ms ({b_by}){res}")
             if n == 0 and dtype == torch.bfloat16:
                 entries["flash_attention"] = dict(
                     name="flash_attention", route="cuda",
@@ -1013,6 +1055,7 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                     ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
             del q, k, v, qt, kt, vt
+    entries["flash_attention"]["cases"] = cases
 
     ssm_scan, ssm_attrs, ssm_plan = ssm
     a = ssm_attrs()
@@ -1129,15 +1172,33 @@ def profile_device(run, names, path, label, units=1, unit="request"):
     return wall_ms / units, busy_ms / units, launches / units
 
 
+def block_forwards(cfg, params, pos):
+    """Each block application of a prefill in trunk order, as a function of
+    (x, impl): for zamba every Mamba2 layer and the shared attention block
+    after every ``shared_attn_every``-th; for the attn kind every layer at
+    its own window (``layer_windows``)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.model import layer_windows
+
+    if "shared_attn" not in params:
+        return [lambda x, impl, lp=lp, w=w: blocks.attn_block_forward(lp, x, pos, cfg, w, impl)
+                for lp, w in zip(params["layers"], layer_windows(cfg).tolist())]
+    apps = []
+    for i, lp in enumerate(params["layers"]):
+        apps.append(lambda x, impl, lp=lp: blocks.mamba_block_forward(lp, x, cfg, impl))
+        if (i + 1) % cfg.shared_attn_every == 0:
+            apps.append(lambda x, impl: blocks.attn_block_forward(
+                params["shared_attn"], x, pos, cfg, cfg.sliding_window, impl))
+    return apps
+
+
 def check_blocks(cfg, params, toks):
     """The route check, block by block: the request runs through the kernel
-    route, and each of its block applications (every Mamba2 layer, and the
-    shared attention block after every ``shared_attn_every``-th) also runs
-    through the plain route from the same input.  Each block's increment to
-    the residual must agree within atol = rtol = 1e-4 (fp32 sums in another
-    order inside one block), and so must the logits from the last hidden
-    state, with the same greedy token."""
-    from repro_torch.models import blocks
+    route, and each of its block applications (``block_forwards``) also
+    runs through the plain route from the same input.  Each block's
+    increment to the residual must agree within atol = rtol = 1e-4 (fp32
+    sums in another order inside one block), and so must the logits from
+    the last hidden state, with the same greedy token."""
     from repro_torch.models.layers import rms_norm
 
     worst = (-1.0, 0.0, 0.0)  # (err / limit, err, limit) of the closest block
@@ -1145,11 +1206,8 @@ def check_blocks(cfg, params, toks):
     with torch.inference_mode():
         x = torch.nn.functional.embedding(toks.long(), params["embed"])
         pos = torch.arange(x.shape[1], device=x.device)
-        shared = params["shared_attn"]
-
-        def both(fn):
-            nonlocal worst, n
-            got, want = fn("kernel") - x, fn("einsum") - x
+        for app in block_forwards(cfg, params, pos):
+            got, want = app(x, "kernel") - x, app(x, "einsum") - x
             err = (got - want).abs().max().item()
             limit = 1e-4 + 1e-4 * want.abs().max().item()
             if err > limit:
@@ -1157,13 +1215,7 @@ def check_blocks(cfg, params, toks):
                                      f"(tolerance {limit:.3e})")
             worst = max(worst, (err / limit, err, limit))
             n += 1
-            return x + got, x + want
-
-        for i, lp in enumerate(params["layers"]):
-            x, last = both(lambda impl: blocks.mamba_block_forward(lp, x, cfg, impl))
-            if (i + 1) % cfg.shared_attn_every == 0:
-                x, last = both(lambda impl: blocks.attn_block_forward(
-                    shared, x, pos, cfg, cfg.sliding_window, impl))
+            x, last = x + want, x + got
 
         w_head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -1182,13 +1234,45 @@ def check_blocks(cfg, params, toks):
           f"(top-2 gap {(top2[:, 0] - top2[:, 1]).tolist()})")
 
 
+def per_request(cfg) -> tuple:
+    """(flash_attention, ssm_scan) launches of one prefill: one attention
+    launch per shared-block application and one scan per Mamba2 layer
+    (zamba), or one attention launch per layer (the attn kind)."""
+    if cfg.shared_attn_every:
+        return cfg.num_layers // cfg.shared_attn_every, cfg.num_layers
+    return cfg.num_layers, 0
+
+
+class WindowTally:
+    """Counts the windows that the trunk hands kernel 8's router
+    (``ops.flash_attention``) while it is entered; the launches themselves
+    are the wrapper's count."""
+
+    def __init__(self, ops):
+        self.ops, self.seen = ops, collections.Counter()
+
+    def __enter__(self):
+        route = self.orig = self.ops.flash_attention
+
+        def tally(q, k, v, *, causal=True, window=0, impl="auto"):
+            self.seen[int(window)] += 1
+            return route(q, k, v, causal=causal, window=window, impl=impl)
+
+        self.ops.flash_attention = tally
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention = self.orig
+
+
 def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir):
-    """Phase 9: serving prefill.  ``requests`` is a list of (batch, seq)
-    shapes, the first a warm-up; each request's launches must be one
-    ``flash_attention`` per shared-block application and one ``ssm_scan``
-    per layer.  Returns the launch counts of the timed run, and the model
-    and its params for phase 9b."""
-    from repro_torch.models.model import Model, param_count
+    """Phases 9 and 12: serving prefill.  ``requests`` is a list of (batch,
+    seq) shapes, the first a warm-up; each request's launches must be
+    ``per_request(cfg)``, and for the attn kind the windows handed to the
+    kernel those of ``layer_windows``.  Returns the launch counts of the
+    timed run, and the model and its params for the decode runs."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, layer_windows, param_count
     from repro_torch.models.ssm import ssm_dims
 
     flash, ssm = lm_kernels
@@ -1202,7 +1286,9 @@ def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir):
           f"{time.perf_counter() - t0:.2f} s")
     if expect_params is not None and n_params != expect_params:
         raise AssertionError(f"{n_params} params, the reference has {expect_params}")
-    per_req = (cfg.num_layers // cfg.shared_attn_every, cfg.num_layers)
+    per_req = per_request(cfg)
+    dense = not cfg.shared_attn_every
+    want_windows = collections.Counter(layer_windows(cfg).tolist())
     gen = torch.Generator(device=DEV).manual_seed(1)
     prompts = [torch.randint(0, cfg.vocab_size, shape, generator=gen, device=DEV)
                for shape in requests]
@@ -1213,20 +1299,25 @@ def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir):
     times = []
     for toks in prompts:
         before = (flash.launches, ssm.launches)
-        t0 = time.perf_counter()
-        logits = model.prefill(params, {"tokens": toks})
-        greedy = logits.argmax(-1).cpu()  # the request's answer; a sync
-        times.append(time.perf_counter() - t0)
+        with WindowTally(ops) as windows:
+            t0 = time.perf_counter()
+            logits = model.prefill(params, {"tokens": toks})
+            greedy = logits.argmax(-1).cpu()  # the request's answer; a sync
+            times.append(time.perf_counter() - t0)
         got = (flash.launches - before[0], ssm.launches - before[1])
         if got != per_req:
             raise AssertionError(f"request {tuple(toks.shape)} launched (flash_attention, "
                                  f"ssm_scan) = {got}, expected {per_req}")
+        if dense and windows != want_windows:
+            raise AssertionError(f"request {tuple(toks.shape)} handed the kernel windows "
+                                 f"{windows}, the layers have {want_windows}")
         if (logits.shape != (toks.shape[0], cfg.vocab_size)
                 or not torch.isfinite(logits).all()
                 or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all()):
             raise AssertionError("prefill gave misshapen or non-finite logits")
         print(f"  request {tuple(toks.shape)}: {times[-1] * 1e3:.3f} ms, greedy "
-              f"{greedy.tolist()}, launches flash_attention {got[0]}, ssm_scan {got[1]}")
+              f"{greedy.tolist()}, launches flash_attention {got[0]} (by window "
+              f"{dict(sorted(windows.items()))}), ssm_scan {got[1]}")
     launches = {k.__name__: k.launches for k in lm_kernels}
     print(f"launches in this run: {launches}")
     timed = times[1:]
@@ -1234,30 +1325,34 @@ def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir):
     print(f"requests/s over requests 2-{len(times)}: {len(timed) / sum(timed):.4f}; "
           f"prompt tokens/s: {ntok / sum(timed):.1f}")
     print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    _, nh = ssm_dims(cfg)
     dtype = getattr(torch, cfg.dtype)
+    names = ("flash_attention",) if dense else ("flash_attention", "ssm_scan")
     for toks in {tuple(t.shape): t for t in prompts}.values():
         profile_device(lambda: model.prefill(params, {"tokens": toks}).argmax(-1).cpu(),
-                       ("flash_attention", "ssm_scan"), profile_dir,
-                       f"prefill_{toks.shape[0]}x{toks.shape[1]}")
-        fb = attn_bound(*toks.shape, cfg.num_heads, cfg.num_kv_heads,
-                        cfg.resolved_head_dim, cfg.sliding_window, dtype)
-        sb = ssd_bound(*toks.shape, nh, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
-                       dtype)
-        print(f"  bound a launch: flash_attention {fb[0]:.4f} ms ({fb[1]}), ssm_scan "
-              f"{sb[0]:.4f} ms ({sb[1]})")
+                       names, profile_dir, f"prefill_{cfg.name}_{toks.shape[0]}x{toks.shape[1]}")
+        bounds = []
+        for w in sorted(want_windows):
+            fb = attn_bound(*toks.shape, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.resolved_head_dim, w, dtype)
+            bounds.append(f"flash_attention at window {w} {fb[0]:.4f} ms ({fb[1]})")
+        if not dense:
+            _, nh = ssm_dims(cfg)
+            sb = ssd_bound(*toks.shape, nh, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
+                           dtype)
+            bounds.append(f"ssm_scan {sb[0]:.4f} ms ({sb[1]})")
+        print(f"  bound a launch: {', '.join(bounds)}")
     del logits, prompts
     return launches, model, params
 
 
 def route_phase(cfg, lm_kernels, check_shape):
-    """Phase 9's route check in fp32 at ``check_shape``: the kernel route
-    against the plain route, block by block and free-running.  Returns the
-    fp32 model and its params (seed 2) for phase 9b."""
+    """The route check of phases 9 and 12 in fp32 at ``check_shape``: the
+    kernel route against the plain route, block by block and free-running.
+    Returns the fp32 model and its params (seed 2) for the decode checks."""
     from repro_torch.models.model import Model
 
     flash, ssm = lm_kernels
-    per_req = (cfg.num_layers // cfg.shared_attn_every, cfg.num_layers)
+    per_req = per_request(cfg)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model = Model(cfg32)
     params = model.init_params(torch.Generator(device=DEV).manual_seed(2))
@@ -1271,25 +1366,27 @@ def route_phase(cfg, lm_kernels, check_shape):
     t0 = time.perf_counter()
     want = plain.prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
-    print(f"[route check] {cfg.name} fp32, {check_shape}: plain route in "
-          f"{time.perf_counter() - t0:.3f} s")
+    print(f"[route check] {cfg.name} fp32, {cfg.num_layers} layers, {check_shape}: plain "
+          f"route in {time.perf_counter() - t0:.3f} s")
     check_blocks(cfg32, params, toks)
-    # the whole request, each route on its own trajectory: the random-init
-    # trunk amplifies any rounding difference layer after layer, so the two
-    # are set beside two plain routes that differ only in the SSD's chunk
-    # (128 and 64: the same function summed in another order)
-    other = Model(dataclasses.replace(cfg32, ssm_chunk=cfg.ssm_chunk // 2),
-                  attn_impl="einsum", ssm_impl="einsum").prefill(params, {"tokens": toks})
-    for t in (got, want, other):
+    # the whole request, each route on its own trajectory (no tolerance: the
+    # random-init trunk amplifies any rounding difference layer after
+    # layer); zamba's is set beside two plain routes that differ only in the
+    # SSD's chunk (128 and 64: the same function summed in another order)
+    runs = {"kernel route": got, "plain route": want}
+    if cfg.shared_attn_every:
+        runs[f"plain with chunk {cfg.ssm_chunk // 2}"] = Model(
+            dataclasses.replace(cfg32, ssm_chunk=cfg.ssm_chunk // 2),
+            attn_impl="einsum", ssm_impl="einsum").prefill(params, {"tokens": toks})
+    for t in runs.values():
         if t.shape != (check_shape[0], cfg.vocab_size) or not torch.isfinite(t).all():
             raise AssertionError("the route check's logits are misshapen or non-finite")
-    print(f"  free-running request (no tolerance: the trunk is chaotic): kernel vs "
-          f"plain route max_abs_err={(got - want).abs().max().item():.3e}; plain vs "
-          f"plain with chunk {cfg.ssm_chunk // 2}: {(want - other).abs().max().item():.3e}; "
-          f"max|plain| {want.abs().max().item():.3f}; greedy tokens kernel "
-          f"{got.argmax(-1).tolist()}, plain {want.argmax(-1).tolist()}, plain with chunk "
-          f"{cfg.ssm_chunk // 2} {other.argmax(-1).tolist()}")
-    del got, want, other
+    print("  free-running request (no tolerance: the trunk is chaotic): " + "; ".join(
+        f"{name} vs plain route max_abs_err={(t - want).abs().max().item():.3e}"
+        for name, t in runs.items() if t is not want)
+        + f"; max|plain| {want.abs().max().item():.3f}; greedy tokens "
+        + ", ".join(f"{name} {t.argmax(-1).tolist()}" for name, t in runs.items()))
+    del got, want, runs
     return model, params
 
 
@@ -1428,16 +1525,20 @@ def decode_run(model, params, batch, every, gen, profile_dir, prompt_len=512, ge
     del cache, pre, last_prompt
 
 
-def serve_decode(model, params, batches, every, gen, profile_dir):
-    """Phase 9b's bf16 runs of one model: ``decode_run`` at each batch."""
-    from repro_torch.models.model import param_count
+def serve_decode(model, params, batches, every, gen, profile_dir, prompt_len=512,
+                 gen_len=128):
+    """The bf16 decode runs of one model (phases 9b and 12): ``decode_run``
+    at each batch."""
+    from repro_torch.models.model import decode_cache_len, param_count
 
     cfg = model.cfg
     print(f"\n[serve decode] {cfg.name}, {cfg.dtype}, {param_count(params):,} params "
-          f"({cfg.num_heads} heads over {cfg.num_kv_heads} kv heads): a 512-token prompt "
-          f"stepped through the cache, then 128 greedy tokens")
+          f"({cfg.num_heads} heads over {cfg.num_kv_heads} kv heads): a {prompt_len}-token "
+          f"prompt stepped through a "
+          f"{decode_cache_len(cfg, prompt_len + gen_len)}-slot cache, then {gen_len} "
+          "greedy tokens")
     for batch in batches:
-        decode_run(model, params, batch, every, gen, profile_dir)
+        decode_run(model, params, batch, every, gen, profile_dir, prompt_len, gen_len)
 
 
 def decode_checks(model, params, every, gen):
@@ -1478,7 +1579,7 @@ def check_decode_blocks(model, params, toks):
     from repro_torch.models import blocks
     from repro_torch.models import ssm
     from repro_torch.models.layers import rms_norm
-    from repro_torch.models.model import decode_cache_len
+    from repro_torch.models.model import decode_cache_len, layer_windows
 
     cfg = model.cfg
     B, T = toks.shape
@@ -1513,10 +1614,58 @@ def check_decode_blocks(model, params, toks):
                        for t in range(T)]
             check(kind, torch.cat(got, dim=1) - x, want - x, -1)
             x = want
-    print(f"  {cfg.name}, window {cfg.sliding_window} ({decode_cache_len(cfg, T)} KV "
+    print(f"  {cfg.name}, windows {sorted(set(layer_windows(cfg).tolist()))} "
+          f"({decode_cache_len(cfg, T)} KV "
           f"slots): {len(apps)} blocks, {B} x {T} positions each, in "
           f"{time.perf_counter() - t0:.2f} s; closest to tolerance (row by row): "
           + ", ".join(f"{k} {v:.3f}" for k, v in worst.items() if v) + " ok")
+
+
+# ---------------------------------------------------------------- phase 12
+# the reference's parameter counts (its ``init_params`` at full width)
+DENSE_PARAMS = {"yi-9b": 8_829_407_232, "gemma3-1b": 999_812_736}
+
+
+def dense_phase(cfg, lm_kernels, every, entries, profile_dir, *, decode, route_layers,
+                decode_check):
+    """Phase 12 on one dense config at full width: ``serve_phase``'s four
+    4 x 2,048 requests; bf16 decode at B = 4, ``decode`` = (prompt,
+    generated) tokens; the fp32 route check on one 1 x 1,024 request over
+    ``route_layers`` layers (None: all of them); with ``decode_check`` the
+    fp32 decode-vs-prefill check over 2 x 256 positions, which may launch
+    no kernel."""
+    from repro_torch.models.model import layer_windows
+
+    t0 = time.perf_counter()
+    print(f"\n[serve prefill] {cfg.name} ({cfg.citation}), {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} kv heads of "
+          f"{cfg.resolved_head_dim}, windows {sorted(set(layer_windows(cfg).tolist()))}, "
+          f"{cfg.dtype}; card memory in use before: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    launches, model, params = serve_phase(cfg, lm_kernels, every, [(4, 2048)] * 4,
+                                          DENSE_PARAMS[cfg.name], profile_dir)
+    entries["flash_attention"].setdefault("phase12", {})[cfg.name] = dict(
+        launches=launches["flash_attention"], per_request=per_request(cfg)[0])
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    serve_decode(model, params, (4,), every, gen, profile_dir, *decode)
+    del model, params
+    torch.cuda.empty_cache()
+    route_cfg = cfg if route_layers is None else dataclasses.replace(cfg,
+                                                                     num_layers=route_layers)
+    model, params = route_phase(route_cfg, lm_kernels, (1, 1024))
+    if decode_check:
+        print(f"\n[decode vs prefill] {cfg.name} fp32, block by block, from the plain "
+              "prefill's input to each block")
+        for k in every:
+            k.launches = 0
+        check_decode_blocks(model, params, torch.randint(0, cfg.vocab_size, (2, 256),
+                                                         generator=gen, device=DEV))
+        launched = {k.__name__: k.launches for k in every if k.launches}
+        if launched:
+            raise AssertionError(f"the decode check launched kernels {launched}")
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"[phase 12, {cfg.name}] {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2180,8 +2329,11 @@ def main() -> int:
     # grouping) over 4 x 2,048 tokens and over one 8,192-token prompt (bf16
     # only: its plain version's fp32 score block is 8.6 GB), the same with
     # a 512 window (the local layers of gemma-style configs),
-    # tinyllama-1.1b's (32 heads of 64 over 4 kv heads); zamba2-7b's SSD
-    # (112 heads of 64, state 64) over the same two prompt shapes
+    # tinyllama-1.1b's (32 heads of 64 over 4 kv heads); phase 12's:
+    # gemma3-1b's local and global layers (4 heads of 256 over one kv head,
+    # bf16 at 4 x 2,048, fp32 at the route check's 1 x 1,024, and a ragged
+    # S) and yi-9b's (32 heads of 128 over 4); zamba2-7b's SSD (112 heads of
+    # 64, state 64) over the same two prompt shapes as its attention
     zamba = get_config("zamba2-7b")
     both = (torch.bfloat16, torch.float32)
     entries.update(lm_kernel_phase(
@@ -2189,7 +2341,13 @@ def main() -> int:
         [("zamba2-7b", 4, 2048, 32, 32, 112, 0, both),
          ("zamba2-7b, one long prompt", 1, 8192, 32, 32, 112, 0, both[:1]),
          ("zamba2-7b, window 512", 4, 2048, 32, 32, 112, 512, both),
-         ("tinyllama-1.1b", 1, 2048, 32, 4, 64, 0, both)],
+         ("tinyllama-1.1b", 1, 2048, 32, 4, 64, 0, both),
+         ("gemma3-1b, local layer", 4, 2048, 4, 1, 256, 512, both[:1]),
+         ("gemma3-1b, global layer", 4, 2048, 4, 1, 256, 0, both[:1]),
+         ("gemma3-1b, local, route check", 1, 1024, 4, 1, 256, 512, both[1:]),
+         ("gemma3-1b, global, route check", 1, 1024, 4, 1, 256, 0, both[1:]),
+         ("gemma3-1b, local, ragged S", 1, 1000, 4, 1, 256, 512, both),
+         ("yi-9b", 4, 2048, 32, 4, 128, 0, both[:1])],
         [("zamba2-7b", 4, 2048, 112, 64, 64, both),
          ("zamba2-7b, one long prompt", 1, 8192, 112, 64, 64, both[:1])],
         zamba.ssm_chunk))
@@ -2499,6 +2657,14 @@ def main() -> int:
 
     # --- phase 11: federated LM training, tinyllama-1.1b at full width
     lm_train_phase(req, every, entries, smi, profile_dir)
+
+    # --- phase 12: dense serving at full width, yi-9b then gemma3-1b
+    t12 = time.perf_counter()
+    dense_phase(get_config("yi-9b"), lm_kernels, every, entries, profile_dir,
+                decode=(64, 64), route_layers=4, decode_check=False)
+    dense_phase(get_config("gemma3-1b"), lm_kernels, every, entries, profile_dir,
+                decode=(512, 128), route_layers=None, decode_check=True)
+    print(f"[phase 12] {time.perf_counter() - t12:.1f} s")
 
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",
              "pack_codes", "unpack_codes", "topk_decode", "flash_attention", "ssm_scan",

@@ -1,12 +1,13 @@
 """Architecture config registry.
 
-The port carries the configurations whose trunk it runs: ``zamba2-7b``
-(Mamba2 blocks plus one weight-shared attention block) and
-``tinyllama-1.1b`` (GQA blocks with a dense gated FFN), each with the shapes
-and citation of the reference's file, plus the FedAR client model
+The port carries the configurations whose trunk it runs, each with the
+shapes and citation of the reference's file: ``zamba2-7b`` (Mamba2 blocks
+plus one weight-shared attention block) and the dense GQA configs
+``tinyllama-1.1b``, ``yi-9b`` and ``gemma3-1b`` (local/global windows, tied
+embeddings, tanh GELU, head_dim 256), plus the FedAR client model
 ``fedar-mnist``.  The reference's other architectures raise
 ``NotImplementedError``: their blocks (MoE, MLA, xLSTM, the stubbed
-frontends, local/global windows) are ROADMAP Queue 1 item 14.
+frontends) are ROADMAP Queue 1 item 14.3b.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ ARCH_IDS = [
     "yi-9b",
     "gemma3-1b",
 ]
-PORTED = ("zamba2-7b", "tinyllama-1.1b")
+PORTED = ("zamba2-7b", "tinyllama-1.1b", "yi-9b", "gemma3-1b")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
@@ -38,7 +39,7 @@ def get_config(arch: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS + ['fedar-mnist']}")
     if arch not in PORTED:
         raise NotImplementedError(
-            f"{arch!r} is not ported yet (ROADMAP Queue 1 item 14); the port "
+            f"{arch!r} is not ported yet (ROADMAP Queue 1 item 14.3b); the port "
             f"runs {list(PORTED)}"
         )
     return importlib.import_module(f"repro_torch.configs.{_MOD[arch]}").CONFIG

@@ -20,21 +20,25 @@
 //   consumer warpgroups, each owning 64 query rows (wgmma's M), and a
 //   producer warpgroup whose first warp issues the loads.  `setmaxnreg`
 //   moves registers from the producer (24 a thread) to the consumers (240:
-//   64 fp32 of scores, 64 of O at HDP = 128, P in bf16).  The grid's y axis
-//   walks the query tiles last to first, so the blocks with the most key
-//   tiles start first.
+//   at HDP = 128, 64 fp32 of scores, 64 of O and P in bf16; at HDP = 256,
+//   32 of scores, 128 of O).  The grid's y axis walks the query tiles last
+//   to first, so the blocks with the most key tiles start first.
 // - The producer's one thread loads the Q tile once, then the K and V tiles
-//   of 128 keys into a ring of two stages, K and V each behind its own
-//   `mbarrier` (so the scores start before V lands); the consumers release
-//   a stage through a third.  Only the live key tiles are loaded: up to the
-//   diagonal when causal, from the window's first key when windowed.
+//   of kBKey keys (128; 64 at HDP = 256) into a ring of two stages, K and V
+//   each behind its own `mbarrier` (so the scores start before V lands);
+//   the consumers release a stage through a third.  Only the live key tiles
+//   are loaded: up to the diagonal when causal, from the window's first key
+//   when windowed.  Shared bytes: Q 16 KB and a K or V stage 16 KB per 64
+//   columns of HDP at 128 keys, so 128-key tiles at HDP = 256 would need
+//   321 KB; 64-key tiles need 193 KB of the 227 KB a block may take.
 // - Each tensor is read in place through a 4-D tensor map (hd, heads, S, B)
 //   with 64-column boxes and 128-byte swizzle; kv head g is a coordinate,
-//   so GQA repeats nothing.  hd is padded to 64 or 128 (HDP) by two boxes'
-//   out-of-bounds zero fill, and so are the rows past S: zero columns add
-//   nothing to Q K^T, and the output columns at or past hd are not stored.
-//   TMA needs byte strides that are multiples of 16, hence hd % 8 == 0.
-// - S = Q K^T: wgmma m64n128k16 with both operands K-major in shared
+//   so GQA repeats nothing.  hd is padded to 64, 128 or 256 (HDP) by the
+//   boxes' out-of-bounds zero fill, and so are the rows past S: zero
+//   columns add nothing to Q K^T, and the output columns at or past hd are
+//   not stored.  TMA needs byte strides that are multiples of 16, hence
+//   hd % 8 == 0.
+// - S = Q K^T: wgmma m64n{kBKey}k16 with both operands K-major in shared
 //   memory, ceil(hd / 16) steps; the fp32 scores stay in registers.
 // - Online softmax on the accumulator fragments (thread t of warp w holds
 //   rows 16 w + t / 4 and + 8, columns in pairs), in base 2 with the scale
@@ -47,14 +51,17 @@
 //   Row sums stay per thread until the end.
 // - O += P V: P is rounded to bf16 in registers and is wgmma's A operand
 //   from registers (the accumulator's layout is the A fragment's); V is B,
-//   read MN-major (transposed) from the swizzled tile, N = HDP.  O stays
-//   fp32 in registers and is divided by the row sum once, then stored bf16
-//   with the row check.
+//   read MN-major (transposed) from the swizzled tile, N = HDP (at 256, two
+//   m64n128k16 halves over the tile's first and last two column boxes).  O
+//   stays fp32 in registers and is divided by the row sum once, then stored
+//   bf16 with the row check.
 //
 // fp32 (the route check's dtype): the earlier design, not redesigned.  TF32
 // tensor cores would not hold the route check's 1e-4, so fp32 keeps plain
 // FMAs from shared memory: 64-row query tiles, 256 threads as a 16 x 16
-// grid, tiles widened in padded shared rows, two __syncthreads per key tile.
+// grid, tiles widened in padded shared rows, two __syncthreads per key tile;
+// one instance for hd <= 128 and one for hd <= 256 (16 output columns a
+// thread, 148 KB of shared memory).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +73,6 @@ namespace {
 // ----------------------------------------------------------------- bf16
 
 constexpr int kBQ = 128;                 // query rows per block
-constexpr int kBKey = 128;               // keys per tile
 constexpr int kStages = 2;               // K / V ring depth
 constexpr int kConsumers = 256;          // two warpgroups
 constexpr int kTcThreads = kConsumers + 128;  // + the producer warpgroup
@@ -76,6 +82,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int HDP>
 struct TcSmem {
   static constexpr int kChunks = HDP / 64;           // 64-column boxes
+  static constexpr int kBKey = HDP == 256 ? 64 : 128;  // keys per tile
   static constexpr int kQ = kChunks * kBQ * kRowBytes;
   static constexpr int kKV = kChunks * kBKey * kRowBytes;  // K or V, one stage
   static constexpr int kBytes = kQ + kStages * 2 * kKV + 1024;  // + alignment
@@ -187,6 +194,24 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D(64 x 64, fp32) (+)= A(64 x 16) B(16 x 64); A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D(64 x 128, fp32) += A(64 x 16, registers) B(16 x 128); B MN-major in shared memory
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
                                                 uint64_t db) {
@@ -231,18 +256,37 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S (+)= Q K^T over 16 columns of hd, N = the key tile
+template <int BKEY>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BKEY / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (BKEY == 128) {
+    wgmma_ss_m64n128(d, da, db, scale_d);
+  } else {
+    wgmma_ss_m64n64(d, da, db, scale_d);
+  }
+}
+
+// O += P V over 16 keys: the keys' rows of V start at shared address `sv`
+// in its first 64-column box, N = HDP.  A box of V is `box` bytes; at HDP
+// = 256 the two halves of O (accumulator registers 0-63 and 64-127 hold
+// columns 0-127 and 128-255) each take two boxes.
 template <int HDP>
 __device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HDP == 128) {
-    wgmma_rs_m64n128(o, a, db);
+                                         uint32_t sv, uint32_t box) {
+  if constexpr (HDP == 256) {
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&o[0]), a, sw128_desc(sv, box, 1024));
+    wgmma_rs_m64n128(*reinterpret_cast<float(*)[64]>(&o[64]), a,
+                     sw128_desc(sv + 2 * box, box, 1024));
+  } else if constexpr (HDP == 128) {
+    wgmma_rs_m64n128(o, a, sw128_desc(sv, box, 1024));
   } else {
-    wgmma_rs_m64n64(o, a, db);
+    wgmma_rs_m64n64(o, a, sw128_desc(sv, box, 1024));
   }
 }
 
 // q, o: (B, S, H, hd); k, v: (B, S, KH, hd); the maps' boxes are 64 x 1 x
-// rows x 1 (rows = 128 for q, 128 for k and v).
+// rows x 1 (rows = 128 for q, the instance's kBKey for k and v).
 template <int HDP>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
@@ -251,6 +295,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
                        __nv_bfloat16* __restrict__ o, int S, int H, int KH, int hd,
                        int causal, int window, float scale_log2) {
   using L = TcSmem<HDP>;
+  constexpr int kBKey = L::kBKey;
   extern __shared__ unsigned char smem_raw[];
   // q_full, k_full[stage], v_full[stage], empty[stage]
   __shared__ __align__(8) uint64_t bars[1 + 3 * kStages];
@@ -328,6 +373,14 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
       const int k0 = k_first + t * kBKey;
       const uint32_t sk = s_kv + s * 2 * L::kKV;
       const uint32_t sv = sk + L::kKV;
+      if (causal && k0 > w_row + 63) {
+        // every key of the tile lies past this warpgroup's rows (a 64-key
+        // tile's last one, beside the other warpgroup's diagonal): release
+        // the stage unread; the other warpgroup's wait keeps it loaded
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(s));
+        continue;
+      }
 
       // S = Q K^T over hd in steps of 16
       float sacc[kBKey / 2];
@@ -341,7 +394,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
           const uint32_t col = (kk % 4) * 32;  // bytes into the 128-byte row
           const uint64_t da = sw128_desc(q_rows + (kk / 4) * kBQ * kRowBytes + col, 16, 1024);
           const uint64_t db = sw128_desc(sk + (kk / 4) * kBKey * kRowBytes + col, 16, 1024);
-          wgmma_ss_m64n128(sacc, da, db, kk > 0);
+          wgmma_qk<kBKey>(sacc, da, db, kk > 0);
         }
       }
       wgmma_commit();
@@ -415,8 +468,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int t16 = 0; t16 < kBKey / 16; ++t16)
-        wgmma_pv<HDP>(oacc, pa[t16],
-                      sw128_desc(sv + t16 * 16 * kRowBytes, kBKey * kRowBytes, 1024));
+        wgmma_pv<HDP>(oacc, pa[t16], sv + t16 * 16 * kRowBytes, kBKey * kRowBytes);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(oacc);
@@ -453,8 +505,7 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
 constexpr int kBQ32 = 64;       // query rows per block
 constexpr int kBK32 = 64;       // keys per tile
 constexpr int kThreads32 = 256;
-constexpr int kMaxHd = 128;
-constexpr int kOutCols = kMaxHd / 16;  // output columns per thread
+constexpr int kMaxHd = 256;
 
 // Loads rows [r0, r0 + 64) of one head (row stride `stride` elements) into
 // a 64 x hd tile with row pitch `pitch`; rows at or past S are zeros.
@@ -482,9 +533,10 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 
 // 256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows 4 ty ..
 // 4 ty + 3, score columns tx + 16 j (j < 4) and output columns tx + 16 c
-// (c < 8, so hd <= 128).  The 16 threads of a row are one half warp, so the
-// row max and row sum are four shuffles.  Shared rows are padded to hd + 1
-// words; K and V share one buffer (K for the scores, then V for P V).
+// (c < HDP / 16, so hd <= HDP).  The 16 threads of a row are one half warp,
+// so the row max and row sum are four shuffles.  Shared rows are padded to
+// hd + 1 words; K and V share one buffer (K for the scores, then V for P V).
+template <int HDP>
 __global__ void __launch_bounds__(kThreads32)
 flash_attention_fp32_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, float* __restrict__ o, int S,
@@ -504,6 +556,7 @@ flash_attention_fp32_fma_kernel(const float* __restrict__ q, const float* __rest
   const int tid = threadIdx.x;
   const int ty = tid >> 4;
   const int tx = tid & 15;
+  constexpr int kOutCols = HDP / 16;  // output columns per thread
 
   const long long qstride = (long long)H * hd;
   const long long kvstride = (long long)KH * hd;
@@ -664,8 +717,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
               int KH, int hd, int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = make_map(&tq, q, B, S, H, hd, kBQ);
-  if (!err) err = make_map(&tk, k, B, S, KH, hd, kBKey);
-  if (!err) err = make_map(&tv, v, B, S, KH, hd, kBKey);
+  if (!err) err = make_map(&tk, k, B, S, KH, hd, TcSmem<HDP>::kBKey);
+  if (!err) err = make_map(&tv, v, B, S, KH, hd, TcSmem<HDP>::kBKey);
   if (err) return err;
   const int smem = TcSmem<HDP>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<HDP>,
@@ -678,14 +731,15 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   return (int)cudaGetLastError();
 }
 
+template <int HDP>
 int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
                 int KH, int hd, int causal, int window, cudaStream_t stream) {
   const int smem = smem_bytes32(hd);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fp32_fma_kernel,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_fp32_fma_kernel<HDP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)(B * H), (unsigned)((S + kBQ32 - 1) / kBQ32));
-  flash_attention_fp32_fma_kernel<<<grid, kThreads32, smem, stream>>>(
+  flash_attention_fp32_fma_kernel<HDP><<<grid, kThreads32, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH, hd, causal,
       window, (float)(1.0 / sqrt((double)hd)));
   return (int)cudaGetLastError();
@@ -694,34 +748,50 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, S, KH, hd), contiguous, H % KH == 0,
-// hd <= 128.  bf16 != 0: __nv_bfloat16 tensors, hd % 8 == 0 and 16-byte
+// hd <= 256.  bf16 != 0: __nv_bfloat16 tensors, hd % 8 == 0 and 16-byte
 // aligned pointers (the tensor cores' instance); else float (FMA instance).
 extern "C" int fedar_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, int B, int S, int H, int KH, int hd,
                                      int causal, int window, int bf16, void* stream) {
   if (hd < 1 || hd > kMaxHd || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (!bf16) return launch_fp32(q, k, v, o, B, S, H, KH, hd, causal, window, s);
+  if (!bf16) {
+    if (hd <= 128) return launch_fp32<128>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
+    return launch_fp32<256>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
+  }
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorMisalignedAddress;
   if (hd % 8) return (int)cudaErrorInvalidValue;
   if (hd <= 64) return launch_tc<64>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
-  return launch_tc<128>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
+  if (hd <= 128) return launch_tc<128>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
+  return launch_tc<256>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
 }
 
-// The bf16 instance's resources at head-dim padding hdp (64 or 128):
+// The bf16 instance's resources at head-dim padding hdp (64, 128 or 256):
 // registers a thread, local (spilled) bytes a thread, static and dynamic
 // shared bytes a block.
 extern "C" int fedar_flash_attention_attrs(int hdp, int* regs, int* local_bytes,
                                            int* static_smem, int* dynamic_smem) {
   cudaFuncAttributes a;
-  cudaError_t err = hdp == 64 ? cudaFuncGetAttributes(&a, flash_attention_kernel<64>)
-                              : cudaFuncGetAttributes(&a, flash_attention_kernel<128>);
+  cudaError_t err;
+  int dyn;
+  if (hdp == 64) {
+    err = cudaFuncGetAttributes(&a, flash_attention_kernel<64>);
+    dyn = TcSmem<64>::kBytes;
+  } else if (hdp == 128) {
+    err = cudaFuncGetAttributes(&a, flash_attention_kernel<128>);
+    dyn = TcSmem<128>::kBytes;
+  } else if (hdp == 256) {
+    err = cudaFuncGetAttributes(&a, flash_attention_kernel<256>);
+    dyn = TcSmem<256>::kBytes;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   *static_smem = (int)a.sharedSizeBytes;
-  *dynamic_smem = hdp == 64 ? TcSmem<64>::kBytes : TcSmem<128>::kBytes;
+  *dynamic_smem = dyn;
   return 0;
 }

@@ -16,8 +16,7 @@ Registered scenarios:
                         robots); the dataset layer turns the per-window
                         index lists into a per-round sample-mask schedule.
   ``corpus_skew``    -- the text analogue of ``label_skew``, for the LM
-                        substrate: not ported yet (ROADMAP.md Queue 1
-                        item 14), it raises.
+                        substrate: Dirichlet skew over sequence topics.
 
 A scenario is ``fn(y, num_clients, samples_per_client, *, seed, **knobs)``
 -> ``ScenarioPlan``; ``samples_per_client=None`` means the whole pool.

@@ -8,6 +8,9 @@ GQA's kv heads as they are (the kernel reads kv head ``h // (H // K)``)
 and any S (the ragged edge is masked).  bfloat16 runs on the tensor cores
 (``wgmma`` on tiles that TMA loads) and needs ``hd % 8 == 0`` (TMA's
 16-byte strides); float32 runs on the FMA instance of the earlier design.
+Both take hd up to 256, as the TPU kernel does for every config of the
+repo: the bf16 instance pads hd to 64, 128 or 256 (64-key tiles at 256, to
+fit shared memory), the fp32 one to 128 or 256.  A larger hd raises.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 BF16_HEAD_DIM_STEP = 8
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -28,7 +31,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     0..S-1, masked to k <= q when ``causal`` and to k > q - ``window`` when
     ``window`` > 0.  On CPU tensors this is the plain version; on CUDA
     tensors it launches the kernel, which takes float32 or bfloat16 and
-    hd <= 128, in bfloat16 a multiple of 8."""
+    hd <= 256, in bfloat16 a multiple of 8."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k, v must be (B, S, heads, hd), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
@@ -73,8 +76,8 @@ flash_attention.launches = 0
 
 
 def tensor_core_attrs(hdp: int) -> dict:
-    """The bfloat16 instance's resources at head-dim padding ``hdp`` (64 or
-    128): registers and spilled (local) bytes a thread, static and dynamic
+    """The bfloat16 instance's resources at head-dim padding ``hdp`` (64,
+    128 or 256): registers and spilled (local) bytes a thread, static and dynamic
     shared bytes a block, as ``cudaFuncGetAttributes`` reports them."""
     vals = [ctypes.c_int() for _ in range(4)]
     ops.check_launch(ops.library().fedar_flash_attention_attrs(

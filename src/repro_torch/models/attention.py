@@ -12,7 +12,7 @@ Decode (``gqa_decode``) is plain PyTorch on every device, as in the
 reference: one query against the whole cache, which is full length
 (``cache_len`` = the longest sequence) or, for a window, a ring buffer of
 ``cache_len`` = window slots.  It reaches no kernel.  MLA is ROADMAP Queue
-1 item 14.3 and raises.
+1 item 14.3b and raises.
 """
 from __future__ import annotations
 
@@ -143,12 +143,12 @@ def gqa_decode(params, cache, x_t, pos: int, cfg: ModelConfig, window: int = 0):
 
 
 def init_mla(*_args, **_kw):
-    raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14)")
+    raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14.3b)")
 
 
 def mla_forward(*_args, **_kw):
-    raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14)")
+    raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14.3b)")
 
 
 def mla_decode(*_args, **_kw):
-    raise NotImplementedError("MLA decode is not ported yet (ROADMAP Queue 1 item 14.3)")
+    raise NotImplementedError("MLA decode is not ported yet (ROADMAP Queue 1 item 14.3b)")

@@ -3,7 +3,7 @@ gated FFN, the ``attn`` kind and zamba's shared block) and the Mamba2
 block.  A block is (init, forward, cache init, decode) over a params dict;
 decode updates the block's cache in place and returns it.
 
-MoE, MLA and xLSTM blocks are ROADMAP Queue 1 item 14 and raise.
+MoE, MLA and xLSTM blocks are ROADMAP Queue 1 item 14.3b and raise.
 """
 from __future__ import annotations
 
@@ -19,9 +19,9 @@ from repro_torch.models.layers import rms_norm
 def check_attn_block(cfg: ModelConfig) -> None:
     """Raise for the attention-block variants not ported yet."""
     if cfg.attention == "mla":
-        raise NotImplementedError("MLA blocks are not ported yet (ROADMAP Queue 1 item 14)")
+        raise NotImplementedError("MLA blocks are not ported yet (ROADMAP Queue 1 item 14.3b)")
     if cfg.num_experts:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP Queue 1 item 14)")
+        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP Queue 1 item 14.3b)")
 
 
 def init_attn_block(generator, cfg: ModelConfig, dtype, device):
@@ -81,12 +81,12 @@ def mamba_block_decode(p, cache, x_t, cfg: ModelConfig):
 
 
 def init_xlstm_pair(*_args, **_kw):
-    raise NotImplementedError("xLSTM blocks are not ported yet (ROADMAP Queue 1 item 14)")
+    raise NotImplementedError("xLSTM blocks are not ported yet (ROADMAP Queue 1 item 14.3b)")
 
 
 def xlstm_pair_forward(*_args, **_kw):
-    raise NotImplementedError("xLSTM blocks are not ported yet (ROADMAP Queue 1 item 14)")
+    raise NotImplementedError("xLSTM blocks are not ported yet (ROADMAP Queue 1 item 14.3b)")
 
 
 def xlstm_pair_decode(*_args, **_kw):
-    raise NotImplementedError("xLSTM decode is not ported yet (ROADMAP Queue 1 item 14.3)")
+    raise NotImplementedError("xLSTM decode is not ported yet (ROADMAP Queue 1 item 14.3b)")

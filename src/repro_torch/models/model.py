@@ -7,7 +7,7 @@ Two structural kinds of the reference's three are ported:
   zamba  -- Mamba2 blocks plus ONE weight-shared attention block applied
             after every ``shared_attn_every``-th layer (Zamba2)
 The ``xlstm`` kind, the stubbed modality frontends, MoE and MLA raise
-``NotImplementedError`` (ROADMAP Queue 1 item 14).
+``NotImplementedError`` (ROADMAP Queue 1 item 14.3b).
 
 Params are a dict of tensors in the reference's tree, except that
 ``layers`` is a list with one dict per layer (the reference stacks them on
@@ -73,10 +73,10 @@ class Model:
                  ssm_impl: str = "auto"):
         if cfg.family == "ssm" and "s" in cfg.block_pattern:
             raise NotImplementedError("the xlstm kind is not ported yet "
-                                      "(ROADMAP Queue 1 item 14)")
+                                      "(ROADMAP Queue 1 item 14.3b)")
         if cfg.frontend:
             raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet "
-                                      "(ROADMAP Queue 1 item 14)")
+                                      "(ROADMAP Queue 1 item 14.3b)")
         blocks.check_attn_block(cfg)
         self.cfg = cfg
         self.kind = "zamba" if cfg.family == "hybrid" and cfg.shared_attn_every else "attn"

@@ -26,7 +26,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
 from repro_torch.kernels.defense_sim import sketch_similarity
 from repro_torch.kernels.fedavg_agg import fedavg_agg
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention, tensor_core_attrs
 from repro_torch.kernels.local_sgd import local_sgd, local_sgd_ragged
 from repro_torch.kernels.ssm_scan import kernel_attrs, plan, ssm_scan
 from repro_torch.models.model import Model
@@ -553,6 +553,55 @@ def test_flash_attention_bf16_gqa_window_and_full(cuda_device, B, S, H, K, hd, w
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S,H,K,hd,window,causal", [
+    (1, 1000, 4, 1, 256, 512, True),  # gemma3-1b's local layer, ragged S, one kv head
+    (2, 333, 4, 1, 256, 0, True),     # its global layer
+    (1, 200, 2, 2, 256, 48, False),   # window without the causal mask
+    (1, 129, 2, 1, 200, 0, True),     # a head_dim that pads to 256
+    (1, 129, 2, 1, 136, 0, True),     # its last 64-column box wholly past hd
+    (1, 64, 4, 2, 256, 0, True),      # one 64-key tile
+])
+def test_flash_attention_kernel_at_head_dim_256(cuda_device, dtype, B, S, H, K, hd,
+                                                window, causal):
+    """The instances that pad hd to 256 (bf16: 64-key tiles, P V in two
+    m64n128 halves; fp32: 16 output columns a thread) against the plain
+    version, with the tolerances of ``test_flash_attention_kernel_matches_plain``."""
+    gen = torch.Generator().manual_seed(S * 7 + hd)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen).to(cuda_device, dtype)
+               for n in (H, K, K))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == n0 + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    _close(got, want, 1e-4 if dtype == torch.float32 else BF16_RTOL)
+
+
+@pytest.mark.parametrize("hdp", [64, 128, 256])
+def test_flash_attention_bf16_instances_spill_nothing(cuda_device, hdp):
+    """Each bf16 instance keeps its accumulators in registers (0 local
+    bytes) and its tiles within the shared memory a block may take."""
+    a = tensor_core_attrs(hdp)
+    assert a["local_bytes"] == 0, a
+    assert a["static_smem"] + a["dynamic_smem"] <= ops.MAX_SMEM_BYTES, a
+
+
+def test_gemma3_shape_at_head_dim_256_launches_the_kernel_once_a_layer(cuda_device):
+    """Two gemma3-1b layers at its head_dim of 256 (one kv head, the local
+    window) under ``attn_impl="auto"``: one launch a layer, and each block
+    within 1e-4 of the plain route in fp32 (``_check_blocks``)."""
+    cfg = dataclasses.replace(get_config("gemma3-1b").reduced(), head_dim=256)
+    model = Model(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = model.init_params(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen, device=cuda_device)
+    n0 = flash_attention.launches
+    got = model.prefill(params, {"tokens": tokens})
+    assert flash_attention.launches - n0 == cfg.num_layers
+    assert got.shape == (2, cfg.vocab_size) and torch.isfinite(got).all()
+    _check_blocks(cfg, params, tokens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("B,S,nh,hd,st", [(2, 200, 8, 64, 64), (1, 128, 4, 32, 16)])
 def test_ssm_scan_kernel_matches_plain(cuda_device, dtype, B, S, nh, hd, st):
     """Against the sequential recurrence: fp32 sums in another order over S
@@ -678,9 +727,11 @@ def test_ssm_scan_resources_match_the_plan(cuda_device):
 
 def test_lm_kernel_wrappers_validate_arguments(cuda_device):
     dev = cuda_device
-    q = torch.randn(1, 8, 2, 129, device=dev)
+    q = torch.randn(1, 8, 2, MAX_HEAD_DIM + 8, device=dev)  # 264
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q.to(torch.bfloat16), q.to(torch.bfloat16), q.to(torch.bfloat16))
     q = torch.randn(1, 8, 2, 100, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):  # bf16: TMA's 16-byte strides
         flash_attention(q, q, q)
