@@ -65,9 +65,11 @@ Phases (any failure raises and the script exits non-zero):
 
 9b. Serving decode (``Model.init_cache`` / ``decode_step``, plain PyTorch,
    as ``examples/serve_decode.py`` runs it): on phase 9's bf16 params, B = 4
-   then B = 1, each a 512-token prompt stepped through a fresh cache and 128
-   greedy tokens after 8 warm-up steps; then tinyllama-1.1b at full width
-   (32 heads over 4 kv heads), B = 4.  Each run prints ms a step (host
+   with a 512-token prompt stepped through a fresh cache and 128 greedy
+   tokens after 8 warm-up steps, then B = 1 with a 64-token prompt and 64
+   tokens through 128 slots; then tinyllama-1.1b at full width (32 heads
+   over 4 kv heads), B = 4, 64 + 64 through 128 slots (both cut from 512 +
+   128 to keep the phase short).  Each run prints ms a step (host
    clock, one sync at the end), generated tokens/s, launches a step and the
    device idle share (``torch.profiler`` over 4 more steps), peak memory,
    cache bytes and the step's bytes bound; no kernel may launch, the
@@ -133,6 +135,28 @@ Phases (any failure raises and the script exits non-zero):
    gemma3; the fp32 route check at full width and depth; phase 9b's fp32
    decode-vs-prefill check over 2 x 256 positions.
 
+13. The data layer and the two FedAR examples at full width (784 -> 128 ->
+   10, B = 20).  13a: MNIST's four IDX files (60,000 + 10,000, plain, at the
+   top level) and EMNIST-digits' (240,000 + 40,000, gzipped, stored
+   transposed, under ``emnist/``) written into a temp dir from
+   ``make_digits`` as uint8; ``get_source`` must give an ``ArraySource``, not
+   the fallback, of each length, and EMNIST's images after the loader's
+   transpose must equal the written ones.  13b: the quickstart's second line
+   as ``examples/quickstart_torch.py`` builds it (512 clients, emnist,
+   quantity_skew, ``select_frac`` 0.5, 300 samples a client, foolsgold_sketch
+   on the IDX pool): ``prepare_data`` must pick the packed layout, 6 rounds
+   (round 1 warm-up) with ``local_sgd_ragged``, ``fedavg_agg``,
+   ``sketch_similarity`` and ``count_sketch`` once a round and ``local_sgd``
+   never, each round held against the plain route from the same state; then
+   one round with an empty cache dir, which must run on the fallback.  13c:
+   ``examples/poisoning_defense_torch.py`` on the EMNIST pool at 12 robots
+   and at 128 clients with 32 sybils (300 samples, 10 rounds, defended and
+   undefended), the launches of each, one more defended round at 128 held
+   against the plain route, and the reference's law for the sketched
+   defense at its own configuration (``tests/test_foolsgold_regression.py``:
+   128 clients, 32 sybils, 100 samples, ``small_model(32)``, 6 rounds):
+   every sybil's weight below 0.1, every honest one above 0.5.
+
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
 longest client's steps on its cluster's SMs at their share of the fp32
@@ -162,10 +186,13 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import gzip
+import importlib.util
 import json
 import re
 import statistics
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2236,6 +2263,199 @@ def lm_train_phase(req, every, entries, smi: str, profile_dir=None) -> None:
     print(f"[phase 11] {time.perf_counter() - t_phase:.1f} s ({', '.join(parts)})")
 
 
+# Phase 13a's files, at the real datasets' sizes: (dataset, split) ->
+# (images, seed of make_digits)
+IDX_SIZES = {("mnist", "train"): (60_000, 31), ("mnist", "test"): (10_000, 32),
+             ("emnist", "train"): (240_000, 33), ("emnist", "test"): (40_000, 34)}
+QUICKSTART_CLIENTS = 512  # the quickstart's second line
+DEMO_CLIENTS = 128  # the poisoning demo at engine scale
+
+
+def plain_route(fed):
+    """``fed`` with every round kernel on its plain version."""
+    return dataclasses.replace(fed, sgd_impl="einsum", agg_impl="einsum",
+                               defense_impl="einsum")
+
+
+def load_example(name: str):
+    path = ROOT / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_idx_cache(root: Path) -> dict:
+    """Phase 13a: MNIST's four IDX files, plain, at the top level of
+    ``root``, and EMNIST-digits', gzipped at level 1 and stored transposed
+    as EMNIST stores them, under ``root/emnist/``, written from
+    ``make_digits`` quantized to uint8.  Returns {(dataset, split): (uint8
+    images in MNIST orientation, labels)}."""
+    from repro_torch.data.sources import IDX_FILES
+    from repro_torch.data.synthetic import make_digits
+
+    written = {}
+    for (name, split), (n, seed) in IDX_SIZES.items():
+        x, y = make_digits(n, seed=seed)
+        imgs = np.rint(x * 255.0).astype(np.uint8).reshape(n, 28, 28)
+        labels = y.astype(np.uint8)
+        stored = imgs.transpose(0, 2, 1) if name == "emnist" else imgs
+        base = root / name if name == "emnist" else root
+        base.mkdir(parents=True, exist_ok=True)
+        for fname, arr in zip(IDX_FILES[(name, split)], (stored, labels)):
+            raw = (struct.pack(">HBB", 0, 0x08, arr.ndim)
+                   + struct.pack(f">{arr.ndim}I", *arr.shape)
+                   + np.ascontiguousarray(arr).tobytes())
+            if name == "emnist":
+                (base / f"{fname}.gz").write_bytes(gzip.compress(raw, 1))
+            else:
+                (base / fname).write_bytes(raw)
+        written[(name, split)] = (imgs, labels)
+    return written
+
+
+def check_idx_sources(root: Path, written: dict) -> None:
+    """Each split through ``get_source``: an ``ArraySource``, not the
+    fallback, of the written length; EMNIST's images, after the loader's
+    transpose, equal to the generated ones, and its labels."""
+    from repro_torch.data.sources import ArraySource, get_source
+
+    for (name, split), (imgs, labels) in written.items():
+        src = get_source(name, cache_dir=str(root), split=split)
+        if not isinstance(src, ArraySource) or src.fallback or len(src) != len(labels):
+            raise AssertionError(f"{name}/{split}: get_source gave {src!r}, not the "
+                                 f"{len(labels)}-sample IDX pool")
+        if name == "emnist" and not (
+                np.array_equal(src.x, imgs.reshape(len(imgs), -1).astype(np.float32) / 255.0)
+                and np.array_equal(src.y, labels.astype(np.int32))):
+            raise AssertionError(f"emnist/{split}: loaded images differ from the written ones")
+        print(f"  {name}/{split}: ArraySource of {len(src)} samples, {src.num_classes} "
+              f"classes, fallback {src.fallback}"
+              + (", images equal to the written ones after the transpose ok"
+                 if name == "emnist" else ""))
+
+
+def data_phase(req, every, packed_kernels, sketched, entries) -> None:
+    """Phase 13: the IDX data layer at the real datasets' sizes (13a), the
+    quickstart's second line (13b) and the poisoning demo (13c), each as its
+    example runs it, on the card."""
+    from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed, small_model
+    from repro_torch.core.engine import PackedLayout
+    from repro_torch.core.fedar import FedARServer
+    from repro_torch.data.federated import sybil_fleet
+    from repro_torch.data.sources import get_source
+    from repro_torch.data.synthetic import make_digits
+    from repro_torch.kernels.local_sgd import local_sgd
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        print("\n[idx sources] MNIST (plain, top level) and EMNIST-digits (gzipped, "
+              "transposed, under emnist/) from make_digits as uint8")
+        t0 = time.perf_counter()
+        written = write_idx_cache(root)
+        t_write = time.perf_counter() - t0
+        check_idx_sources(root, written)
+        del written
+        t13a = time.perf_counter() - t0
+        print(f"[13a] files written in {t_write:.2f} s; set-up and checks {t13a:.2f} s")
+
+        # --- 13b: the quickstart's second line, as quickstart_torch.py runs it
+        t0 = time.perf_counter()
+        qs = load_example("quickstart_torch")
+        line = ["--clients", str(QUICKSTART_CLIENTS), "--dataset", "emnist", "--scenario",
+                "quantity_skew", "--select_frac", "0.5"]
+        print(f"\n[quickstart] {' '.join(line)}")
+        _, ds, server, data, eval_set = qs.build(line + ["--cache_dir", str(root)])
+        torch.cuda.synchronize()
+        print(f"  set-up (fleet from the IDX pool, layout, moved to the card) "
+              f"{time.perf_counter() - t0:.2f} s")
+        if ds.fallback or not isinstance(data.get("packed"), PackedLayout):
+            raise AssertionError("the quickstart's emnist fleet is the fallback, or "
+                                 "prepare_data did not pick the packed layout")
+        rounds = 6
+        times, launches, starts = timed_rounds(server, data, eval_set, rounds,
+                                               packed_kernels, every)
+        if any(n != rounds for n in launches.values()) or local_sgd.launches:
+            raise AssertionError(f"launches {launches}, local_sgd {local_sgd.launches}: "
+                                 f"each path kernel must launch once a round, local_sgd never")
+        print(f"acc {[round(a, 4) for a in server.history['acc']]}; selected per round "
+              f"{[int(m.sum()) for m in server.history['selected']]}")
+        if not torch.isfinite(server.state.params).all():
+            raise AssertionError("the quickstart's line produced non-finite params")
+        plain = FedARServer(MnistConfig(), plain_route(server.fed), req, device=DEV)
+        check_each_round(server, plain.engine, data, starts)
+        for name, count in launches.items():
+            entries[name].setdefault("phase13", {})["quickstart"] = count
+        del ds, server, data, plain, starts
+        empty = root / "empty"
+        empty.mkdir()
+        _, ds, server, data, eval_set = qs.build(line + ["--cache_dir", str(empty)])
+        server.run_round(data, eval_set=eval_set)
+        if not ds.fallback or not torch.isfinite(server.state.params).all():
+            raise AssertionError("with an empty cache the line must run on the fallback "
+                                 "and give finite params")
+        print(f"  empty cache dir: fallback {ds.fallback}, one round, params finite ok, "
+              f"acc {server.history['acc'][-1]:.4f}")
+        del ds, server, data
+        t13b = time.perf_counter() - t0
+        print(f"[13b] {t13b:.1f} s; steady rounds/s (rounds 2-{rounds}) "
+              f"{(rounds - 1) / sum(times[1:]):.3f}")
+
+        # --- 13c: the poisoning demo, as poisoning_defense_torch.py runs it
+        t0 = time.perf_counter()
+        pd = load_example("poisoning_defense_torch")
+        for clients in (12, DEMO_CLIENTS):
+            argv = ["--clients", str(clients), "--dataset", "emnist", "--cache_dir", str(root)]
+            print(f"\n[poisoning demo] {' '.join(argv[:4])}, 300 samples a client, 10 rounds")
+            for k in every:
+                k.launches = 0
+            defended, undefended, fgw, sybils = pd.main(argv)
+            launched = {k.__name__: k.launches for k in sketched if k.launches}
+            print(f"  launches over both runs: {launched}")
+            path = sketched if clients > 12 else sketched[:3]
+            if any(k.launches == 0 for k in path):
+                raise AssertionError("a kernel of the demo's path never launched")
+            for name, count in launched.items():
+                entries[name].setdefault("phase13", {})[f"demo N={clients}"] = count
+            for srv in (defended, undefended):
+                if not torch.isfinite(srv.state.params).all():
+                    raise AssertionError("the demo produced non-finite params")
+            if fgw is not None:
+                print(f"  defense weights after 10 rounds: sybil max {fgw[sybils].max():.4f}, "
+                      f"honest min {fgw[~sybils].min():.4f} (not held: see the law below)")
+        # one more defended engine-scale round against the plain route
+        args = pd.parse_args(argv)
+        _, data, _ = pd.fleet(args, "foolsgold_sketch", get_source("emnist", cache_dir=str(root)))
+        data = defended.engine.device_data(data)
+        start = defended.state
+        ex, ey = get_source("emnist", cache_dir=str(root), split="test").sample(500, seed=99)
+        defended.run_round(data, eval_set=(ex, ey))
+        plain = FedARServer(MnistConfig(), plain_route(defended.fed), req, device=DEV)
+        check_round(len(defended.history["selected"]) - 1, defended, plain.engine, data,
+                    start, defended.state)
+        print("  the defended round 11: trust, selected and on-time masks identical to the "
+              "plain route from the same state")
+        # the law where the reference pins it (tests/test_foolsgold_regression.py):
+        # N = 128 with 32 sybils, 100 samples a client, small_model(32), 6 rounds
+        fed = fleet_fed(128, local_epochs=2, defense="foolsgold_sketch", num_poisoners=32,
+                        num_starved=0, client_fraction=1.0, deviation_gamma=1e9)
+        law, mask = sybil_fleet(128, 32, samples_per_client=100)
+        srv = FedARServer(small_model(32), fed, req, device=DEV)
+        srv.run(law, rounds=6, eval_set=make_digits(300, seed=99))
+        w = srv.engine.defense.weights(
+            srv.fg_history, torch.ones(128, dtype=torch.bool, device=DEV)).cpu().numpy()
+        ok = w[mask].max() < 0.1 and w[~mask].min() > 0.5
+        print(f"  the law at the reference's configuration (128 clients, 32 sybils, 100 "
+              f"samples, small_model(32), 6 rounds): sybil max {w[mask].max():.4f} < 0.1, "
+              f"honest min {w[~mask].min():.4f} > 0.5 {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the sketched defense misses the sybil clique")
+        t13c = time.perf_counter() - t0
+    print(f"[phase 13] {time.perf_counter() - t_phase:.1f} s (13a {t13a:.1f}, 13b "
+          f"{t13b:.1f}, 13c {t13c:.1f})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2246,6 +2466,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
     from repro_torch.core.engine import PackedLayout, flatten, unflatten
@@ -2373,10 +2594,6 @@ def main() -> int:
         raise AssertionError("main path produced non-finite or misshapen params")
     if not hist["acc"][-1] > 0.5:
         raise AssertionError(f"accuracy after {rounds} rounds is {hist['acc'][-1]}")
-
-    def plain_route(f):
-        return dataclasses.replace(f, sgd_impl="einsum", agg_impl="einsum",
-                                   defense_impl="einsum")
 
     plain = FedARServer(MnistConfig(), plain_route(fed), req, device=DEV)
     t0 = time.perf_counter()
@@ -2634,12 +2851,13 @@ def main() -> int:
     # against prefill block by block on its fp32 model
     t9b = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(4)
-    serve_decode(model, params, (4, 1), every, gen, profile_dir)
+    serve_decode(model, params, (4,), every, gen, profile_dir)
+    serve_decode(model, params, (1,), every, gen, profile_dir, 64, 64)
     del model, params
     torch.cuda.empty_cache()
     model = Model(get_config("tinyllama-1.1b"))
     params = model.init_params(torch.Generator(device=DEV).manual_seed(5))
-    serve_decode(model, params, (4,), every, gen, profile_dir)
+    serve_decode(model, params, (4,), every, gen, profile_dir, 64, 64)
     del model, params
     torch.cuda.empty_cache()
     t9b = time.perf_counter() - t9b
@@ -2665,6 +2883,10 @@ def main() -> int:
     dense_phase(get_config("gemma3-1b"), lm_kernels, every, entries, profile_dir,
                 decode=(512, 128), route_layers=None, decode_check=True)
     print(f"[phase 12] {time.perf_counter() - t12:.1f} s")
+
+    # --- phase 13: the IDX data layer and the two FedAR examples
+    data_phase(req, every, packed_kernels, sketched, entries)
+    print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",
              "pack_codes", "unpack_codes", "topk_decode", "flash_attention", "ssm_scan",

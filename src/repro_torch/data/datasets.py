@@ -8,11 +8,16 @@ Builders:
 
   ``table2``   -- the paper's exact 12-robot fleet (Table II).
   ``scaled``   -- Table II tiled to any fleet size.
-  ``digits``   -- a pool dataset: a synthetic sample pool split by a named
-                  non-IID scenario from ``data/scenarios.py`` (``iid``,
-                  ``label_skew``, ``quantity_skew``, ``robot_drift``).
-  ``mnist`` / ``emnist`` (the IDX pools) and ``sybil`` (the replica sybil
-  clique) are not ported yet and raise, naming ROADMAP.md Queue 1 item 13.
+  ``sybil``    -- the tiled honest fleet plus a replica sybil clique (the
+                  defense demo's threat model); knob ``num_sybils``
+                  (default N / 4).
+  ``digits`` / ``mnist`` / ``emnist``
+               -- pool datasets: a sample pool from ``data/sources.py``
+                  (real IDX files from the local cache, or the
+                  deterministic offline fallback; never the network) split
+                  by a named non-IID scenario from ``data/scenarios.py``
+                  (``iid``, ``label_skew``, ``quantity_skew``,
+                  ``robot_drift``).
 
 Pool datasets are ragged (clients hold different sample counts), so shards
 are zero-padded to a rectangle and carry a ``mask``; ``sizes`` holds the
@@ -33,14 +38,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.resources import POISON_FRAC
-from repro_torch.data.federated import scaled_fleet, table2_fleet
+from repro_torch.data.federated import scaled_fleet, sybil_fleet, table2_fleet
 from repro_torch.data.scenarios import (
     bucket_widths,
     make_scenario,
     pick_layout,
     plan_sizes,
 )
-from repro_torch.data.sources import get_source
+from repro_torch.data.sources import ArraySource, get_source
 
 
 def inert_clients(count: int, samples: int, dim: int, *, windows: int = 0,
@@ -341,6 +346,8 @@ class VirtualFleet:
         self.num_clients = num_clients
         self.num_poisoners = num_poisoners
         self.seed = seed
+        self.scenario = None
+        self.fallback = False
         self.device = resolve_device(device)
         # rows 0-11: the honest Table II profiles; 12-23: the same profiles
         # with the poisoners' label flip
@@ -475,10 +482,19 @@ def _scaled(num_clients, *, seed=0, num_poisoners=None, flip_frac=0.6,
 
 
 @register_builder("sybil")
-def _sybil(num_clients, **knobs):
-    raise NotImplementedError(
-        "the 'sybil' fleet (sybil_fleet) is not ported yet: ROADMAP.md "
-        "Queue 1 item 13"
+def _sybil(num_clients, *, num_sybils=None, seed=0, samples_per_client=200,
+           flip_frac=1.0, target_shift=1, source="synthetic", cache_dir=None):
+    src = get_source(source, cache_dir=cache_dir)
+    if num_sybils is None:
+        num_sybils = num_clients // 4
+    data, sybils = sybil_fleet(
+        num_clients, num_sybils, seed=seed,
+        samples_per_client=samples_per_client, flip_frac=flip_frac,
+        target_shift=target_shift, source=src,
+    )
+    return FederatedDataset(
+        name="sybil", **data, poisoners=sybils, fallback=src.fallback,
+        meta={"source": src.name, "num_sybils": num_sybils},
     )
 
 
@@ -520,8 +536,12 @@ def _pool_builder(dataset: str):
     def build(num_clients, *, scenario="label_skew", samples_per_client=200,
               seed=0, cache_dir=None, **scenario_knobs):
         src = get_source(dataset, cache_dir=cache_dir)
-        pool_n = max(num_clients * (samples_per_client or 200), 2048)
-        px, py = src.sample(pool_n, seed=seed * 7919 + 11)
+        if isinstance(src, ArraySource):
+            px, py = src.x, src.y
+        else:
+            # the synthetic or fallback pool, sized to the fleet's demand
+            pool_n = max(num_clients * (samples_per_client or 200), 2048)
+            px, py = src.sample(pool_n, seed=seed * 7919 + 11)
         plan = make_scenario(scenario, py, num_clients, samples_per_client,
                              seed=seed, **scenario_knobs)
         return _assemble(

@@ -4,7 +4,8 @@ builders).
 ``table2_fleet`` reproduces the paper's Table II: 12 robots, per-robot
 label subsets / sample counts / activation functions, with the two
 poisoners label-flipping.  ``scaled_fleet`` tiles Table II out to any fleet
-size for engine-scale runs.  Both take an optional sample ``source``
+size for engine-scale runs; ``sybil_fleet`` adds a replica sybil clique to
+the tiled fleet.  All three take an optional sample ``source``
 (``data/sources.py``; the synthetic generator by default).
 ``dirichlet_partition`` is the non-IID label splitter the scenarios use.
 """
@@ -96,6 +97,36 @@ def scaled_fleet(num_clients: int, *, seed: int = 0,
         mask[list(poisoners)] = True
         return data, mask
     return data
+
+
+def sybil_fleet(num_clients: int, num_sybils: int, *, seed: int = 0,
+                samples_per_client: int = 200, flip_frac: float = 1.0,
+                target_shift: int = 1, source: DigitSource | None = None):
+    """The tiled honest fleet plus a replica sybil clique (the FoolsGold
+    threat model of Fung et al.): the last ``num_sybils`` clients all hold
+    the same poisoned shard, one dataset with labels shifted ``y -> (y +
+    target_shift) % 10`` on ``flip_frac`` of its samples, so they push one
+    objective and their updates are near-identical.
+
+    Returns (data dict, (num_clients,) bool sybil mask)."""
+    src = source if source is not None else SyntheticSource()
+    profiles = [TABLE_II[i % len(TABLE_II)] for i in range(num_clients)]
+    data = _build_fleet(profiles, set(), flip_frac=0.0, seed=seed,
+                        samples_per_client=samples_per_client, source=src)
+    mask = np.zeros(num_clients, bool)
+    if num_sybils:
+        mask[num_clients - num_sybils:] = True
+        n = data["x"].shape[1]
+        x, y = src.sample(n, seed=seed * 101 + 999)
+        k = int(n * flip_frac)
+        idx = np.random.default_rng(seed + 7).choice(n, k, replace=False)
+        y[idx] = (y[idx] + target_shift) % 10
+        for i in np.where(mask)[0]:
+            data["x"][i] = x
+            data["y"][i] = y
+            data["activations"][i] = 1
+            data["sizes"][i] = n
+    return data, mask
 
 
 def safe_dirichlet(rng, alpha: float, n: int, size=None) -> np.ndarray:

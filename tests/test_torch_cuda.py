@@ -926,3 +926,83 @@ def test_count_sketch_is_bit_equal_run_to_run(cuda_device, n, D):
     err = (runs[0][1:].double() - exact[1:]).abs().max().item()
     assert err <= 1e-6 + 1e-5 * exact[1:].abs().max().item()
     assert torch.equal(torch.isnan(runs[0]), torch.isnan(want))
+
+
+# ---------------------------------------------------------------------------
+# fleets drawn from IDX files (ArraySource) through the engine on the card
+# ---------------------------------------------------------------------------
+
+def _replayed_draws(rounds, n, device):
+    """The same Gumbel draws and latency factors for a card run and a CPU
+    run (the engine's own generators differ between the two devices)."""
+    from repro_torch.convert import ReplayDraws
+    from repro_torch.core.resources import LATENCY_JITTER
+
+    rng = np.random.default_rng(11)
+    gumbel = rng.gumbel(size=(rounds, n))
+    latency = np.exp(LATENCY_JITTER * rng.standard_normal((rounds, n)))
+    return ReplayDraws(gumbel, latency, device=device)
+
+
+@pytest.mark.parametrize("fleet", ["emnist-quantity-skew", "sybil-mnist"])
+def test_idx_fleets_on_the_card_match_the_cpu(cuda_device, tmp_path, fleet):
+    """A fleet drawn from IDX files (``ArraySource``: a quantity-skewed
+    EMNIST pool on the packed layout with selection gating, and a sybil
+    clique over MNIST) through the engine on the card, kernel route, and on
+    the CPU, plain route, from the same draws: the card launches its kernels,
+    trust and masks are identical, params within 2e-4."""
+    from _idx_files import write_cache
+
+    write_cache(tmp_path, n=600)
+    if fleet == "sybil-mnist":
+        ds = make_federated("sybil", 24, samples_per_client=40, source="mnist",
+                            cache_dir=str(tmp_path))
+        fed = fleet_fed(24, local_epochs=2, defense="foolsgold_sketch",
+                        num_poisoners=6, num_starved=0, client_fraction=1.0)
+        kernels = (local_sgd, fedavg_agg, sketch_similarity)
+    else:
+        ds = make_federated("emnist", 16, scenario="quantity_skew", samples_per_client=40,
+                            cache_dir=str(tmp_path))
+        fed = fleet_fed(16, defense="foolsgold_sketch", select_frac=0.5)
+        kernels = (local_sgd_ragged, fedavg_agg, sketch_similarity)
+    assert not ds.fallback
+    rounds = 3
+    card = FedARServer(small_model(32), fed, TaskRequirement(),
+                       draws=_replayed_draws(rounds, ds.num_clients, cuda_device))
+    cpu = FedARServer(small_model(32), fed, TaskRequirement(), device="cpu",
+                      draws=_replayed_draws(rounds, ds.num_clients, "cpu"))
+    data = card.engine.prepare_data(ds)
+    assert ("packed" in data) == (fleet != "sybil-mnist")
+    counts = [k.launches for k in kernels]
+    card.run(data, rounds=rounds)
+    assert all(k.launches == c + rounds for k, c in zip(kernels, counts))
+    cpu.run(ds, rounds=rounds)
+    for key in ("trust", "selected", "on_time"):
+        np.testing.assert_array_equal(np.stack(card.history[key]),
+                                      np.stack(cpu.history[key]))
+    torch.testing.assert_close(card.state.params.cpu(), cpu.state.params,
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("quickstart_torch", ["--clients", "16", "--dataset", "emnist", "--scenario",
+                          "quantity_skew", "--select_frac", "0.5"]),
+    ("poisoning_defense_torch", ["--clients", "64", "--dataset", "emnist"]),
+])
+def test_examples_run_on_the_card_by_default(cuda_device, tmp_path, capsys, name, argv):
+    """The two FedAR examples with no ``--device``, on IDX files: they run
+    on the card and launch its kernels."""
+    import importlib.util
+
+    from _idx_files import write_cache
+
+    write_cache(tmp_path, n=600)
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    before = fedavg_agg.launches
+    mod.main(argv + ["--rounds", "2", "--samples", "30", "--cache_dir", str(tmp_path)])
+    assert fedavg_agg.launches > before
+    out = capsys.readouterr().out
+    assert "fallback" not in out and "final" in out
