@@ -157,6 +157,19 @@ Phases (any failure raises and the script exits non-zero):
    128 clients, 32 sybils, 100 samples, ``small_model(32)``, 6 rounds):
    every sybil's weight below 0.1, every honest one above 0.5.
 
+14. The client mesh (``FedConfig.mesh_shape``, ``core/distributed.py``):
+   a one-rank NCCL process group (a ``FileStore`` in a temp dir) under
+   ``MeshComms``, on the 12-robot main path (5 rounds) and phase 4's
+   512-client fleet (6 rounds), fedar + foolsgold_sketch at full width:
+   ``local_sgd``, ``fedavg_agg``, ``sketch_similarity`` and ``count_sketch``
+   must launch, and the trust, masks, params and defense history must be
+   bit-equal to the resident engine's from the same init.  On a machine of
+   2 or more cards, the same two fleets on k = min(4, cards) spawned NCCL
+   ranks (``distributed.spawn``, one a card) against the one-rank run:
+   trust and masks identical, params within 2e-4, each rank's kernels
+   launched, steady rounds/s; on one card that check prints that it was
+   skipped.
+
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
 longest client's steps on its cluster's SMs at their share of the fp32
@@ -428,9 +441,11 @@ def kernel_phase(ref, kernels, fleet):
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 
-    # --- kernel 2: fedavg_agg, D = 101,770 (H = 128)
+    # --- kernel 2: fedavg_agg, D = 101,770 (H = 128); N = 128 is a rank's
+    # rows of the 512-client fleet on a 4-rank mesh (phase 14)
     print("fedavg_agg (tolerance: fp32 sums over N clients in another order)")
-    for N, stale in ((12, False), (12, True), (512, False), (512, True)):
+    for N, stale in ((12, False), (12, True), (128, False), (128, True),
+                     (512, False), (512, True)):
         deltas = (torch.randn(N, D, generator=gen) * 0.01).to(dev)
         w = torch.rand(N, generator=gen).to(dev)
         tau = (torch.randint(0, 4, (N,), generator=gen).to(torch.float32).to(dev)
@@ -457,27 +472,34 @@ def kernel_phase(ref, kernels, fleet):
                 bound_by=b_by, library_ms=lib_ms)
 
     # --- kernel 3: sketch_similarity on unit rows (the defense's input).
-    # The path calls it as sketch_similarity(unit, unit) (core/foolsgold.py),
-    # a Gram product, so its one (M, K) operand is read once: the bytes
-    # bound counts M*K in and M*M out.
+    # On one device the path calls it as sketch_similarity(unit, unit)
+    # (core/foolsgold.py), a Gram product, so its one (M, K) operand is read
+    # once: the bytes bound counts M*K in and M*M out.  On a k-rank mesh
+    # each rank calls sketch_similarity(unit_loc, unit_full), its (M, K)
+    # block against the gathered (N, K) rows, M = N / k: M*K + N*K in, M*N
+    # out.  The rectangular cases are phase 14's at k = 4: 3 of 12 and 128
+    # of 512 rows (rank 1's, at a row offset), K = 256.
     print("sketch_similarity (tolerance: fp32 dot products of unit rows "
           "summed in another order)")
-    for M, K in ((12, 256), (512, 256), (12, D)):
-        a = torch.randn(M, K, generator=gen).to(dev)
-        a = a / torch.linalg.vector_norm(a, dim=1, keepdim=True)
-        got = sketch_similarity(a, a)
-        want = ref.sketch_similarity_ref(a, a)
-        err = compare(f"{M}x{K}", got, want, atol=1e-5, rtol=0.0)
-        k_ms = time_ms(lambda: sketch_similarity(a, a), reps=20)
-        p_ms = time_ms(lambda: ref.sketch_similarity_ref(a, a), reps=20)
-        lib_ms = time_ms(lambda: torch.matmul(a, a.T), reps=20)
-        b_ms, b_by = bound_ms(4 * (M * K + M * M), 2 * M * M * K)
+    for M, N, K in ((12, 12, 256), (512, 512, 256), (12, 12, D),
+                    (3, 12, 256), (128, 512, 256)):
+        full = torch.randn(N, K, generator=gen).to(dev)
+        full = full / torch.linalg.vector_norm(full, dim=1, keepdim=True)
+        a = full[M:2 * M] if M < N else full
+        got = sketch_similarity(a, full)
+        want = ref.sketch_similarity_ref(a, full)
+        err = compare(f"{M}x{K} against {N}x{K}", got, want, atol=1e-5, rtol=0.0)
+        k_ms = time_ms(lambda: sketch_similarity(a, full), reps=20)
+        p_ms = time_ms(lambda: ref.sketch_similarity_ref(a, full), reps=20)
+        lib_ms = time_ms(lambda: torch.matmul(a, full.T), reps=20)
+        in_rows = M if M == N else M + N
+        b_ms, b_by = bound_ms(4 * (in_rows * K + M * N), 2 * M * N * K)
         print(f"    kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
               f"{lib_ms:.4f} ms, bound {b_ms:.3g} ms ({b_by})")
-        if M == 12:
+        if M == N == 12:
             print(f"    the 32 x 64 tile alone: {large_tile_ms(a):.4f} ms (why small "
                   "outputs take 16 x 16 tiles)")
-        if M == 12 and K == 256:
+        if M == N == 12 and K == 256:
             entries["sketch_similarity"] = dict(
                 name="sketch_similarity", route="cuda",
                 source="src/repro_torch/csrc/defense_sim.cu",
@@ -1983,26 +2005,17 @@ class PartTimer:
 
 
 def lm_timeout(fed, model, data, dim: int, rounds: int) -> float:
-    """A timeout from the fleet's own latencies (the engine's latency model
-    and draws, before round 1): the largest, over the run's rounds, of the
-    honest clients' median latency, plus 1%, so that at least two of the
-    three honest robots arrive in time every round.  The example's 10
-    virtual seconds would make every robot late at this width."""
-    from repro_torch.convert import GeneratorDraws
-    from repro_torch.core.resources import make_fleet, round_latency
+    """The timeout ``examples/federated_lm_torch.py --full_width`` runs
+    with (``median_arrival_timeout``: the honest clients' median latency
+    of the worst of the run's rounds, plus 1%), so that at least two of
+    the three honest robots arrive in time every round.  The example's
+    reduced 10 virtual seconds would make every robot late at this width."""
+    from repro_torch.core.engine import median_arrival_timeout
 
-    N = fed.num_clients
-    res, poison = make_fleet(N, num_starved=fed.num_starved,
-                             num_poisoners=fed.num_poisoners, seed=fed.seed, device=DEV)
     flops = model.train_flops(tuple(data["tokens"].shape[1:]), epochs=fed.local_epochs)
-    draws = GeneratorDraws(fed.seed, DEV)
-    lat = torch.stack([round_latency(res, train_flops=flops, model_bytes=dim * 4.0,
-                                     factor=draws.latency_factor(r, N))
-                       for r in range(rounds)]).cpu()
-    honest = torch.as_tensor(~poison)
-    timeout = 1.01 * float(lat[:, honest].median(dim=1).values.max())
-    print(f"  virtual latencies (s), rounds x clients: {lat.numpy().round(1).tolist()}; "
-          f"poisoners {np.where(poison)[0].tolist()}; timeout {timeout:.1f} s")
+    timeout = median_arrival_timeout(fed, train_flops=flops, model_bytes=dim * 4.0,
+                                     rounds=rounds, device=DEV)
+    print(f"  timeout {timeout:.1f} virtual s (the honest clients' median latency)")
     return timeout
 
 
@@ -2456,6 +2469,138 @@ def data_phase(req, every, packed_kernels, sketched, entries) -> None:
           f"{t13b:.1f}, 13c {t13c:.1f})")
 
 
+# phase 14's fleets: (clients, rounds)
+MESH_FLEETS = ((12, 5), (512, 6))
+
+
+def mesh_fleet(n: int):
+    """Phase 14's fleets: the 12-robot Table II fleet, or phase 4's
+    512-client tiled fleet at 200 samples."""
+    from repro_torch.data.federated import scaled_fleet, table2_fleet
+
+    return table2_fleet() if n == 12 else scaled_fleet(n, samples_per_client=200)
+
+
+def mesh_run(server, data, eval_set, rounds: int) -> dict:
+    """``rounds`` rounds of ``server`` -> its history, final state (params,
+    the rank's defense history rows) and round wall seconds, on the host."""
+    walls = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.run_round(data, eval_set=eval_set)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    h = server.history
+    return dict(walls=walls, **{k: np.stack(h[k]) for k in ("trust", "selected", "on_time")},
+                acc=np.asarray(h["acc"]), params=server.state.params.cpu().numpy(),
+                fg_history=server.state.fg_history.cpu().numpy())
+
+
+def mesh_rank(n: int, rounds: int) -> dict:
+    """One rank of phase 14's k-rank run (``distributed.spawn``): fedar +
+    foolsgold_sketch at full width on ``mesh_fleet(n)``, sharded over the
+    process group; with the launches of the path's kernels in this rank."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
+    from repro_torch.core.fedar import FedARServer
+    from repro_torch.core.resources import TaskRequirement
+    from repro_torch.data.synthetic import make_digits
+    from repro_torch.kernels.count_sketch import count_sketch
+    from repro_torch.kernels.defense_sim import sketch_similarity
+    from repro_torch.kernels.fedavg_agg import fedavg_agg
+    from repro_torch.kernels.local_sgd import local_sgd
+
+    k = dist.get_world_size()
+    fed = fleet_fed(n, defense="foolsgold_sketch", mesh_shape=k)
+    server = FedARServer(MnistConfig(), fed, TaskRequirement(), device=DEV)
+    data = server.engine.device_data(mesh_fleet(n))
+    path = (local_sgd, fedavg_agg, sketch_similarity, count_sketch)
+    for kern in path:
+        kern.launches = 0
+    out = mesh_run(server, data, make_digits(500, seed=99), rounds)
+    out["launches"] = {kern.__name__: kern.launches for kern in path}
+    out["device"] = str(server.engine.device)
+    return out
+
+
+def mesh_phase(req, eval_set, kernels, every) -> None:
+    """Phase 14: the client mesh; see the module docstring."""
+    import dataclasses as dc
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
+    from repro_torch.core.distributed import MeshComms, spawn
+    from repro_torch.core.fedar import FedARServer
+
+    t_phase = time.perf_counter()
+    one_rank = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1)
+        for n, rounds in MESH_FLEETS:
+            fed = fleet_fed(n, defense="foolsgold_sketch", mesh_shape=1)
+            meshed = FedARServer(MnistConfig(), fed, req, device=DEV)
+            comms = meshed.engine.comms
+            if not (isinstance(comms, MeshComms) and comms.shards == 1 and meshed.mesh):
+                raise AssertionError("mesh_shape=1 in a one-rank group did not run MeshComms")
+            resident = FedARServer(MnistConfig(), dc.replace(fed, mesh_shape=None), req,
+                                   device=DEV)
+            data = resident.engine.device_data(mesh_fleet(n))
+            print(f"\n[mesh, one rank] {n} clients, fedar + foolsgold_sketch, a one-rank "
+                  f"NCCL group on {meshed.engine.device} ({meshed.mesh.backend})")
+            timed_rounds(meshed, data, eval_set, rounds, kernels, every)
+            got = dict(trust=np.stack(meshed.history["trust"]),
+                       selected=np.stack(meshed.history["selected"]),
+                       on_time=np.stack(meshed.history["on_time"]),
+                       params=meshed.state.params.cpu().numpy(),
+                       fg_history=meshed.state.fg_history.cpu().numpy())
+            want = mesh_run(resident, data, eval_set, rounds)
+            for key, val in got.items():
+                if not np.array_equal(val, want[key]):
+                    raise AssertionError(f"one-rank mesh at {n} clients: {key} differs "
+                                         f"from the resident engine")
+            walls = want["walls"]
+            print(f"  trust, masks, params and fg_history bit-equal to the resident "
+                  f"engine over {rounds} rounds ok; gathered defense payloads "
+                  f"{sorted(set(comms.defense_gather_shapes))}; the resident engine "
+                  f"{(rounds - 1) / sum(walls[1:]):.3f} steady rounds/s")
+            one_rank[n] = got
+            del meshed, resident, data
+        dist.destroy_process_group()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[mesh, k ranks] skipped: this machine has {cards} card "
+              f"(the k-rank NCCL run needs 2 or more)")
+    else:
+        k = min(4, cards)
+        for n, rounds in MESH_FLEETS:
+            t0 = time.perf_counter()
+            ranks = spawn(k, mesh_rank, n, rounds, device=DEV)
+            print(f"\n[mesh, {k} ranks] {n} clients, {n // k} a rank on "
+                  f"{[r['device'] for r in ranks]}, {time.perf_counter() - t0:.1f} s with "
+                  f"the ranks' start-up")
+            want = one_rank[n]
+            for r, got in enumerate(ranks):
+                for key in ("trust", "selected", "on_time"):
+                    if not np.array_equal(got[key], want[key]):
+                        raise AssertionError(f"rank {r}: {key} differs from the one-rank run")
+                if not np.array_equal(got["params"], ranks[0]["params"]):
+                    raise AssertionError(f"rank {r}: params differ from rank 0's")
+                if min(got["launches"].values()) == 0:
+                    raise AssertionError(f"rank {r} launched {got['launches']}")
+            compare(f"{k}-rank params vs the one-rank run", torch.as_tensor(ranks[0]["params"]),
+                    torch.as_tensor(want["params"]), atol=2e-4, rtol=2e-4)
+            walls = ranks[0]["walls"]
+            print(f"  trust, selected and on-time masks identical to the one-rank run, "
+                  f"params bit-identical on every rank; launches a rank "
+                  f"{ranks[0]['launches']}; round seconds {[round(w, 6) for w in walls]}; "
+                  f"steady (rounds 2-{rounds}) {(rounds - 1) / sum(walls[1:]):.3f} rounds/s")
+    print(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -2886,6 +3031,9 @@ def main() -> int:
 
     # --- phase 13: the IDX data layer and the two FedAR examples
     data_phase(req, every, packed_kernels, sketched, entries)
+
+    # --- phase 14: the client mesh, one NCCL rank (and k ranks on k cards)
+    mesh_phase(req, make_digits(500, seed=99), sketched, every)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",

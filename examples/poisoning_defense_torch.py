@@ -17,13 +17,17 @@ draw from: the deterministic synthetic digits, or real ``mnist`` /
 fallback when uncached).
 
 It runs on the card (``--device cuda``, the default); ``--device cpu`` runs
-it on the CPU.  ``--devices k > 1`` (a mesh of client shards) is not ported
-yet and raises (ROADMAP Queue 1 item 12).
+it on the CPU.  ``--devices k > 1`` runs both engines sharded over a mesh
+of k client shards (``repro_torch.core.distributed.spawn``): one process
+per card over NCCL, or k CPU processes over gloo with ``--device cpu``;
+rank 0 prints.  ``--clients`` must divide by k.
 
 Run:  PYTHONPATH=src python examples/poisoning_defense_torch.py
       PYTHONPATH=src python examples/poisoning_defense_torch.py --clients 128
+      PYTHONPATH=src python examples/poisoning_defense_torch.py --clients 128 --devices 4
 """
 import argparse
+import sys
 
 import numpy as np
 
@@ -39,7 +43,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="defense strategy (default: foolsgold at 12 "
                          "robots, foolsgold_sketch at engine scale)")
     ap.add_argument("--devices", type=int, default=1,
-                    help="client shards; >1 would run the mesh-sharded engine")
+                    help="client shards; >1 runs the engines sharded over k "
+                         "processes (one a card, or gloo ranks on the CPU)")
     ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
     ap.add_argument("--dataset", default="synthetic",
                     choices=["synthetic", "mnist", "emnist"],
@@ -76,11 +81,9 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("engine-scale demo needs --clients >= 64 (a N/4 replica "
                  "clique below that is within the natural cluster scale "
                  "and is not down-weighted)")
-    if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: the mesh-sharded engine is not ported "
-            f"yet (ROADMAP.md Queue 1 item 12)"
-        )
+    if args.devices > 1 and args.clients % args.devices:
+        ap.error(f"--clients {args.clients} must divide by --devices "
+                 f"{args.devices}")
     return args
 
 
@@ -94,6 +97,12 @@ def fleet(args, defense: str, source):
     compress_kw = dict(compress=args.compress,
                        compress_bits=args.compress_bits,
                        compress_k=args.compress_k)
+    mesh_kw = {}
+    if args.devices > 1:
+        import torch.distributed as dist
+
+        # spawn may narrow k to the cards there are
+        mesh_kw["mesh_shape"] = dist.get_world_size()
     faults_kw = dict(faults=args.faults)
     if args.fault_rate is not None:
         faults_kw.update(fault_crash_rate=args.fault_rate,
@@ -102,7 +111,7 @@ def fleet(args, defense: str, source):
         fed = fleet_fed(
             12, local_epochs=3, timeout=30.0, defense=defense,
             deviation_gamma=2.5 if defense != "none" else 1e9,
-            **compress_kw, **faults_kw,
+            **compress_kw, **faults_kw, **mesh_kw,
         )
         data = table2_fleet(samples_per_client=args.samples,
                             flip_frac=0.8, source=source)
@@ -114,7 +123,7 @@ def fleet(args, defense: str, source):
         args.clients, local_epochs=2, defense=defense,
         num_poisoners=n_syb, num_starved=0, client_fraction=1.0,
         deviation_gamma=1e9,  # isolate the similarity defense
-        **compress_kw, **faults_kw,
+        **compress_kw, **faults_kw, **mesh_kw,
     )
     data, sybils = sybil_fleet(args.clients, n_syb,
                                samples_per_client=args.samples,
@@ -125,8 +134,27 @@ def fleet(args, defense: str, source):
 def main(argv=None):
     """Runs the demo; returns the defended and the undefended server, the
     defended run's per-client defense weights (engine scale; ``None`` at
-    paper scale) and the attacker mask."""
+    paper scale) and the attacker mask.  With ``--devices k > 1`` it runs
+    in k ranks and returns rank 0's defended and undefended histories in
+    place of the servers."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    if args.devices > 1:
+        from repro_torch.core.distributed import spawn
+
+        return spawn(args.devices, run_ranked, argv, device=args.device)[0]
+    return run_demo(args)
+
+
+def run_ranked(argv):
+    """One rank of the demo on a mesh: the histories cross back, not the
+    servers."""
+    s1, s0, fgw, sybils = run_demo(parse_args(argv))
+    return s1.history, s0.history, fgw, sybils
+
+
+def run_demo(args):
+    """The demo itself (see ``main``)."""
 
     import torch
 
@@ -151,6 +179,9 @@ def main(argv=None):
         fed, data, sybils = fleet(args, defense, source)
         srv = FedARServer(MnistConfig(), fed, TaskRequirement(),
                           device=args.device)
+        if srv.mesh is not None and defense != "none":
+            print(f"mesh: {srv.mesh.size} client shards x "
+                  f"{args.clients // srv.mesh.size} clients")
         srv.run(data, rounds=args.rounds, eval_set=(ex, ey))
         fgw = None
         if defense != "none" and not paper_scale:
@@ -159,7 +190,8 @@ def main(argv=None):
             # the deviation ban, not the similarity statistic)
             active = torch.ones(args.clients, dtype=torch.bool,
                                 device=srv.engine.device)
-            fgw = srv.engine.defense.weights(srv.fg_history, active)
+            fgw = srv.engine.defense.weights(srv.fg_history, active,
+                                             comms=srv.engine.comms)
             fgw = fgw.cpu().numpy()
         return srv, fgw, sybils
 

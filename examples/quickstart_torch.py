@@ -20,8 +20,14 @@ engine's non-finite quarantine keeps the global model finite, faulty rows
 aggregating with exactly-zero weight.
 
 It runs on the card (``--device cuda``, the default); ``--device cpu`` runs
-it on the CPU.  ``--devices k > 1`` (a mesh of client shards) is not ported
-yet and raises (ROADMAP Queue 1 item 12).
+it on the CPU.  ``--devices k > 1`` runs the engine sharded over a mesh of k
+client shards (``repro_torch.core.distributed.spawn``): one process per
+card over NCCL, or k CPU processes over gloo with ``--device cpu``; rank 0
+prints.  A fleet that does not divide by k is padded with inert clients,
+and ``--cohort K`` must divide by k.
+
+Each round's wall seconds are printed at the end, and the steady rounds/s
+over rounds 2 on.
 
 Run:  PYTHONPATH=src python examples/quickstart_torch.py [--clients 128]
       PYTHONPATH=src python examples/quickstart_torch.py --clients 512 \\
@@ -30,10 +36,13 @@ Run:  PYTHONPATH=src python examples/quickstart_torch.py [--clients 128]
           --rounds 5 --faults chaos
       PYTHONPATH=src python examples/quickstart_torch.py --clients 100000 \\
           --cohort 256 --aggregation async --compress qsgd --faults chaos
+      PYTHONPATH=src python examples/quickstart_torch.py --clients 512 \\
+          --dataset emnist --scenario quantity_skew --select_frac 0.5 --devices 4
 (the last line holds 2 x 100,000 x 101,770 fp32 residual and pending
 columns on the host: 81.4 GB of host memory)
 """
 import argparse
+import sys
 
 import numpy as np
 
@@ -43,15 +52,14 @@ AUTO_COHORT_CLIENTS = 4096
 AUTO_COHORT_SIZE = 512
 
 
-def build(argv=None):
-    """Parse ``argv`` and set the run up as ``main`` does: returns (args,
-    the fleet, the server, the round's data (a dict on the server's device,
-    or the fleet in cohort mode), the (x, y) eval set)."""
+def parse_args(argv=None):
+    """The parser and the parsed arguments."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--clients", type=int, default=12)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--devices", type=int, default=1,
-                    help="client shards; >1 would run the mesh-sharded engine")
+                    help="client shards; >1 runs the engine sharded over k "
+                         "processes (one a card, or gloo ranks on the CPU)")
     ap.add_argument("--device", default="cuda", help="cuda (the card) or cpu")
     ap.add_argument("--dataset", default="auto",
                     choices=["auto", "table2", "scaled", "digits", "mnist",
@@ -123,13 +131,21 @@ def build(argv=None):
     ap.add_argument("--cache_dir", default=None,
                     help="IDX cache dir for mnist/emnist (default: "
                          "$FEDAR_DATA_DIR or ~/.cache/fedar)")
-    args = ap.parse_args(argv)
+    return ap, ap.parse_args(argv)
 
-    if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: the mesh-sharded engine is not ported "
-            f"yet (ROADMAP.md Queue 1 item 12)"
-        )
+
+def build(argv=None):
+    """Parse ``argv`` and set the run up as ``main`` does: returns (args,
+    the fleet, the server, the round's data (a dict on the server's device,
+    or the fleet in cohort mode), the (x, y) eval set).  With ``--devices
+    k > 1`` it runs in each rank of a process group of k ranks (``main``
+    starts them)."""
+    ap, args = parse_args(argv)
+    shards = args.devices if args.devices > 1 else 1
+    if shards > 1:
+        import torch.distributed as dist
+
+        shards = dist.get_world_size()  # spawn may narrow k to the cards
 
     from repro_torch import FedARServer, TaskRequirement, make_federated
     from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
@@ -191,12 +207,21 @@ def build(argv=None):
                   "the deterministic offline synthetic fallback")
         print(f"[data] dataset={ds.name} scenario={ds.scenario or '-'} "
               f"shards={ds.x.shape} mean n_u={ds.sizes.mean():.0f}")
+        if not cohort_mode and ds.num_clients % shards:
+            # inert dummy clients (all-False masks, exactly-zero
+            # aggregation weight) so that the mesh shards evenly
+            ds = ds.padded_to(shards)
+            print(f"[data] fleet padded {args.clients} -> {ds.num_clients} "
+                  f"clients to divide by {shards} shards")
 
     # the paper's B=20, E=5 setting, at any fleet size.  The paper's 12
     # heterogeneous robots take the dense FoolsGold statistic; the tiled
     # fleet has many honest clients per Table II profile, where the dense
     # max-cosine misfires, so engine scale takes the cluster-aware sketched
     # defense (core/defense.py)
+    if cohort_mode and cohort % shards:
+        ap.error(f"--cohort {cohort} must divide by --devices {shards} (the "
+                 f"cohort is what shards)")
     faults_kw = dict(faults=args.faults)
     if args.fault_rate is not None:
         faults_kw.update(fault_crash_rate=args.fault_rate,
@@ -212,6 +237,7 @@ def build(argv=None):
                     compress=args.compress,
                     compress_bits=args.compress_bits,
                     compress_k=args.compress_k,
+                    mesh_shape=shards if shards > 1 else None,
                     **faults_kw)
     if args.faults != "none":
         print(f"[faults] schedule={args.faults}: non-finite quarantine "
@@ -219,6 +245,9 @@ def build(argv=None):
               "aggregate with exactly-zero weight")
     server = FedARServer(MnistConfig(), fed, TaskRequirement(),
                          device=args.device)
+    if server.mesh is not None:
+        rows = (cohort if server.cohort_mode else ds.num_clients) // shards
+        print(f"mesh: {shards} client shards x {rows} clients")
     if args.compress != "none":
         payload = server.engine.compression.payload_nbytes(server.engine.dim)
         print(f"[uplink] compress={args.compress}: "
@@ -258,9 +287,25 @@ def build(argv=None):
     return args, ds, server, data, eval_src.sample(500, seed=99)
 
 
-def main(argv=None):
+def run(argv=None):
+    """Build the run and drive it (in one rank of the mesh with ``--devices
+    k > 1``); returns the server's history."""
+    import time
+
+    import torch
+
     args, _, server, data, eval_set = build(argv)
-    hist = server.run(data, rounds=args.rounds, eval_set=eval_set)
+    dev = server.engine.device
+    walls = []
+    for _ in range(args.rounds):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        server.run_round(data, eval_set=eval_set)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    hist = server.history
 
     print("\nround  accuracy  loss    stragglers")
     for i, (a, lo) in enumerate(zip(hist["acc"], hist["loss"])):
@@ -276,7 +321,23 @@ def main(argv=None):
         print(np.round(hist["trust"][-1], 1))
     print("\n(resource-starved robots are never selected, trust ~50;")
     print(" reliable robots accumulate C_Reward; stragglers get penalties)")
+    steady = (f"; steady (rounds 2-{args.rounds}) "
+              f"{(args.rounds - 1) / sum(walls[1:]):.3f} rounds/s"
+              if args.rounds > 1 else "")
+    print(f"round seconds {[round(w, 4) for w in walls]}{steady}")
     return hist
+
+
+def main(argv=None):
+    """Run the quickstart; with ``--devices k > 1`` in k ranks, returning
+    rank 0's history."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    _, args = parse_args(argv)
+    if args.devices > 1:
+        from repro_torch.core.distributed import spawn
+
+        return spawn(args.devices, run, argv, device=args.device)[0]
+    return run(argv)
 
 
 if __name__ == "__main__":

@@ -26,6 +26,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _leaves(tree, prefix: str = ""):
@@ -111,11 +112,17 @@ def restore(path: str, template: Any):
 
 def save_store(path: str, store, *, params=None, step: int = 0) -> None:
     """Checkpoint a ``ClientStore`` mid-run, with the (D,) global model
-    ``params`` when given."""
-    tree = {"store": store.state_dict()}
-    if params is not None:
-        tree["params"] = params
-    save(path, tree, step=step)
+    ``params`` when given.  On a client mesh every rank holds the same
+    store: every rank calls this, rank 0 writes, and the ranks wait for
+    the file before any goes on."""
+    meshed = dist.is_available() and dist.is_initialized()
+    if not meshed or dist.get_rank() == 0:
+        tree = {"store": store.state_dict()}
+        if params is not None:
+            tree["params"] = params
+        save(path, tree, step=step)
+    if meshed:
+        dist.barrier()
 
 
 def restore_store(path: str, store, *, with_params: bool = False):

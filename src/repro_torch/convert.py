@@ -9,9 +9,12 @@ across in both directions.
 
 The draw provider is the one place the round takes random numbers from:
 ``gumbel(round_idx, n)`` for selection, ``latency_factor(round_idx, n)``
-for the latency jitter, ``uniform(round_idx, n, d)`` for QSGD's stochastic
-rounding and ``fault_coins(round_idx, n)`` for the fault schedule's
-per-round coins.  ``GeneratorDraws`` serves standalone runs from seeded
+for the latency jitter, ``uniform(round_idx, ids, d)`` for QSGD's
+stochastic rounding (one (d,) row per canonical client id in ``ids``, so
+that a client block of a mesh rank draws the rows the one-device engine
+draws for those clients) and ``fault_coins(round_idx, n)`` for the fault
+schedule's per-round coins.  The (n,) draws are taken whole on every rank
+of a mesh, from the same seed.  ``GeneratorDraws`` serves standalone runs from seeded
 ``torch.Generator``s; ``ReplayDraws`` replays draws made elsewhere, which is
 how the parity tests feed the port the reference's threefry draws (torch
 cannot reproduce those bits).
@@ -115,28 +118,46 @@ def lm_cache_to_numpy(cache):
     return stack(cache)
 
 
-class GeneratorDraws:
-    """Per-round draws from ``torch.Generator``s seeded by
-    ``(seed, round, stream)``, so a round's draws do not depend on how many
-    rounds ran before it.
+_M32 = 0xFFFFFFFF
+_MIX = 0x45D9F3B  # the multiplier of a well-tested 32-bit integer hash
+_WEYL = 0x9E3779B1  # 2^32 / golden ratio, odd
 
-    The (n,) Gumbel and normal draws come from CPU generators and are moved
-    to ``device``, so they are the same on every device.  The (n, d) QSGD
-    uniforms (stream 2) are drawn on ``device`` itself by a generator of
-    that device: at 512 clients and full width they are 52 M numbers a
-    round, which the host should neither draw nor copy.  A CUDA generator
-    gives other numbers than a CPU one from the same seed, so the
-    standalone uniforms, and with them a compressed run, differ between CPU
-    and CUDA runs."""
+
+def _mix32(h: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash of each element of the int64 tensor ``h``
+    (values in [0, 2^32)), in place.  Every product stays below 2^59, so
+    int64 arithmetic is exact and the CPU and the card agree bit for
+    bit."""
+    for _ in range(2):
+        h ^= h >> 16
+        h.mul_(_MIX).bitwise_and_(_M32)
+    h ^= h >> 16
+    return h
+
+
+class GeneratorDraws:
+    """Per-round draws seeded by ``(seed, round, stream)``, so a round's
+    draws do not depend on how many rounds ran before it.
+
+    The (n,) Gumbel and normal draws come from CPU ``torch.Generator``s and
+    are moved to ``device``, so they are the same on every device.  The
+    QSGD uniforms (stream 2) are a counter hash of ``(seed, round, client
+    id, coordinate)`` in int64 tensor ops on ``device`` itself: at 512
+    clients and full width they are 52 M numbers a round, which the host
+    should neither draw nor copy, and a client's row depends on its id
+    alone, so a mesh rank draws only its own clients' rows and they equal
+    the one-device run's; the CPU and the card draw the same bits."""
 
     def __init__(self, seed: int, device="cpu"):
         self.seed, self.device = seed, torch.device(device)
+        self._columns = None  # the (d,) column hashes of the last width
 
-    def _generator(self, round_idx: int, stream: int,
-                   device="cpu") -> torch.Generator:
+    def _key(self, round_idx: int, stream: int) -> int:
         state = np.random.SeedSequence([self.seed, round_idx, stream])
-        seed = int(state.generate_state(1)[0])
-        return torch.Generator(device=device).manual_seed(seed)
+        return int(state.generate_state(1)[0])
+
+    def _generator(self, round_idx: int, stream: int) -> torch.Generator:
+        return torch.Generator().manual_seed(self._key(round_idx, stream))
 
     def gumbel(self, round_idx: int, n: int) -> torch.Tensor:
         u = torch.rand(n, generator=self._generator(round_idx, 0))
@@ -151,9 +172,24 @@ class GeneratorDraws:
         this round's standard-normal draw ``z``."""
         return torch.exp(LATENCY_JITTER * self.normal(round_idx, n))
 
-    def uniform(self, round_idx: int, n: int, d: int) -> torch.Tensor:
-        gen = self._generator(round_idx, 2, self.device)
-        return torch.rand((n, d), generator=gen, device=self.device)
+    def uniform(self, round_idx: int, ids, d: int) -> torch.Tensor:
+        """(len(ids), d) float32 uniforms in [0, 1): row j is client
+        ``ids[j]``'s.  Element (j, c) is bits 8-31 of ``row_j * col_c mod
+        2^32``, where ``row_j`` is an odd 31-bit hash of (round key, id)
+        and ``col_c`` an odd 32-bit hash of the coordinate (a table kept
+        across rounds): a product of two odd hashes, so each element is
+        uniform and rows and columns are uncorrelated, for one multiply of
+        the (n, d) block instead of a hash of every element.  The product
+        stays below 2^63, exact in int64."""
+        ids = torch.as_tensor(ids, device=self.device).to(torch.int64)
+        row = (_mix32(ids ^ self._key(round_idx, 2)) >> 1) | 1
+        if self._columns is None or self._columns.numel() != d:
+            col = torch.arange(d, device=self.device, dtype=torch.int64)
+            self._columns = _mix32(col.mul_(_WEYL).bitwise_and_(_M32)) | 1
+        h = row[:, None] * self._columns[None, :]
+        h.bitwise_and_(_M32)
+        h >>= 8
+        return h.to(torch.float32).mul_(2.0 ** -24)
 
     def fault_coins(self, round_idx: int, n: int) -> torch.Tensor:
         """The (n, 2) uniform coin table of the fault schedule (stream 3)."""
@@ -163,8 +199,9 @@ class GeneratorDraws:
 
 class ReplayDraws:
     """Replays (rounds, N) arrays of Gumbel draws and latency factors and,
-    optionally, a (rounds, N, D) array of uniforms and a (rounds, N, 2)
-    array of fault coins, row ``round_idx`` for round ``round_idx``.
+    optionally, a (rounds, N, D) array of uniforms (client ``i``'s row is
+    row ``i``) and a (rounds, N, 2) array of fault coins, row ``round_idx``
+    for round ``round_idx``.
 
     The latency factors ``exp(LATENCY_JITTER * z)`` are replayed whole,
     ``exp`` included, because two libraries' ``exp`` may round the same
@@ -194,13 +231,13 @@ class ReplayDraws:
     def latency_factor(self, round_idx: int, n: int) -> torch.Tensor:
         return self._row(self._latency, round_idx, n)
 
-    def uniform(self, round_idx: int, n: int, d: int) -> torch.Tensor:
+    def uniform(self, round_idx: int, ids, d: int) -> torch.Tensor:
         if self._uniform is None:
             raise IndexError("no replayed uniforms were given")
-        row = self._row(self._uniform, round_idx, n)
-        if row.shape[1] != d:
-            raise IndexError(f"replayed uniforms are {row.shape[1]} wide, not {d}")
-        return row
+        table = self._row(self._uniform, round_idx, self._uniform.shape[1])
+        if table.shape[1] != d:
+            raise IndexError(f"replayed uniforms are {table.shape[1]} wide, not {d}")
+        return table[torch.as_tensor(ids, device=table.device).to(torch.int64)]
 
     def fault_coins(self, round_idx: int, n: int) -> torch.Tensor:
         if self._faults is None:

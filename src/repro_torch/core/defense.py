@@ -8,6 +8,10 @@ per-round update, decay included) and a per-round ``weights`` statistic:
                            (N, D) cumulative update history.
   ``foolsgold_sketch``  -- cluster-aware variant over a count sketch of the
                            deltas, D -> r (r = ``defense_sketch_dim``).
+
+On a client mesh (``core/distributed.py``) the history is the rank's
+block: the sketched defense sketches only its local rows and its gather
+ships (N, r), the dense one ships (N, D).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 from repro_torch.common.config import FedConfig
 from repro_torch.core import foolsgold as fg
+from repro_torch.core.distributed import IDENTITY, ClientComms
 from repro_torch.kernels.count_sketch import count_sketch, decode_tables, sketch_tables
 
 
@@ -26,9 +31,10 @@ class DefenseStrategy:
     """Interface the engine's round calls, strategy-agnostically.
 
     ``history_dim``    -- width of the carried per-client history block.
-    ``update_history`` -- fold this round's deltas (N, D) into the history.
-    ``weights``        -- (N,) aggregation weights in [0, 1], or ``None``
-                          when the strategy does not re-weight.
+    ``update_history`` -- fold this round's deltas (N_loc, D) into the
+                          history block (N_loc, d), both this rank's rows.
+    ``weights``        -- (N,) aggregation weights in [0, 1], replicated,
+                          or ``None`` when the strategy does not re-weight.
     ``cohort_compatible`` -- whether the per-client history is small enough
                           for the cohort engine's host store.
     """
@@ -39,10 +45,11 @@ class DefenseStrategy:
     def history_dim(self, model_dim: int) -> int:
         return 0
 
-    def update_history(self, history, deltas, active):
+    def update_history(self, history, deltas, active, *,
+                       comms: ClientComms = IDENTITY):
         return history
 
-    def weights(self, history, active):
+    def weights(self, history, active, *, comms: ClientComms = IDENTITY):
         return None
 
 
@@ -64,11 +71,13 @@ class FoolsGoldDefense(DefenseStrategy):
     def history_dim(self, model_dim: int) -> int:
         return model_dim
 
-    def update_history(self, history, deltas, active):
-        return fg.update_history(history, deltas, active, decay=self.decay)
+    def update_history(self, history, deltas, active, *,
+                       comms: ClientComms = IDENTITY):
+        return fg.update_history(history, deltas, active, decay=self.decay,
+                                 comms=comms)
 
-    def weights(self, history, active):
-        return fg.foolsgold_weights(history, active, impl=self.impl)
+    def weights(self, history, active, *, comms: ClientComms = IDENTITY):
+        return fg.foolsgold_weights(history, active, comms=comms, impl=self.impl)
 
 
 class _Tables:
@@ -135,13 +144,14 @@ class SketchedFoolsGold(DefenseStrategy):
         """(n, D) -> (n, r) signed-bucket count sketch."""
         return count_sketch(rows, *self.tables)
 
-    def update_history(self, history, deltas, active):
+    def update_history(self, history, deltas, active, *,
+                       comms: ClientComms = IDENTITY):
         return fg.update_history(history, self.sketch(deltas), active,
-                                 decay=self.decay)
+                                 decay=self.decay, comms=comms)
 
-    def weights(self, history, active):
+    def weights(self, history, active, *, comms: ClientComms = IDENTITY):
         return fg.cluster_weights(
-            history, active, impl=self.impl, power=self.power,
+            history, active, comms=comms, impl=self.impl, power=self.power,
             slack=self.slack, sharpness=self.sharpness,
         )
 

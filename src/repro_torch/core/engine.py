@@ -1,4 +1,5 @@
-"""The FedAR round engine (Algorithm 2), resident on one device.
+"""The FedAR round engine (Algorithm 2), resident on one device or sharded
+over a client mesh.
 
 Each communication round runs, in order: CheckResource and trust-sorted
 selection, ClientUpdate (E epochs of local SGD for every client of the
@@ -54,6 +55,16 @@ The kernels of the round run on the card through the routing knobs
 codecs); see ``kernels/ops.resolve_impl``.
 The engine runs on ``cuda`` unless the caller passes ``device="cpu"``, and
 raises when there is no CUDA device: it never falls back to the CPU.
+
+Client mesh (``FedConfig.mesh_shape`` = k > 1, ``core/distributed.py``):
+each of k processes (``distributed.spawn``) runs this round on its block of
+N / k clients, on its own card (``cuda:rank``, NCCL) or on the CPU (gloo).
+The rank's block of the data, the defense history, the async delta buffer
+and the residual live on its device; the (N,) bookkeeping is replicated,
+and the round's cross-client reductions go through ``self.comms`` at the
+reference's sites.  A rank trains its own clients only; with
+``select_frac`` each rank caps its cohort at C slots (not C / k: the
+selection may land wholly on one rank's clients).
 """
 from __future__ import annotations
 
@@ -72,6 +83,7 @@ from repro_torch.core import aggregation as agg
 from repro_torch.core.client_store import ClientStore
 from repro_torch.core.compress import make_compression, make_residual
 from repro_torch.core.defense import make_defense
+from repro_torch.core.distributed import ClientComms, MeshComms, client_mesh
 from repro_torch.core.faults import make_faults
 from repro_torch.core.resources import (
     ResourceState,
@@ -104,6 +116,28 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def median_arrival_timeout(fed: FedConfig, *, train_flops: float, model_bytes: float,
+                           rounds: int, device="cpu") -> float:
+    """A round timeout worked out from the fleet's own latencies, for
+    models whose virtual round dwarfs a fixed timeout (an LM at full
+    width): the latency model (``round_latency`` over ``make_fleet``'s
+    resources and the default draws' jitter, as the engine computes it)
+    for rounds 0 to ``rounds`` - 1, and of each round the honest
+    (non-poisoner) clients' median latency; the largest of those medians,
+    plus 1%.  At least half of the honest robots then arrive in time
+    every round, and the rest straggle."""
+    n = fed.num_clients
+    res, poison = make_fleet(n, num_starved=fed.num_starved,
+                             num_poisoners=fed.num_poisoners, seed=fed.seed,
+                             device=device)
+    draws = GeneratorDraws(fed.seed, device)
+    lat = torch.stack([round_latency(res, train_flops=train_flops, model_bytes=model_bytes,
+                                     factor=draws.latency_factor(r, n))
+                       for r in range(rounds)]).cpu()
+    honest = torch.as_tensor(~poison)
+    return 1.01 * float(lat[:, honest].median(dim=1).values.max())
 
 
 def ordered_leaves(tree, path=()) -> list:
@@ -220,6 +254,17 @@ class PackedLayout(NamedTuple):
     n_max: int  # the dense rectangle width (latency model)
 
 
+class DeviceData(dict):
+    """A data dict that ``FedAREngine.device_data`` made: tensors on the
+    engine's device, each client-indexed entry holding the clients of
+    mesh block ``block`` = (rank, shards) only.  An engine of the same
+    block takes it back as it is."""
+
+    def __init__(self, entries, block: tuple):
+        super().__init__(entries)
+        self.block = block
+
+
 def _to_device(tree, device):
     """A param tree (dicts, lists, arrays or tensors) on ``device``, every
     leaf in its own dtype."""
@@ -228,17 +273,6 @@ def _to_device(tree, device):
     if isinstance(tree, (list, tuple)):
         return [_to_device(v, device) for v in tree]
     return torch.as_tensor(tree, device=device)
-
-
-def _check_slice(fed: FedConfig) -> None:
-    """Reject the features a later port slice brings, naming its item."""
-    if fed.aggregation not in ("fedar", "fedavg", "async", "async_seq"):
-        raise ValueError(f"unknown aggregation {fed.aggregation!r}")
-    if fed.mesh_shape is not None and fed.mesh_shape > 1:
-        raise NotImplementedError(
-            f"not ported yet (see ROADMAP.md): mesh_shape={fed.mesh_shape}: "
-            f"Queue 1 item 12"
-        )
 
 
 class FedAREngine:
@@ -251,7 +285,13 @@ class FedAREngine:
 
     Under a fault schedule, ``fault_masks`` holds the last round's (N,)
     masks of crashed, corrupted, unavailable and quarantined clients, on
-    the device (``None`` with ``faults="none"``), for fault reports."""
+    the device (``None`` with ``faults="none"``), for fault reports.
+
+    ``mesh`` is the ``distributed.ClientMesh`` the engine runs on (``None``
+    on one device) and ``comms`` its collectives; under a mesh the device
+    is the mesh's (``device`` must name the same kind: the cards for NCCL,
+    the CPU for gloo), and the state's (N, ...) blocks are this rank's
+    (N / k, ...) rows."""
 
     def __init__(
         self,
@@ -264,10 +304,25 @@ class FedAREngine:
         draws=None,
         init_params=None,
     ):
-        _check_slice(fed)
+        if fed.aggregation not in ("fedar", "fedavg", "async", "async_seq"):
+            raise ValueError(f"unknown aggregation {fed.aggregation!r}")
         if isinstance(model, MnistConfig):
             model = MnistClientModel(model)
+        self.mesh = client_mesh(fed)
         self.device = resolve_device(device)
+        self.comms = ClientComms()
+        if self.mesh is not None:
+            if self.device.type != self.mesh.device.type:
+                raise ValueError(
+                    f"the engine was asked for {self.device} but its mesh's "
+                    f"{self.mesh.backend} process group runs on "
+                    f"{self.mesh.device}: NCCL ranks on the cards, gloo on the CPU"
+                )
+            self.device = resolve_device(self.mesh.device)
+            self.comms = MeshComms(self.mesh.group, self.mesh.rank,
+                                   self.mesh.size, tree=fed.tree_reduce,
+                                   axis=fed.client_axis)
+        self.n_local = fed.num_clients // self.comms.shards
         self.model = model
         self.fed, self.req, self.lr = fed, req, lr
         # a family without a fused kernel has one ClientUpdate, its plain
@@ -298,6 +353,7 @@ class FedAREngine:
         self.faults = make_faults(fed, self.device)
         self.fault_masks = None
         self._client_ids = torch.arange(fed.num_clients, device=self.device)
+        self._local_ids = self.comms.local(self._client_ids)
         self.resources0, self.poison_mask = make_fleet(
             fed.num_clients,
             num_starved=fed.num_starved,
@@ -329,28 +385,57 @@ class FedAREngine:
     # ------------------------------------------------------------------
     def init_state(self) -> EngineState:
         N, D, dev = self.fed.num_clients, self.dim, self.device
+        n_loc = self.n_local
         buf_d = D if self.fed.aggregation == "async" else 0
         return EngineState(
             params=flatten(self.template),
             trust=init_trust(N, self.fed, dev),
             resources=self.resources0,
-            fg_history=torch.zeros((N, self.defense.history_dim(D)), device=dev),
-            pending_delta=torch.zeros((N, buf_d), device=dev),
+            fg_history=torch.zeros((n_loc, self.defense.history_dim(D)), device=dev),
+            pending_delta=torch.zeros((n_loc, buf_d), device=dev),
             pending_weight=torch.zeros((N,), device=dev),
             pending_issued=torch.zeros((N,), dtype=torch.int32, device=dev),
             pending_arrival=torch.zeros((N,), dtype=torch.int32, device=dev),
             pending_valid=torch.zeros((N,), dtype=torch.bool, device=dev),
             compress_residual=make_residual(
-                N, self.compression.residual_dim(D), dev),
+                n_loc, self.compression.residual_dim(D), dev),
             round_idx=0,
         )
 
-    def device_data(self, data) -> dict:
+    # (N,) entries of a data dict that every rank holds whole
+    _REPLICATED = ("sizes", "cohort_valid")
+
+    def _local_block(self, key: str, v, local: bool):
+        """This rank's block of a client-indexed data entry (axis 1 of the
+        drift ``round_mask``, axis 0 of the rest): sliced out of the whole
+        fleet's, or, with ``local``, the entry as it is, which must hold
+        the rank's N / k clients."""
+        axis = 1 if key == "round_mask" else 0
+        n = v.shape[axis]
+        want = self.n_local if local else self.fed.num_clients
+        if n != want:
+            raise ValueError(
+                f"data[{key!r}] has {n} clients on axis {axis}; the engine "
+                f"takes {'this rank' if local else 'the fleet'}'s {want} "
+                f"({self.fed.num_clients} clients over {self.comms.shards} "
+                f"shard(s))")
+        if local:
+            return v
+        blk = slice(self.comms.rank * self.n_local, (self.comms.rank + 1) * self.n_local)
+        return v[blk] if axis == 0 else v[:, blk]
+
+    def device_data(self, data, *, local: bool = False) -> DeviceData:
         """The round's data dict as tensors on the engine's device, in the
         dtypes the kernels take (x float32, y / activations int32, sizes
-        float32, masks bool); numpy arrays are copied over once.  A packed
-        dict (``data["packed"]``) becomes a ``PackedLayout``; one that
-        already is passes through."""
+        float32, masks bool); numpy arrays are copied over once.  Each
+        client-indexed entry holds the whole fleet, of which only this
+        rank's block is moved on a mesh, or, with ``local=True``, this
+        rank's block already; ``sizes`` and ``cohort_valid`` stay whole.
+        A ``DeviceData`` this engine's block made is taken as local.  A
+        packed dict (``data["packed"]``) becomes a ``PackedLayout`` of the
+        rank's rows; one that already is passes through."""
+        block = (self.comms.rank, self.comms.shards)
+        local = local or getattr(data, "block", None) == block
         dtypes = {"x": torch.float32, "y": torch.int32,
                   "activations": torch.int32, "sizes": torch.float32,
                   "mask": torch.bool, "round_mask": torch.bool,
@@ -370,13 +455,16 @@ class FedAREngine:
                 out[k] = lay._replace(
                     plan=self._packed_cohort_plan(lay.desc_buckets))
                 continue
+            if k not in self._REPLICATED:
+                v = self._local_block(k, v, local)
             t = torch.as_tensor(v, device=self.device)
             out[k] = t.to(dtypes[k]).contiguous() if k in dtypes else t
-        return out
+        return DeviceData(out, block)
 
     def _check_packed(self, packed) -> None:
         """A packed dict is built for one shard count (its ``perm`` is
-        shard-local), and only ``packed_supported`` families take it."""
+        shard-local): the engine's, ``comms.shards``.  Only
+        ``packed_supported`` families take it."""
         if not self.model.packed_supported:
             raise ValueError(
                 f"model family {self.model.family!r} does not support the "
@@ -384,17 +472,41 @@ class FedAREngine:
                 f"(FederatedDataset.arrays()) instead"
             )
         built = int(np.asarray(packed["shards"]))
-        if built != 1:
+        if built != self.comms.shards:
             raise ValueError(
                 f"packed data was built for {built} shard(s) "
                 f"(FederatedDataset.packed_arrays(shards=...)) but the "
-                f"engine runs 1; rebuild the packed layout with shards=1"
+                f"engine runs {self.comms.shards}; rebuild the packed "
+                f"layout with shards={self.comms.shards}"
             )
+
+    def _local_packed(self, packed) -> dict:
+        """This rank's rows of a packed dict: the buckets are laid out
+        shard-major with equal row counts a shard, so rank r's rows of
+        bucket b are its r-th block; ``perm`` is already shard-local and
+        ``inv`` is cut to the rank's clients."""
+        k, r = self.comms.shards, self.comms.rank
+        if k == 1:
+            return packed
+
+        def rows(a, axis=0):
+            a = np.asarray(a)
+            n = a.shape[axis] // k
+            return a[r * n:(r + 1) * n] if axis == 0 else a[:, r * n:(r + 1) * n]
+
+        out = dict(packed)
+        for key in ("x", "y", "mask", "perm", "valid", "act"):
+            out[key] = tuple(rows(b) for b in packed[key])
+        if "round_mask" in packed:
+            out["round_mask"] = tuple(rows(b, 1) for b in packed["round_mask"])
+        out["inv"] = rows(packed["inv"])
+        return out
 
     def _pack(self, packed) -> PackedLayout:
         """Move a ``packed_arrays`` dict to the device as one batch-tile
         buffer plus the round-invariant row tables (``PackedLayout``)."""
         self._check_packed(packed)
+        packed = self._local_packed(packed)
         dev, B = self.device, self.fed.local_batch_size
         xs = [np.asarray(x) for x in packed["x"]]
         rows = [x.shape[0] for x in xs]
@@ -455,7 +567,8 @@ class FedAREngine:
                 f"fleet's client count"
             )
         return self.device_data(ds.engine_arrays(
-            shards=1, quantum=self.fed.local_batch_size, layout=layout))
+            shards=self.comms.shards, quantum=self.fed.local_batch_size,
+            layout=layout))
 
     def _eval_set(self, eval_set):
         """An (x, y) pair for the MLP, or a dict of fields (the LM's
@@ -492,7 +605,8 @@ class FedAREngine:
 
     def _gated_block_locals(self, g_flat, fields, m, sel_rows):
         """Selection-gated ClientUpdate on the dense layout: local SGD over
-        the (statically capped) selected rows only.  Returns ``(idx,
+        the (statically capped) selected rows of this rank's block only
+        (``sel_rows`` is the local selection).  Returns ``(idx,
         locals_c, valid)``: the client each cohort slot came from, the
         cohort's post-SGD rows, and which slots hold a selected client."""
         cap = min(sel_rows.shape[0], self.cohort_cap)
@@ -563,7 +677,7 @@ class FedAREngine:
     def _packed_fields(self, lay: PackedLayout, x, y, rows):
         return dict(zip(self.model.data_keys, (x, y, lay.act[rows])))
 
-    def _packed_gated_locals(self, g_flat, lay: PackedLayout, selected,
+    def _packed_gated_locals(self, g_flat, lay: PackedLayout, sel_loc,
                              tile_mask):
         """Selection-gated ClientUpdate over the packed layout.  One stable
         argsort over every packed row, widest bucket first, keyed selected
@@ -576,7 +690,7 @@ class FedAREngine:
         cohort = (client of each slot, slot holds a selected client)."""
         B = self.fed.local_batch_size
         desc = lay.desc_rows
-        sel_d = selected[lay.perm[desc]] & lay.valid[desc]
+        sel_d = sel_loc[lay.perm[desc]] & lay.valid[desc]
         order = torch.argsort((~sel_d).to(torch.int32), stable=True)
         slots = order[:sum(take for _, take in lay.plan)]
         rows = desc[slots]
@@ -598,9 +712,10 @@ class FedAREngine:
         locals_c = self._ragged_block_sgd(g_flat, lay, rows, tile_mask, blocks)
         return locals_c, (lay.perm[rows], sel_d[slots])
 
-    def _packed_locals(self, g_flat, lay: PackedLayout, selected, round_idx):
-        """ClientUpdate over the bucketed packed layout -> ``(locals_flat,
-        locals_c, cohort)``: the canonical (N, D) post-SGD rows, and in
+    def _packed_locals(self, g_flat, lay: PackedLayout, sel_loc, round_idx):
+        """ClientUpdate over the bucketed packed layout of this rank's
+        clients (``sel_loc`` their selection) -> ``(locals_flat, locals_c,
+        cohort)``: the (N_loc, D) post-SGD rows in client order, and in
         gated mode the compact cohort rows with their ``(canon, valid)``
         map, so that deviation and aggregation skip the known-zero rows
         (``None, None`` ungated).  Ungated, every packed row trains and one
@@ -623,10 +738,10 @@ class FedAREngine:
             locals_cat = self._ragged_block_sgd(g_flat, lay, None, tile_mask,
                                                 blocks)
             return locals_cat[lay.inv], None, None
-        locals_c, cohort = self._packed_gated_locals(g_flat, lay, selected,
+        locals_c, cohort = self._packed_gated_locals(g_flat, lay, sel_loc,
                                                      tile_mask)
         locals_flat = self._expand_cohort(locals_c, cohort[0], cohort[1],
-                                          selected.shape[0], g_flat)
+                                          sel_loc.shape[0], g_flat)
         return locals_flat, locals_c, cohort
 
     # ------------------------------------------------------------------
@@ -636,8 +751,11 @@ class FedAREngine:
         per-client tensors (``x`` (N, n, 784), ``y`` (N, n), ``activations``
         (N,)), ``sizes`` (N,), and optionally ``mask`` (N, n) bool marking
         the real samples of ragged shards, and ``cohort_valid`` (N,) bool,
-        the cohort engine's host-side selection."""
-        fed = self.fed
+        the cohort engine's host-side selection.  On a mesh the client
+        entries, ``state.fg_history``, ``pending_delta`` and
+        ``compress_residual`` hold this rank's block; every (N,) vector is
+        replicated, and cross-client reductions go through ``comms``."""
+        fed, comms = self.fed, self.comms
         N = fed.num_clients
         r = state.round_idx
 
@@ -671,10 +789,11 @@ class FedAREngine:
         # --- lines 16-21 (ClientUpdate); non-participants are masked out
         # of the aggregate, or with select_frac not trained at all
         g_flat = state.params
+        sel_loc = comms.local(selected)
         locals_c = cohort = None  # the compact gated-cohort view
         if "packed" in data:
             locals_flat, locals_c, cohort = self._packed_locals(
-                g_flat, data["packed"], selected, r)
+                g_flat, data["packed"], sel_loc, r)
         else:
             # ragged / drifting shards: this round's sample mask
             sample_mask = data.get("mask")
@@ -688,13 +807,13 @@ class FedAREngine:
                 locals_flat = self._block_sgd(g_flat, fields, sample_mask)
             else:
                 idx, locals_c, valid = self._gated_block_locals(
-                    g_flat, fields, sample_mask, selected)
+                    g_flat, fields, sample_mask, sel_loc)
                 cohort = (idx, valid)
-                locals_flat = self._expand_cohort(locals_c, idx, valid, N,
-                                                  g_flat)
+                locals_flat = self._expand_cohort(locals_c, idx, valid,
+                                                  self.n_local, g_flat)
         if fed.aggregation == "async_seq":  # folds the local models below
             deltas = locals_flat - g_flat[None, :]
-        else:  # nothing reads the local models again: (N, D) in place
+        else:  # nothing reads the local models again: (N_loc, D) in place
             deltas = locals_flat.sub_(g_flat[None, :])
         # deviation and the fedar / fedavg reduction only need the cohort
         # rows (the rest are exact zeros)
@@ -736,30 +855,36 @@ class FedAREngine:
         # transmits when its slot can admit (lag 0 or a free slot), the
         # client-side-knowable superset of _buffered_async's admit gate.
         residual = state.compress_residual
+        transmit_g = None
         if self.compression.active:
             if fed.aggregation == "fedavg":
-                transmit = uplinked
+                transmit_g = uplinked
             elif fed.aggregation == "async":
                 lag0 = torch.floor(lat / fed.timeout).to(torch.int32) == 0
-                transmit = uplinked & (lag0 | ~state.pending_valid)
+                transmit_g = uplinked & (lag0 | ~state.pending_valid)
             else:
-                transmit = uplinked & on_time
+                transmit_g = uplinked & on_time
+            transmit = comms.local(transmit_g)
             # the compact view is a compute shortcut: after the decode the
             # canonical rows are what every later op must see
             delta_c = cohort = None
-            unif = (self.draws.uniform(r, N, self.dim)
+            # stochastic codes keyed on the canonical client id, so that a
+            # rank draws the rows the one-device run draws for its clients
+            unif = (self.draws.uniform(r, self._local_ids, self.dim)
                     if self.compression.needs_uniforms else None)
             deltas_raw = deltas
-            deltas, residual, _ = self.compression.roundtrip(
+            deltas, residual, payload = self.compression.roundtrip(
                 deltas, residual, transmit, unif
             )
+            comms.record_uplink(payload)
 
         # --- corrupt uplinks: garbage replaces the row the server RECEIVES
         # (after the decode, before the quarantine)
         if fdraw is not None:
-            corrupt = fdraw.corrupt & (transmit if self.compression.active
+            corrupt = fdraw.corrupt & (transmit_g if self.compression.active
                                        else seen)
-            deltas = torch.where(corrupt[:, None], fdraw.fill[:, None], deltas)
+            deltas = torch.where(comms.local(corrupt)[:, None],
+                                 comms.local(fdraw.fill)[:, None], deltas)
 
         # --- non-finite quarantine (always on): a NaN/Inf row, or one past
         # the magnitude cap, contributes exact zeros and is branded deviated
@@ -767,16 +892,12 @@ class FedAREngine:
         cap = fed.resolved_quarantine_cap
         if cap is not None:
             row_ok = row_ok & (deltas.abs() <= cap)
-        quarantined = ~row_ok.all(dim=-1)
+        q_loc = ~row_ok.all(dim=-1)
         del row_ok
         # in place: no other name holds this round's received rows
-        deltas = deltas.masked_fill_(quarantined[:, None], 0.0)
-        if fdraw is not None:
-            self.fault_masks = dict(crashed=crashed, corrupted=corrupt,
-                                    unavailable=fdraw.unavailable,
-                                    quarantined=quarantined)
+        deltas = deltas.masked_fill_(q_loc[:, None], 0.0)
         if cohort is not None:
-            delta_c = torch.where(quarantined[cohort[0]][:, None], 0.0, delta_c)
+            delta_c = torch.where(q_loc[cohort[0]][:, None], 0.0, delta_c)
         if self.compression.active:
             # dropped-uplink retry: a quarantined transmission consumed its
             # residual for nothing, so the full raw value (delta + pre-round
@@ -787,27 +908,32 @@ class FedAREngine:
             if cap is not None:
                 v_el = v_el & (v.abs() <= cap)
             v_ok = v_el.all(dim=-1)
-            retry = quarantined & transmit
+            retry = q_loc & transmit
             residual = torch.where(
                 retry[:, None],
                 torch.where(v_ok[:, None], v, state.compress_residual),
                 residual,
             )
+        quarantined = comms.all_gather(q_loc)  # (N,) replicated
+        if fdraw is not None:
+            self.fault_masks = dict(crashed=crashed, corrupted=corrupt,
+                                    unavailable=fdraw.unavailable,
+                                    quarantined=quarantined)
 
         # --- line 11: deviation ban + defense weights; in async mode every
         # participant's update eventually lands, so all of them are screened
         active = uplinked if fed.aggregation == "async" else selected & on_time
         deviated = agg.deviation_mask(
             deltas if cohort is None else delta_c, active & ~quarantined,
-            fed.deviation_gamma, cohort=cohort,
+            fed.deviation_gamma, comms=comms, cohort=cohort,
         )
         deviated = deviated | (seen & quarantined)
         contributing = active & ~deviated
         weights = data["sizes"]
         fg_history = self.defense.update_history(
-            state.fg_history, deltas, contributing
+            state.fg_history, deltas, contributing, comms=comms
         )
-        fgw = self.defense.weights(fg_history, contributing)
+        fgw = self.defense.weights(fg_history, contributing, comms=comms)
         if fgw is not None:
             weights = weights * fgw
 
@@ -822,7 +948,7 @@ class FedAREngine:
         if fed.aggregation == "fedavg":
             g_new = agg.fedavg_aggregate(
                 g_flat, agg_rows, weights, uplinked & ~deviated,
-                impl=fed.agg_impl, cohort=cohort,
+                impl=fed.agg_impl, comms=comms, cohort=cohort,
             )
             round_time = torch.where(uplinked, lat, 0.0).max()
         elif fed.aggregation == "async":
@@ -834,12 +960,13 @@ class FedAREngine:
                 torch.where(contributing, lat, torch.inf), stable=True
             )
             g_new = agg.async_aggregate(
-                g_flat, locals_flat, weights, contributing, order, fed
+                g_flat, locals_flat, weights, contributing, order, fed,
+                comms=comms,
             )
         else:  # fedar (timeout skip)
             g_new = agg.fedavg_aggregate(
                 g_flat, agg_rows, weights, contributing, impl=fed.agg_impl,
-                cohort=cohort,
+                comms=comms, cohort=cohort,
             )
 
         # --- line 15 + Algorithm 1: trust and battery evolution
@@ -875,7 +1002,9 @@ class FedAREngine:
         timeout; a straggler's update waits in its slot and merges
         ``floor(lat / t)`` rounds later with a ``(1 + tau)^-0.5`` staleness
         discount (none with ``staleness_decay="const"``).  One masked
-        weighted reduction per round."""
+        weighted reduction per round.  The slot bookkeeping is (N,) and
+        replicated; only the delta buffer is this rank's (N_loc, D)
+        block."""
         fed = self.fed
         # rounds until the update reaches the server (0 = within timeout)
         lag = torch.floor(lat / fed.timeout).to(torch.int32)
@@ -883,7 +1012,8 @@ class FedAREngine:
         # fresh on-time one: a straggler selected again must not clobber
         # its own upload still in transit, or it would never arrive
         admit = contributing & ((lag == 0) | ~pending["valid"])
-        delta_buf = torch.where(admit[:, None], deltas, pending["delta"])
+        delta_buf = torch.where(self.comms.local(admit)[:, None], deltas,
+                                pending["delta"])
         weight_buf = torch.where(admit, weights, pending["weight"])
         issued = torch.where(admit, round_idx, pending["issued"])
         arrival = torch.where(admit, round_idx + lag, pending["arrival"])
@@ -895,7 +1025,7 @@ class FedAREngine:
             staleness = torch.clamp(round_idx - issued, min=0).to(torch.float32)
         g_new = agg.fedavg_aggregate(
             g_flat, delta_buf, weight_buf, delivered, staleness=staleness,
-            impl=fed.agg_impl,
+            impl=fed.agg_impl, comms=self.comms,
         )
         return g_new, dict(
             delta=delta_buf, weight=weight_buf, issued=issued,
@@ -970,6 +1100,15 @@ class CohortEngine:
     R9).  K >= N is not this class's job: ``FedARServer`` drops
     ``cohort_size`` and runs the resident engine.
 
+    On a client mesh (``FedConfig.mesh_shape`` = k, K divisible by k) the
+    sub-engine runs sharded: every rank keeps the same host store and
+    samples the same cohort, moves only its K / k slots' samples and
+    (K, ...) rows to its device (``sizes`` and ``cohort_valid`` whole),
+    and after the round all-gathers the updated history, residual and
+    pending rows, so that every rank scatters the same K rows and the
+    stores stay identical.  The sub-engine aggregates with the two-level
+    tree (``tree_reduce=True``).
+
     ``timings``: set it to a dict to record each part of ``run_round`` in
     wall seconds (lists keyed by part, ``PARTS``); the card is synchronized
     at every part boundary then, and never otherwise."""
@@ -1028,6 +1167,8 @@ class CohortEngine:
                 f"(O(N*r)) or 'none'"
             )
         self.device = self.engine.device
+        self.mesh = self.engine.mesh
+        self.comms = self.engine.comms
         self.model = self.engine.model
         self.template = self.engine.template
         self.dim = self.engine.dim
@@ -1059,9 +1200,13 @@ class CohortEngine:
         return now
 
     def _device_state(self, rows, round_idx: int) -> EngineState:
-        """The sub-engine's starting state from the cohort's store rows."""
+        """The sub-engine's starting state from the cohort's store rows:
+        the (K,) columns whole, the (K, d) blocks this rank's rows."""
         def dev(name):
             return torch.as_tensor(rows[name], device=self.device)
+
+        def dev_block(name):
+            return torch.as_tensor(self.comms.local(rows[name]), device=self.device)
 
         state = self._state0._replace(
             params=self.params,
@@ -1069,8 +1214,8 @@ class CohortEngine:
                              dev("failures")),
             resources=ResourceState(dev("memory"), dev("bandwidth"),
                                     dev("battery"), dev("compute")),
-            fg_history=dev("history"),
-            compress_residual=dev("residual"),
+            fg_history=dev_block("history"),
+            compress_residual=dev_block("residual"),
             round_idx=round_idx,
         )
         if self.store.pending_dim:
@@ -1078,7 +1223,7 @@ class CohortEngine:
             # client sat out a few rounds lands (staleness-discounted) when
             # it rejoins
             state = state._replace(
-                pending_delta=dev("pending_delta"),
+                pending_delta=dev_block("pending_delta"),
                 pending_weight=dev("pending_weight"),
                 pending_issued=dev("pending_issued"),
                 pending_arrival=dev("pending_arrival"),
@@ -1098,7 +1243,13 @@ class CohortEngine:
             cohort_size=self.fed.cohort_size, round_idx=r,
         )
         t = self._mark("sample_cohort", t)
-        data = self.engine.device_data(fleet.cohort_arrays(idx, valid))
+        comms = self.comms
+        arrays = fleet.cohort_arrays(comms.local(idx), comms.local(valid))
+        if comms.shards > 1:  # the (K,) entries whole on every rank
+            arrays["cohort_valid"] = valid
+            arrays["sizes"] = comms.all_gather(torch.as_tensor(
+                arrays["sizes"], dtype=torch.float32, device=self.device))
+        data = self.engine.device_data(arrays, local=True)
         t = self._mark("cohort_arrays", t)
         rows = self.store.gather(idx)
         t = self._mark("gather", t)
@@ -1110,14 +1261,18 @@ class CohortEngine:
         def host(x):
             return x.cpu().numpy()
 
+        def host_rows(x):  # every rank's rows of a (K, d) block
+            return host(comms.all_gather(x))
+
         trust = TrustState(*(host(c) for c in new.trust))
-        battery, history = host(new.resources.battery), host(new.fg_history)
-        residual = host(new.compress_residual)
+        battery, history = host(new.resources.battery), host_rows(new.fg_history)
+        residual = host_rows(new.compress_residual)
         pending = None
         if self.store.pending_dim:
             pending = {name: host(getattr(new, name)) for name in (
-                "pending_delta", "pending_weight", "pending_issued",
-                "pending_arrival", "pending_valid")}
+                "pending_weight", "pending_issued", "pending_arrival",
+                "pending_valid")}
+            pending["pending_delta"] = host_rows(new.pending_delta)
         t = self._mark("device_to_host", t)
         self.params = new.params
         self.store.scatter_round(idx, valid, trust=trust, battery=battery,

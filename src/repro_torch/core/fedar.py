@@ -6,7 +6,10 @@ poisoners, trust evolution) through :class:`repro_torch.core.engine
 through the host-store :class:`repro_torch.core.engine.CohortEngine`.
 ``FedARServer`` keeps the reference's public API (``run_round`` / ``run``
 and a ``history`` dict of per-round rows) and runs on the card unless
-``device="cpu"`` is passed.
+``device="cpu"`` is passed.  With ``FedConfig.mesh_shape`` = k it runs in
+each of k ranks of a process group (``core/distributed.spawn``); the
+history rows are the same on every rank, and ``fg_history`` (like the
+state's other (N, ...) blocks) is the rank's block.
 """
 from __future__ import annotations
 
@@ -69,6 +72,12 @@ class FedARServer:
             # selected / on_time rows are cohort-indexed in this mode (row j
             # belongs to fleet client cohort[r][0][j])
             self.history["cohort"] = []
+
+    @property
+    def mesh(self):
+        """The engine's client mesh (``distributed.ClientMesh``), or
+        ``None`` on one device."""
+        return self.engine.mesh
 
     @property
     def params(self):

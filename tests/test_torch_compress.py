@@ -167,7 +167,7 @@ def test_error_feedback_telescopes_and_holds_silent_rows(kw):
     silent[2] = True
     for r in range(6):
         deltas = torch.randn(n, D, generator=gen) * 0.01
-        unif = draws.uniform(r, n, D)
+        unif = draws.uniform(r, torch.arange(n), D)
         dec, new_res, _ = c.roundtrip(deltas, res, ~silent, unif)
         assert torch.equal(dec[2], torch.zeros(D))
         assert torch.equal(new_res[2], res[2])
@@ -217,12 +217,46 @@ def test_engine_rejects_bad_knobs_and_kernel_route_on_cpu():
 
 
 def test_generator_uniforms_are_keyed_by_seed_and_round():
-    a = GeneratorDraws(1).uniform(3, 4, 10)
+    """Keyed by (seed, round, client id): a row depends on its client id
+    alone, so a mesh rank's block of clients draws the one-device rows."""
+    ids = torch.arange(4)
+    a = GeneratorDraws(1).uniform(3, ids, 10)
     assert a.shape == (4, 10) and a.dtype == torch.float32
     assert ((a >= 0) & (a < 1)).all()
-    assert torch.equal(a, GeneratorDraws(1).uniform(3, 4, 10))
-    assert not torch.equal(a, GeneratorDraws(1).uniform(4, 4, 10))
-    assert not torch.equal(a, GeneratorDraws(2).uniform(3, 4, 10))
+    assert torch.equal(a, GeneratorDraws(1).uniform(3, ids, 10))
+    assert not torch.equal(a, GeneratorDraws(1).uniform(4, ids, 10))
+    assert not torch.equal(a, GeneratorDraws(2).uniform(3, ids, 10))
+    assert torch.equal(a[2:], GeneratorDraws(1).uniform(3, torch.tensor([2, 3]), 10))
+    assert torch.equal(a[[3, 0]], GeneratorDraws(1).uniform(3, torch.tensor([3, 0]), 10))
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_generator_uniforms_are_uniform_and_uncorrelated(seed):
+    """The counter hash's uniforms (64 clients x 8,192 coordinates, two
+    rounds): mean 1/2 and variance 1/12 within 5 standard errors, a
+    64-bin histogram within chi-square's 5-sigma band, no all-equal
+    column, and no pair of rows, of adjacent columns, or of one client's
+    rows in consecutive rounds correlated past 0.06 (4.3 sigma of 8,192
+    samples is 0.047, the largest of 2,016 row pairs expected near it)."""
+    n, d = 64, 8192
+    draws = GeneratorDraws(seed)
+    u = draws.uniform(0, torch.arange(n), d).double()
+    m = u.numel()
+    assert abs(u.mean().item() - 0.5) < 5 * (1 / 12 / m) ** 0.5
+    assert abs(u.var().item() - 1 / 12) < 5 * (1 / 180 / m) ** 0.5
+    hist = torch.histc(u, bins=64, min=0.0, max=1.0)
+    chi2 = (((hist - m / 64) ** 2) / (m / 64)).sum().item()
+    assert abs(chi2 - 63) < 5 * (2 * 63) ** 0.5
+    assert (u.std(dim=0) > 0.1).all()
+    rows = torch.corrcoef(u)
+    rows.fill_diagonal_(0.0)
+    assert rows.abs().max().item() < 0.06
+    cols = torch.corrcoef(torch.stack([u[:, :-1].flatten(), u[:, 1:].flatten()]))
+    assert abs(cols[0, 1].item()) < 0.06
+    nxt = draws.uniform(1, torch.arange(n), d).double()
+    per_client = [torch.corrcoef(torch.stack([u[i], nxt[i]]))[0, 1].item()
+                  for i in range(n)]
+    assert max(map(abs, per_client)) < 0.06
 
 
 # --------------------------------------------------- 5-round trajectories

@@ -1006,3 +1006,81 @@ def test_examples_run_on_the_card_by_default(cuda_device, tmp_path, capsys, name
     assert fedavg_agg.launches > before
     out = capsys.readouterr().out
     assert "fallback" not in out and "final" in out
+
+
+# ---------------------------------------------------------------------------
+# the client mesh over NCCL: 4 cards against the one-rank run on one card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_runs():
+    """Every case of ``tests/_torch_mesh_jobs.py`` on a one-rank NCCL mesh
+    (card 0), on four ranks (cards 0-3), and in this process without a
+    mesh (the resident engine on card 0)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 NVIDIA GPUs (one NCCL rank a card)")
+    import _torch_mesh_jobs as jobs
+    from repro_torch.core.distributed import spawn
+
+    cases = list(jobs.CASES)
+    one = spawn(1, jobs.job, cases, "cuda", device="cuda")[0]
+    four = spawn(4, jobs.job, cases, "cuda", device="cuda")
+    resident = {name: jobs.run_case(name, 1, "cuda") for name in ("fedar", "qsgd8",
+                                                                  "gated_packed")}
+    return jobs, one, four, resident
+
+
+@pytest.mark.parametrize("case", [
+    "fedar", "fedavg", "async", "async_seq", "foolsgold", "foolsgold_sketch", "qsgd8",
+    "qsgd4_async", "topk", "gated_packed", "padded", "drift", "chaos", "cohort"])
+def test_nccl_mesh_matches_one_rank(nccl_runs, case):
+    """Four NCCL ranks, one a card, against the one-rank run on one card:
+    the bars of tests/test_torch_mesh.py (selected, on-time, trust and fault
+    masks identical, params within 1e-4 and bit-identical on every rank)."""
+    jobs, one, four, _ = nccl_runs
+    jobs.check_case(one[case], [r[case] for r in four], case, 4)
+
+
+def test_nccl_mesh_collectives_and_layout(nccl_runs):
+    """The collectives over NCCL (bool masks as uint8, the tree reduce, a
+    width-0 gather), the divisibility error, and each rank's uplink of N / 4
+    packed rows."""
+    jobs, _, four, _ = nccl_runs
+    ops = [r["_ops"] for r in four]
+    xs = np.stack([o["x"] for o in ops])
+    for r in four:
+        o = r["_ops"]
+        np.testing.assert_allclose(o["psum"], xs.sum(0), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(o["tree"], xs.sum(0), rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(o["gathered"],
+                                      np.concatenate([p["mask"] for p in ops]))
+        assert o["empty"] == (12, 0) and "divisible" in r["_divisible"]
+        assert f"the fleet's {jobs.N}" in r["_local_fleet"]
+        codes, scale = r["qsgd8"]["uplink_shapes"][0]
+        assert codes == ((jobs.N // 4, r["qsgd8"]["dim"]), "uint8")
+        assert scale == ((jobs.N // 4, 1), "float32")
+
+
+@pytest.mark.parametrize("case", ["fedar", "qsgd8", "gated_packed"])
+def test_one_rank_nccl_mesh_is_the_resident_engine(nccl_runs, case):
+    """A one-rank NCCL mesh (``MeshComms`` over one card) gives the resident
+    engine's results bit for bit."""
+    _, one, _, resident = nccl_runs
+    assert one[case]["mesh"] == (0, 1) and resident[case]["mesh"] is None
+    for key in ("params_rounds", "trust", "selected", "on_time", "fg_history",
+                "compress_residual"):
+        np.testing.assert_array_equal(one[case][key], resident[case][key], err_msg=key)
+
+
+def test_qsgd_uniforms_on_the_card_equal_the_cpu(cuda_device):
+    """The QSGD uniforms are a counter hash in int64 tensor ops: the card
+    draws the CPU's bits, and a block of client ids draws the rows of the
+    whole fleet's table for those ids."""
+    from repro_torch.convert import GeneratorDraws
+
+    ids = torch.arange(512)
+    card = GeneratorDraws(7, cuda_device).uniform(3, ids.to(cuda_device), 101_770)
+    cpu = GeneratorDraws(7).uniform(3, ids, 101_770)
+    assert torch.equal(card.cpu(), cpu)
+    block = GeneratorDraws(7, cuda_device).uniform(3, ids[128:256].to(cuda_device), 101_770)
+    assert torch.equal(block, card[128:256])

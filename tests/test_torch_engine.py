@@ -32,7 +32,12 @@ from repro_torch.convert import (
     params_from_jax,
     params_to_numpy,
 )
-from repro_torch.core.engine import FedAREngine, flatten, unflatten
+from repro_torch.core.engine import (
+    FedAREngine,
+    flatten,
+    median_arrival_timeout,
+    unflatten,
+)
 from repro_torch.core.fedar import FedARServer
 from repro_torch.core.resources import TaskRequirement
 from repro_torch.data.federated import table2_fleet
@@ -156,10 +161,11 @@ def test_kernel_route_on_cpu_raises(knob):
     dict(mesh_shape=4, cohort_size=4),
 ])
 def test_later_slice_features_raise(override):
-    """A mesh (Queue 1 item 12) is refused, alone and beside the faults and
-    the cohort size this slice ported."""
+    """A mesh without a process group of its size is refused, alone and
+    beside the faults and the cohort size (the client mesh runs in the
+    ranks ``core.distributed.spawn`` starts; tests/test_torch_mesh.py)."""
     fed = fleet_fed(12, defense="none", **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
+    with pytest.raises(RuntimeError, match="process group"):
         FedAREngine(small_model(8), fed, TaskRequirement(), device="cpu")
 
 
@@ -206,6 +212,30 @@ def test_masked_round_and_standalone_draws():
     rows = eng._block_sgd(g, {k: fields[k] for k in eng.model.data_keys},
                           fields["mask"])
     assert torch.equal(rows[4], g)
+
+
+def test_median_arrival_timeout_lets_half_the_honest_robots_arrive():
+    """The timeout worked out from the fleet's latencies (the LM example's
+    at full width): run through the engine, every round at least half of
+    the honest robots arrive in time, and the worst round's median one
+    only just; some robot straggles."""
+    import dataclasses
+
+    fed = fleet_fed(8, defense="none")
+    data = table2_fleet(samples_per_client=40)
+    data = {k: v[:8] for k, v in data.items()}
+    eng = FedAREngine(small_model(8), fed, TaskRequirement(), device="cpu")
+    flops = eng._train_flops(eng.device_data(data))
+    rounds = 4
+    timeout = median_arrival_timeout(fed, train_flops=flops, model_bytes=4.0 * eng.dim,
+                                     rounds=rounds)
+    eng = FedAREngine(small_model(8), dataclasses.replace(fed, timeout=timeout),
+                      TaskRequirement(), device="cpu")
+    _, outs = eng.run(eng.init_state(), data, rounds=rounds)
+    honest = torch.as_tensor(~eng.poison_mask)
+    on_time = outs.on_time[:, honest]
+    assert (on_time.sum(dim=1) >= -(-int(honest.sum()) // 2)).all()
+    assert not outs.on_time.all()
 
 
 def test_dense_foolsgold_round_on_cpu():

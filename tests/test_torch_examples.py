@@ -3,7 +3,9 @@
 client: the quickstart (Table II, a quantity-skewed EMNIST pool on the
 packed layout with selection gating, the host-store cohort engine with
 async + QSGD + chaos faults, the auto-cohort past 4,096 clients) and the
-poisoning demo (paper scale and the engine-scale sybil clique)."""
+poisoning demo (paper scale and the engine-scale sybil clique); then the
+two and the federated LM example over four gloo ranks (``--device cpu
+--devices 4``) against their one-process runs."""
 import importlib.util
 import os
 import subprocess
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 
 from _idx_files import write_cache
+from _torch_mesh_jobs import one_thread
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ("quickstart_torch", "poisoning_defense_torch")
@@ -110,9 +113,58 @@ def test_poisoning_demo(capsys, clients):
 
 
 @pytest.mark.parametrize("name", EXAMPLES)
-def test_devices_past_one_raise(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        load(name).main(["--devices", "2", "--device", "cpu"])
+def test_devices_past_one_raise(name, monkeypatch):
+    """``--devices 2`` on the cards (the default device) needs CUDA devices:
+    with none it raises before any rank starts."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load(name).main(["--devices", "2"])
+
+
+def _importable(name, monkeypatch):
+    """The example imported by name, so that the mesh's spawned ranks can
+    import the function they run."""
+    import importlib
+
+    monkeypatch.syspath_prepend(str(ROOT / "examples"))
+    return importlib.import_module(name)
+
+
+def test_quickstart_on_a_cpu_mesh(monkeypatch, capfd):
+    """``--device cpu --devices 4``: four gloo ranks; rank 0 prints the mesh
+    line, and its history matches the one-process run's (trust and masks
+    identical, accuracy within 1e-3).  A 30-client fleet is padded to 32."""
+    mod = _importable("quickstart_torch", monkeypatch)
+    argv = ["--dataset", "digits", "--scenario", "quantity_skew", "--rounds", "2",
+            "--samples", "30", "--device", "cpu"]
+    mesh = mod.main(argv + ["--clients", "32", "--devices", "4"])
+    out = capfd.readouterr().out
+    assert "mesh: 4 client shards x 8 clients" in out and "layout=packed" in out
+    with one_thread():
+        one = mod.main(argv + ["--clients", "32"])
+    for key in ("trust", "selected", "on_time"):
+        np.testing.assert_array_equal(np.stack(mesh[key]), np.stack(one[key]))
+    np.testing.assert_allclose(mesh["acc"], one["acc"], atol=1e-3)
+    mod.main(argv + ["--clients", "30", "--devices", "4"])
+    assert "fleet padded 30 -> 32 clients to divide by 4 shards" in capfd.readouterr().out
+
+
+def test_poisoning_demo_on_a_cpu_mesh(monkeypatch, capfd):
+    """The engine-scale demo over four gloo ranks: the clique's defense
+    weights as in the one-process run (1e-4)."""
+    mod = _importable("poisoning_defense_torch", monkeypatch)
+    argv = ["--clients", "64", "--rounds", "2", "--samples", "30", "--device", "cpu"]
+    h1, h0, fgw, sybils = mod.main(argv + ["--devices", "4"])
+    assert "mesh: 4 client shards x 16 clients" in capfd.readouterr().out
+    with one_thread():
+        s1, _, fgw1, _ = mod.main(argv)
+    np.testing.assert_allclose(fgw, fgw1, atol=1e-4, rtol=1e-4)
+    np.testing.assert_array_equal(np.stack(h1["selected"]), np.stack(s1.history["selected"]))
+    assert fgw[sybils].max() < fgw[~sybils].min()
+    with pytest.raises(SystemExit):
+        mod.main(["--clients", "66", "--devices", "4", "--device", "cpu"])
 
 
 def test_examples_leave_out_jax_and_reference():
@@ -135,3 +187,18 @@ def test_examples_leave_out_jax_and_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_federated_lm_on_a_cpu_mesh(monkeypatch, capfd):
+    """``examples/federated_lm_torch.py --device cpu --devices 4``: four gloo
+    ranks, one client each; the history matches the one-process run's
+    (trust and masks identical, held-out loss within 1e-4)."""
+    mod = _importable("federated_lm_torch", monkeypatch)
+    argv = ["--clients", "4", "--rounds", "2", "--samples", "8", "--device", "cpu"]
+    mesh = mod.main(argv + ["--devices", "4"])["fedar"]
+    assert "mesh: 4 client shards x 1 clients" in capfd.readouterr().out
+    with one_thread():
+        one = mod.main(argv)["fedar"]
+    for key in ("trust", "selected", "on_time"):
+        np.testing.assert_array_equal(np.stack(mesh[key]), np.stack(one[key]))
+    np.testing.assert_allclose(mesh["loss"], one["loss"], atol=1e-4, rtol=1e-4)
