@@ -170,6 +170,29 @@ Phases (any failure raises and the script exits non-zero):
    launched, steady rounds/s; on one card that check prints that it was
    skipped.
 
+15. MoE and MLA serving (bf16, params from ``Model.init_params`` on a seeded
+   CUDA generator, counted against the reference's).  15a,
+   qwen2-moe-a2.7b (hf:Qwen/Qwen1.5-MoE-A2.7B; 24 layers, 60 experts top-4
+   and 4 shared, one-hot dispatch) and 15b, minicpm3-4b
+   (hf:openbmb/MiniCPM3-4B; 62 MLA layers, q/k head dim 96, v 64 padded to
+   96 for kernel 8), each at full width and depth: 4 requests of 4 x 2,048
+   tokens (the first is warm-up), each launching ``flash_attention`` once a
+   layer, with requests/s, prompt tokens/s, peak memory and one profiled
+   request; for 15a the one-hot dispatch's two einsums timed alone at the
+   request's shapes and one request on ``moe_dispatch="scatter"``; decode
+   at B = 4, a 64-token prompt and 64 greedy tokens through 128 slots after
+   8 warm-up steps (cut from phase 9b's 512 + 128), no kernel launched;
+   the fp32 route check block by block on one 1 x 1,024 request (qwen2 at
+   4 layers, an MoE block split into its attention sub-layer, held kernel
+   route against plain route, and its MoE sub-layer, which has no kernel
+   route, run on both routes' states with the route flips between them
+   counted, so that the last block's logits compare the two routes;
+   minicpm3 at full depth) and the fp32 decode-vs-prefill check over 2 x
+   256 positions at 4 layers, dropless (``moe_capacity_factor`` 16).  15c,
+   arctic-480b at ``reduced()`` (Trap 7: ~960 GB at full width): fp32 and
+   bf16 forward and decode on the card against the port on the CPU (bf16:
+   the median and 90th-percentile position errors against fp32).
+
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
 longest client's steps on its cluster's SMs at their share of the fp32
@@ -178,7 +201,9 @@ plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
 (N, n_max) rectangle; and ``flash_attention`` and ``ssm_scan`` against
 their plain versions at phases 9's and 12's shapes, in bf16 and fp32 (the
 1 x 8,192 prompt in bf16; gemma3-1b's head_dim 256 with and without its
-512 window, a ragged S; yi-9b's 32 heads over 4; the fp32 scan row by row
+512 window, a ragged S; yi-9b's 32 heads over 4; phase 15's qwen2-moe-a2.7b
+(16 heads of 128) and minicpm3-4b (40 heads, q/k 96, v 64 zero-padded to 96,
+SDPA on the unpadded v with its backend named); the fp32 scan row by row
 against the float64 recurrence), with each bf16 instance's registers,
 spilled and shared bytes; and the defense's
 count sketch (``count_sketch``, a CUDA kernel that sums in a fixed order;
@@ -191,8 +216,8 @@ exits non-zero and prints no result.  ``--profile DIR`` also writes a
 ``torch.profiler`` table of one round of phases 3, 4, 5, 6 (both fleets,
 with a compressed round's device time split into ``torch.topk``, the
 gather, the two decodes, ``local_sgd`` and the rest), 7 (both layouts) and
-8, of each profiled request of phases 9 and 12 and of each decode run's
-profiled steps of phases 9b and 12.
+8, of each profiled request of phases 9, 12 and 15 and of each decode run's
+profiled steps of phases 9b, 12 and 15.
 """
 from __future__ import annotations
 
@@ -1005,16 +1030,36 @@ def compare_scan_fp32(name, got, plain, want64):
     return err.max().item()
 
 
-def attn_bound(B, S, H, K, hd, window, dtype):
-    """Bytes: q and the output (H heads), k and v (K heads), once each.
-    FLOPs: 2 products of 2 hd FLOPs per live (query, key) pair, the causal
-    half (a band of ``window`` under a window).  Peak by input dtype."""
+def sdpa_backend(fn) -> str:
+    """The backend that serves ``fn``'s SDPA call, named from the device
+    kernels one call launches under ``torch.profiler``."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = " ".join(e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA).lower()
+    # cuDNN's SDPA kernels carry "flash" in their names too
+    for word, backend in (("cudnn", "cuDNN"), ("flash", "flash"), ("fmha", "efficient"),
+                          ("efficient", "efficient")):
+        if word in names:
+            return backend
+    return "math"
+
+
+def attn_bound(B, S, H, K, hd, window, dtype, dv=None):
+    """Bytes: q (H heads) and k (K heads) at ``hd`` columns, v (K heads)
+    and the output (H heads) at v's ``dv`` (``hd`` unless v is narrower,
+    as MLA's is), once each.  FLOPs per live (query, key) pair: 2 hd for
+    q k^T and 2 dv for P v, over the causal half (a band of ``window``
+    under a window).  Peak by input dtype.  A kernel that pads v to ``hd``
+    pays for the padding; the bound does not count it."""
+    dv = dv or hd
     w = window or S
     live = w * (w + 1) // 2 + (S - w) * w if S > w else S * (S + 1) // 2
     esize = torch.finfo(dtype).bits // 8
-    nbytes = esize * B * S * hd * (2 * H + 2 * K)
+    nbytes = esize * B * S * (H + K) * (hd + dv)
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    return bound_ms(nbytes, 4 * B * H * hd * live, peak)
+    return bound_ms(nbytes, 2 * B * H * (hd + dv) * live, peak)
 
 
 def ssd_bound(B, S, nh, hd, st, chunk, dtype):
@@ -1055,38 +1100,55 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                                          + attrs[hdp]["dynamic_smem"] > 232448):
             raise AssertionError(f"the bf16 attention instance at {hdp} spills or "
                                  "takes more shared memory than a block may")
-    for n, (label, B, S, H, K, hd, window, dtypes) in enumerate(flash_cases):
-        q32, k32, v32 = (torch.randn(B, S, h, hd, generator=gen, device=DEV)
-                         for h in (H, K, K))
+    for n, (label, B, S, H, K, hd, window, dtypes, *rest) in enumerate(flash_cases):
+        # a case with a narrower v (MLA: dv 64 under q's 96) hands the
+        # kernel v zero-padded to hd, as mla_forward does
+        dv = rest[0] if rest else hd
+        q32, k32 = (torch.randn(B, S, h, hd, generator=gen, device=DEV) for h in (H, K))
+        v32 = torch.randn(B, S, K, dv, generator=gen, device=DEV)
         for dtype in dtypes:
-            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            q, k, v_own = (t.to(dtype) for t in (q32, k32, v32))
+            v = torch.nn.functional.pad(v_own, (0, hd - dv)) if dv < hd else v_own
             got = flash_attention(q, k, v, causal=True, window=window)
             want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
             fp32 = dtype == torch.float32
-            err = compare_by_row(f"{label}: (B, S, H, K, hd) = {(B, S, H, K, hd)}, "
-                               f"window {window}, {str(dtype)[6:]}", got, want,
-                               rtol=1e-4 if fp32 else BF16_RTOL)
+            err = compare_by_row(f"{label}: (B, S, H, K, hd) = {(B, S, H, K, hd)}"
+                                 + (f", v {dv} padded to {hd}" if dv < hd else "")
+                                 + f", window {window}, {str(dtype)[6:]}", got, want,
+                                 rtol=1e-4 if fp32 else BF16_RTOL)
+            if dv < hd and got[..., dv:].count_nonzero().item():
+                raise AssertionError(f"{label}: the zero columns of v gave nonzero output")
             del got, want
             torch.cuda.empty_cache()
             # the library yardstick: one SDPA call in its own (B, H, S, hd)
-            # layout, transposed outside the timed call
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            # layout, transposed outside the timed call, on v as the model
+            # has it (unpadded)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v_own))
             band = None
             if window:
                 i = torch.arange(S, device=DEV)
                 band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=band, is_causal=band is None, enable_gqa=K != H)
+
             k_ms = time_ms(lambda: flash_attention(q, k, v, causal=True, window=window),
                            reps=5)
             p_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True,
                                                            window=window), reps=3)
-            lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=band, is_causal=band is None,
-                enable_gqa=K != H), reps=5)
-            b_ms, b_by = attn_bound(B, S, H, K, hd, window, dtype)
+            lib_ms = time_ms(sdpa, reps=5)
+            b_ms, b_by = attn_bound(B, S, H, K, hd, window, dtype, dv)
             res = ""
             case = dict(label=label, shape=[B, S, H, K, hd], window=window,
                         dtype=str(dtype)[6:], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            library = "scaled_dot_product_attention"
+            if dv < hd:
+                # which backend takes v narrower than q and k
+                backend = sdpa_backend(sdpa)
+                case.update(v_head_dim=dv, library_backend=backend)
+                library += f", {backend}"
             if not fp32:
                 hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
                 case["resources"] = attrs[hdp]
@@ -1095,7 +1157,8 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                        f"{attrs[hdp]['static_smem'] + attrs[hdp]['dynamic_smem']} shared bytes")
             cases.append(case)
             print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, library {lib_ms:.3f} ms "
-                  f"(scaled_dot_product_attention), bound {b_ms:.4f} ms ({b_by}){res}")
+                  f"({library}), bound {b_ms:.4f} ms "
+                  f"({b_by}){res}")
             if n == 0 and dtype == torch.bfloat16:
                 entries["flash_attention"] = dict(
                     name="flash_attention", route="cuda",
@@ -1103,7 +1166,7 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                     replaces="src/repro/kernels/flash_attention.py:71", max_abs_err=err,
                     ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms)
-            del q, k, v, qt, kt, vt
+            del q, k, v, v_own, qt, kt, vt
     entries["flash_attention"]["cases"] = cases
 
     ssm_scan, ssm_attrs, ssm_plan = ssm
@@ -1222,59 +1285,99 @@ def profile_device(run, names, path, label, units=1, unit="request"):
 
 
 def block_forwards(cfg, params, pos):
-    """Each block application of a prefill in trunk order, as a function of
-    (x, impl): for zamba every Mamba2 layer and the shared attention block
-    after every ``shared_attn_every``-th; for the attn kind every layer at
-    its own window (``layer_windows``)."""
-    from repro_torch.models import blocks
+    """Each block application of a prefill in trunk order, as (kind, block
+    params, fn(x, impl) -> x): for zamba every Mamba2 layer and the shared
+    attention block after every ``shared_attn_every``-th; for the attn kind
+    every layer at its own window (``layer_windows``), an MoE layer split
+    into its attention sub-layer (``attn``) and its MoE sub-layer
+    (``moe``), which has no kernel route."""
+    from repro_torch.models import attention, blocks
+    from repro_torch.models.layers import rms_norm
     from repro_torch.models.model import layer_windows
 
     if "shared_attn" not in params:
-        return [lambda x, impl, lp=lp, w=w: blocks.attn_block_forward(lp, x, pos, cfg, w, impl)
-                for lp, w in zip(params["layers"], layer_windows(cfg).tolist())]
+        windows = layer_windows(cfg).tolist()
+        if not cfg.num_experts:
+            return [("block", lp, lambda x, impl, lp=lp, w=w: blocks.attn_block_forward(
+                lp, x, pos, cfg, w, impl)[0]) for lp, w in zip(params["layers"], windows)]
+        attend = attention.mla_forward if cfg.attention == "mla" else attention.gqa_forward
+        apps = []
+        for lp, w in zip(params["layers"], windows):
+            apps.append(("attn", lp, lambda x, impl, lp=lp, w=w: x + attend(
+                lp["attn"], rms_norm(x, lp["ln1"], cfg.norm_eps), pos, cfg, w, impl)))
+            apps.append(("moe", lp, lambda x, impl, lp=lp: x + blocks.ffn_sublayer(
+                lp, rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)[0]))
+        return apps
     apps = []
     for i, lp in enumerate(params["layers"]):
-        apps.append(lambda x, impl, lp=lp: blocks.mamba_block_forward(lp, x, cfg, impl))
+        apps.append(("mamba", lp, lambda x, impl, lp=lp: blocks.mamba_block_forward(
+            lp, x, cfg, impl)))
         if (i + 1) % cfg.shared_attn_every == 0:
-            apps.append(lambda x, impl: blocks.attn_block_forward(
-                params["shared_attn"], x, pos, cfg, cfg.sliding_window, impl))
+            apps.append(("block", params["shared_attn"], lambda x, impl: blocks.attn_block_forward(
+                params["shared_attn"], x, pos, cfg, cfg.sliding_window, impl)[0]))
     return apps
 
 
 def check_blocks(cfg, params, toks):
-    """The route check, block by block: the request runs through the kernel
-    route, and each of its block applications (``block_forwards``) also
-    runs through the plain route from the same input.  Each block's
-    increment to the residual must agree within atol = rtol = 1e-4 (fp32
-    sums in another order inside one block), and so must the logits from
-    the last hidden state, with the same greedy token."""
+    """The route check, block by block: the request runs through the plain
+    route, and each of its block applications (``block_forwards``) that
+    has a kernel also runs through the kernel route from the same input.
+    Each such block's increment to the residual must agree within atol =
+    rtol = 1e-4 (fp32 sums in another order inside one block).  An MoE
+    sub-layer has no kernel route: it takes both the plain route's state
+    and the kernel route's output of the attention sub-layer before it, and
+    the tokens whose kept experts differ between the two (route flips) are
+    counted.  The logits from the last block's two outputs must agree
+    within 1e-4, with the same greedy token."""
+    from repro_torch.models import moe
     from repro_torch.models.layers import rms_norm
 
     worst = (-1.0, 0.0, 0.0)  # (err / limit, err, limit) of the closest block
-    n = 0
+    n, flips, flip_margin, last_flipped = 0, 0, 0.0, None
     with torch.inference_mode():
         x = torch.nn.functional.embedding(toks.long(), params["embed"])
+        last = x
         pos = torch.arange(x.shape[1], device=x.device)
-        for app in block_forwards(cfg, params, pos):
+        for kind, lp, app in block_forwards(cfg, params, pos):
+            if kind == "moe":
+                mine, margin = moe.kept_experts(lp["moe"], rms_norm(last, lp["ln2"],
+                                                                    cfg.norm_eps), cfg)
+                theirs, _ = moe.kept_experts(lp["moe"], rms_norm(x, lp["ln2"],
+                                                                 cfg.norm_eps), cfg)
+                flipped = (mine != theirs).any(-1)
+                flips += int(flipped.sum())
+                if flipped.any():
+                    flip_margin = max(flip_margin, margin[flipped].max().item())
+                last_flipped = flipped.reshape(toks.shape)[:, -1]
+                x, last = app(x, "einsum"), app(last, "einsum")
+                continue
             got, want = app(x, "kernel") - x, app(x, "einsum") - x
             err = (got - want).abs().max().item()
             limit = 1e-4 + 1e-4 * want.abs().max().item()
             if err > limit:
-                raise AssertionError(f"block {n}: kernel route off by {err:.3e} "
+                raise AssertionError(f"block {n} ({kind}): kernel route off by {err:.3e} "
                                      f"(tolerance {limit:.3e})")
             worst = max(worst, (err / limit, err, limit))
             n += 1
-            x, last = x + want, x + got
+            x, last, last_flipped = x + want, x + got, None
 
         w_head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
         def head(h):
             return rms_norm(h[:, -1], params["final_norm"], cfg.norm_eps) @ w_head
 
-        lk, lpl = head(x), head(last)
-    print(f"  {n} blocks, each from the same input on both routes: closest to its "
-          f"tolerance max_abs_err={worst[1]:.3e} (tolerance {worst[2]:.3e}: atol=1e-4 + "
-          f"rtol=1e-4 * max|plain increment|) ok")
+        lk, lpl = head(last), head(x)
+    print(f"  {n} blocks with a kernel, each from the same input on both routes: closest "
+          f"to its tolerance max_abs_err={worst[1]:.3e} (tolerance {worst[2]:.3e}: atol=1e-4 "
+          f"+ rtol=1e-4 * max|plain increment|) ok")
+    if cfg.num_experts:
+        print(f"  MoE sub-layers, each on both routes' states: route flips between them "
+              f"{flips} of {cfg.num_layers * toks.numel()} token-layers"
+              + (f" (largest router margin among them {flip_margin:.3e})" if flips else ""))
+        if last_flipped is not None and last_flipped.any():
+            raise AssertionError("the last MoE sub-layer routes a sequence's last token "
+                                 "differently on the two routes, so their logits are not "
+                                 "held to 1e-4")
     compare("logits from the last block's two outputs", lk, lpl, atol=1e-4, rtol=1e-4)
     if not torch.equal(lk.argmax(-1), lpl.argmax(-1)):
         raise AssertionError("the greedy token differs between the kernel and plain routes")
@@ -1381,8 +1484,10 @@ def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir):
                        names, profile_dir, f"prefill_{cfg.name}_{toks.shape[0]}x{toks.shape[1]}")
         bounds = []
         for w in sorted(want_windows):
-            fb = attn_bound(*toks.shape, cfg.num_heads, cfg.num_kv_heads,
-                            cfg.resolved_head_dim, w, dtype)
+            # MLA: q and k at 96 columns, v and the output at 64
+            hd, dv = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+                      if cfg.attention == "mla" else (cfg.resolved_head_dim, None))
+            fb = attn_bound(*toks.shape, cfg.num_heads, cfg.num_kv_heads, hd, w, dtype, dv)
             bounds.append(f"flash_attention at window {w} {fb[0]:.4f} ms ({fb[1]})")
         if not dense:
             _, nh = ssm_dims(cfg)
@@ -1481,7 +1586,7 @@ def decode_step_bytes(cfg, params, cache, batch: int, positions) -> list:
         if kind == "mamba":
             fixed += 2 * tensor_bytes(c)
         else:
-            clen = c["k"].shape[1]
+            clen = next(iter(c.values())).shape[1]  # GQA's k / v, MLA's ckv / krope
             kv.append((clen, window or clen, tensor_bytes(c) // clen))
     return [fixed + sum(slot * (min(p + 1, w, clen) + 1) for clen, w, slot in kv)
             for p in positions]
@@ -1658,7 +1763,7 @@ def check_decode_blocks(model, params, toks):
                 _, state = ssm.ssd_chunked(xd, logdecay, Bc, Cc, cfg.ssm_chunk)
                 check("state", c["ssm"], state, (2, 3))
             else:
-                want = blocks.attn_block_forward(lp, x, positions, cfg, window, "einsum")
+                want = blocks.attn_block_forward(lp, x, positions, cfg, window, "einsum")[0]
                 got = [blocks.attn_block_decode(lp, c, x[:, t:t + 1], t, cfg, window)[0]
                        for t in range(T)]
             check(kind, torch.cat(got, dim=1) - x, want - x, -1)
@@ -1715,6 +1820,216 @@ def dense_phase(cfg, lm_kernels, every, entries, profile_dir, *, decode, route_l
     del model, params
     torch.cuda.empty_cache()
     print(f"[phase 12, {cfg.name}] {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------- phase 15
+# the reference's parameter counts (its ``init_params`` at full width)
+MOE_MLA_PARAMS = {"qwen2-moe-a2.7b": 14_315_636_736, "minicpm3-4b": 4_261_839_360}
+
+
+def dispatch_einsums(cfg, B: int, S: int) -> tuple:
+    """The one-hot dispatch's two einsums of one MoE layer, each timed
+    alone at a (B, S) request's shapes in ``cfg.dtype`` (the dispatch
+    (G, n, E, C) by the tokens (G, n, d); the combine by the expert outputs
+    (E, G, C, d)), and their FLOPs.  Returns (dispatch ms, combine ms,
+    FLOPs of the two)."""
+    from repro_torch.models import moe
+
+    N = B * S
+    group = min(moe.MAX_GROUP, N)
+    G, E = -(-N // group), cfg.num_experts
+    C = max(int(group * cfg.num_experts_per_tok * cfg.moe_capacity_factor / E), 4)
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    mask = torch.rand(G, group, E, C, generator=gen, device=DEV).to(dt)
+    xt = torch.randn(G, group, cfg.d_model, generator=gen, device=DEV).to(dt)
+    eo = torch.randn(E, G, C, cfg.d_model, generator=gen, device=DEV).to(dt)
+    d_ms = time_ms(lambda: torch.einsum("gnec,gnd->egcd", mask, xt), reps=5)
+    c_ms = time_ms(lambda: torch.einsum("gnec,egcd->gnd", mask, eo), reps=5)
+    del mask, xt, eo
+    return d_ms, c_ms, 2 * 2 * G * group * E * C * cfg.d_model
+
+
+def scatter_request(cfg, model, params, flash) -> None:
+    """One 4 x 2,048 request on ``moe_dispatch="scatter"`` from the same
+    params beside the one-hot request of the same prompt, each after one
+    warm-up: the two modes compute the same function (bf16 sums in another
+    order, no tolerance)."""
+    from repro_torch.models.model import Model
+
+    scat = Model(dataclasses.replace(cfg, moe_dispatch="scatter"))
+    toks = torch.randint(0, cfg.vocab_size, (4, 2048),
+                         generator=torch.Generator(device=DEV).manual_seed(13), device=DEV)
+    runs = {}
+    for name, m in (("onehot", model), ("scatter", scat)):
+        for _ in range(2):
+            n0 = flash.launches
+            t0 = time.perf_counter()
+            logits = m.prefill(params, {"tokens": toks})
+            greedy = logits.argmax(-1).cpu()
+            runs[name] = ((time.perf_counter() - t0) * 1e3, logits, greedy)
+            if flash.launches - n0 != cfg.num_layers:
+                raise AssertionError(f"the {name} request launched flash_attention "
+                                     f"{flash.launches - n0} times")
+    (o_ms, o_logits, o_greedy), (s_ms, s_logits, s_greedy) = runs["onehot"], runs["scatter"]
+    if not torch.isfinite(s_logits).all():
+        raise AssertionError("the scatter dispatch gave non-finite logits")
+    print(f"  moe_dispatch scatter: one 4 x 2,048 request {s_ms:.3f} ms against onehot "
+          f"{o_ms:.3f} ms on the same prompt (each after one warm-up); logits max_abs_diff "
+          f"{(s_logits - o_logits).abs().max().item():.3e} (bf16, no tolerance), greedy "
+          f"tokens equal in {int((s_greedy == o_greedy).sum())} of 4")
+
+
+def decode_vs_prefill(cfg, params, every, gen, layers: int) -> None:
+    """Phase 9b's fp32 decode-vs-prefill check on the first ``layers``
+    layers of ``params``, dropless (``moe_capacity_factor`` 16, as the
+    reference's decode test runs: prefill groups the whole batch and may
+    drop, decode never does).  No kernel may launch."""
+    from repro_torch.models.model import Model
+
+    dcfg = dataclasses.replace(cfg, num_layers=layers, moe_capacity_factor=16.0)
+    print(f"\n[decode vs prefill] {cfg.name} fp32, {layers} layers, dropless, block by "
+          "block, from the plain prefill's input to each block")
+    for k in every:
+        k.launches = 0
+    check_decode_blocks(Model(dcfg), dict(params, layers=params["layers"][:layers]),
+                        torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device=DEV))
+    launched = {k.__name__: k.launches for k in every if k.launches}
+    if launched:
+        raise AssertionError(f"the decode check launched kernels {launched}")
+
+
+def position_errors(got, want):
+    """Each position's largest |got - want| over the vocabulary, (positions,)."""
+    return (got.float() - want.float()).abs().reshape(-1, got.shape[-1]).amax(-1)
+
+
+def arctic_reduced(flash, every) -> None:
+    """Phase 15c: ``arctic-480b`` at ``reduced()`` (2 layers, d_model 256,
+    4 experts top-2 beside the dense residual FFN, 4 heads over 2), from
+    params drawn on a seeded CPU generator: ``forward`` over 2 x 256 tokens
+    and 24 decode steps on the card against the port on the CPU.  fp32:
+    logits within atol = rtol = 1e-4.  bf16: both bf16 runs are set against
+    the CPU's fp32 logits; the card's median and 90th-percentile position
+    errors may each be at most twice the CPU's own (a route flip moves a
+    few positions by far more than rounding does, so the largest is not
+    held; the 90th percentile catches an error confined to a minority of
+    positions, such as a wrong last key tile)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ordered_leaves, with_leaves
+    from repro_torch.models.model import Model
+
+    base = get_config("arctic-480b").reduced()
+    toks = torch.randint(0, base.vocab_size, (2, 256), generator=torch.Generator().manual_seed(14))
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        cpu = Model(cfg, device="cpu")
+        p_cpu = cpu.init_params(torch.Generator().manual_seed(12))
+        card = Model(cfg)
+        p_card = with_leaves(p_cpu, [t.to(DEV) for _, t in ordered_leaves(p_cpu)])
+        n0 = flash.launches
+        got, aux = card.forward(p_card, {"tokens": toks.to(DEV)})
+        if flash.launches - n0 != cfg.num_layers:
+            raise AssertionError("arctic's reduced forward did not launch kernel 8 a layer")
+        want, aux_cpu = cpu.forward(p_cpu, {"tokens": toks})
+        for k in every:
+            k.launches = 0
+        cache, cache_cpu = card.init_cache(2, 24), cpu.init_cache(2, 24)
+        steps, steps_cpu = [], []
+        for t in range(24):
+            lg, cache = card.decode_step(p_card, cache, toks[:, t:t + 1].to(DEV), t)
+            lc, cache_cpu = cpu.decode_step(p_cpu, cache_cpu, toks[:, t:t + 1], t)
+            steps.append(lg.cpu())
+            steps_cpu.append(lc)
+        launched = {k.__name__: k.launches for k in every if k.launches}
+        if launched:
+            raise AssertionError(f"arctic's decode launched kernels {launched}")
+        runs[dtype] = (got.cpu(), want, torch.stack(steps), torch.stack(steps_cpu),
+                       float(aux), float(aux_cpu))
+    got, want, steps, steps_cpu, aux, aux_cpu = runs["float32"]
+    print(f"\n[15c] arctic-480b reduced(): {base.num_layers} layers, d_model {base.d_model}, "
+          f"{base.num_experts} experts top-{base.num_experts_per_tok} beside the dense "
+          f"residual FFN; forward over 2 x 256 tokens and 24 decode steps, card vs CPU")
+    compare("fp32 forward logits, card (kernel route) vs CPU (plain)", got, want,
+            atol=1e-4, rtol=1e-4)
+    compare("fp32 aux loss, card vs CPU", torch.tensor(aux), torch.tensor(aux_cpu),
+            atol=1e-4, rtol=1e-4)
+    compare("fp32 decode logits, 24 steps, card vs CPU", steps, steps_cpu, atol=1e-4,
+            rtol=1e-4)
+    f32 = (want, steps_cpu)
+    b_got, b_want, b_steps, b_steps_cpu, _, _ = runs["bfloat16"]
+    for what, card_out, cpu_out, ref32 in (("forward", b_got, b_want, f32[0]),
+                                           ("decode", b_steps, b_steps_cpu, f32[1])):
+        e_card, e_cpu = position_errors(card_out, ref32), position_errors(cpu_out, ref32)
+        q = torch.tensor([0.5, 0.9])
+        p_card, p_cpu = torch.quantile(e_card, q), torch.quantile(e_cpu, q)
+        ok = bool((p_card <= 2 * p_cpu).all())
+        print(f"  bf16 {what} against the CPU's fp32 logits over {e_card.numel()} positions: "
+              f"card median {p_card[0]:.3e}, 90th percentile {p_card[1]:.3e} (largest "
+              f"{e_card.max():.3e}); CPU median {p_cpu[0]:.3e}, 90th percentile "
+              f"{p_cpu[1]:.3e} (largest {e_cpu.max():.3e}); card <= 2 x CPU at both "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"arctic's bf16 {what} on the card is further from fp32 "
+                                 "than twice the CPU's")
+        if not torch.isfinite(card_out.float()).all():
+            raise AssertionError(f"arctic's bf16 {what} gave non-finite logits")
+
+
+def moe_mla_phase(lm_kernels, every, entries, profile_dir) -> None:
+    """Phase 15: MoE and MLA serving.  15a qwen2-moe-a2.7b and 15b
+    minicpm3-4b at full width and depth in bf16: ``serve_phase``'s four
+    4 x 2,048 requests (kernel 8 once a layer), the one-hot dispatch's
+    einsums timed alone (15a), one request on the scatter dispatch (15a),
+    decode at B = 4 (a 64-token prompt and 64 greedy tokens through 128
+    slots, cut from phase 9b's 512 + 128 to keep the phase short), the
+    fp32 route check on one 1 x 1,024 request (qwen2 at 4 layers: 2.28 GB
+    of fp32 a layer; minicpm3 at full depth, 17 GB) and the fp32
+    decode-vs-prefill check at 4 layers (cut from the route check's depth:
+    each block steps 256 positions), dropless.  15c: arctic-480b at
+    ``reduced()`` (``arctic_reduced``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import layer_windows
+
+    t_phase = time.perf_counter()
+    for name, route_layers in (("qwen2-moe-a2.7b", 4), ("minicpm3-4b", None)):
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        what = (f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok} with "
+                f"{cfg.num_shared_experts} shared, {cfg.moe_dispatch} dispatch"
+                if cfg.num_experts else
+                f"MLA: q/k head dim {cfg.qk_nope_dim + cfg.qk_rope_dim}, v {cfg.v_head_dim} "
+                f"(padded to {cfg.qk_nope_dim + cfg.qk_rope_dim} for kernel 8), latent "
+                f"{cfg.kv_lora_rank} + {cfg.qk_rope_dim}")
+        print(f"\n[serve prefill] {cfg.name} ({cfg.citation}), {cfg.num_layers} layers, "
+              f"d_model {cfg.d_model}, {cfg.num_heads} heads, {what}, windows "
+              f"{sorted(set(layer_windows(cfg).tolist()))}, {cfg.dtype}; card memory in use "
+              f"before: {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        launches, model, params = serve_phase(cfg, lm_kernels, every, [(4, 2048)] * 4,
+                                              MOE_MLA_PARAMS[name], profile_dir)
+        entries["flash_attention"].setdefault("phase15", {})[name] = dict(
+            launches=launches["flash_attention"], per_request=per_request(cfg)[0])
+        if cfg.num_experts:
+            d_ms, c_ms, flops = dispatch_einsums(cfg, 4, 2048)
+            print(f"  the one-hot dispatch's einsums, timed alone at this request's shapes: "
+                  f"dispatch {d_ms:.3f} ms + combine {c_ms:.3f} ms a layer, "
+                  f"{cfg.num_layers * (d_ms + c_ms):.3f} ms a request "
+                  f"({cfg.num_layers * flops / 1e9:.1f} GFLOP)")
+            scatter_request(cfg, model, params, lm_kernels[0])
+        gen = torch.Generator(device=DEV).manual_seed(15)
+        serve_decode(model, params, (4,), every, gen, profile_dir, 64, 64)
+        del model, params
+        torch.cuda.empty_cache()
+        route_cfg = cfg if route_layers is None else dataclasses.replace(
+            cfg, num_layers=route_layers)
+        model, params = route_phase(route_cfg, lm_kernels, (1, 1024))
+        decode_vs_prefill(model.cfg, params, every, gen, 4)
+        del model, params
+        torch.cuda.empty_cache()
+        print(f"[phase 15, {cfg.name}] {time.perf_counter() - t0:.1f} s")
+    arctic_reduced(lm_kernels[0], every)
+    print(f"[phase 15] {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2713,7 +3028,9 @@ def main() -> int:
          ("gemma3-1b, local, route check", 1, 1024, 4, 1, 256, 512, both[1:]),
          ("gemma3-1b, global, route check", 1, 1024, 4, 1, 256, 0, both[1:]),
          ("gemma3-1b, local, ragged S", 1, 1000, 4, 1, 256, 512, both),
-         ("yi-9b", 4, 2048, 32, 4, 128, 0, both[:1])],
+         ("yi-9b", 4, 2048, 32, 4, 128, 0, both[:1]),
+         ("qwen2-moe-a2.7b", 4, 2048, 16, 16, 128, 0, both),
+         ("minicpm3-4b, MLA", 4, 2048, 40, 40, 96, 0, both, 64)],
         [("zamba2-7b", 4, 2048, 112, 64, 64, both),
          ("zamba2-7b, one long prompt", 1, 8192, 112, 64, 64, both[:1])],
         zamba.ssm_chunk))
@@ -3034,6 +3351,10 @@ def main() -> int:
 
     # --- phase 14: the client mesh, one NCCL rank (and k ranks on k cards)
     mesh_phase(req, make_digits(500, seed=99), sketched, every)
+
+    # --- phase 15: MoE and MLA serving, qwen2-moe-a2.7b and minicpm3-4b at
+    # full width, arctic-480b at reduced()
+    moe_mla_phase(lm_kernels, every, entries, profile_dir)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",

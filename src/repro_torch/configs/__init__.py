@@ -2,12 +2,14 @@
 
 The port carries the configurations whose trunk it runs, each with the
 shapes and citation of the reference's file: ``zamba2-7b`` (Mamba2 blocks
-plus one weight-shared attention block) and the dense GQA configs
+plus one weight-shared attention block), the dense GQA configs
 ``tinyllama-1.1b``, ``yi-9b`` and ``gemma3-1b`` (local/global windows, tied
-embeddings, tanh GELU, head_dim 256), plus the FedAR client model
-``fedar-mnist``.  The reference's other architectures raise
-``NotImplementedError``: their blocks (MoE, MLA, xLSTM, the stubbed
-frontends) are ROADMAP Queue 1 item 14.3b.
+embeddings, tanh GELU, head_dim 256), the mixtures of experts
+``qwen2-moe-a2.7b`` (shared experts) and ``arctic-480b`` (a dense residual
+FFN), ``minicpm3-4b`` (multi-head latent attention), and the FedAR client
+model ``fedar-mnist``.  The reference's other architectures raise
+``NotImplementedError``: their blocks (xLSTM, the stubbed frontends) are
+ROADMAP Queue 1 item 14.3b.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ ARCH_IDS = [
     "yi-9b",
     "gemma3-1b",
 ]
-PORTED = ("zamba2-7b", "tinyllama-1.1b", "yi-9b", "gemma3-1b")
+PORTED = ("zamba2-7b", "tinyllama-1.1b", "yi-9b", "gemma3-1b", "qwen2-moe-a2.7b",
+          "arctic-480b", "minicpm3-4b")
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

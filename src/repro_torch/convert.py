@@ -56,7 +56,8 @@ def lm_params_from_jax(tree, cfg, device, dtype=None):
     ``device``: the same keys, with ``layers`` a list of ``cfg.num_layers``
     per-layer dicts (views of the stacked tensors).  Each leaf keeps its
     dtype; ``dtype`` casts the leaves that are not fp32 (in a bf16 model,
-    every leaf but the norm scales, ``A_log``, ``D`` and ``dt_bias``)."""
+    every leaf but the norm scales, ``A_log``, ``D``, ``dt_bias`` and the
+    MoE's ``router`` and ``shared_gate``)."""
 
     def convert(node):
         if isinstance(node, dict):
@@ -93,7 +94,8 @@ def _unstack(node, n: int, device):
 def lm_cache_from_jax(tree, cfg, device):
     """The reference's ``Model.init_cache`` tree (numpy or JAX leaves,
     stacked on a leading layer axis) -> the port's cache on ``device``: a
-    list of per-layer KV dicts for the ``attn`` kind; for ``zamba``,
+    list of per-layer dicts for the ``attn`` kind (``k`` and ``v``, or
+    MLA's latent ``ckv`` and ``krope``); for ``zamba``,
     ``{"mamba": [per layer], "attn": [per shared-block application]}``.
     Each leaf keeps its dtype."""
     if "mamba" in tree:

@@ -1,5 +1,6 @@
 """Attention for the LM trunk: GQA with full or sliding-window causal masks,
-for prefill and for single-token decode over a KV cache.
+and multi-head latent attention (MLA, MiniCPM3 / DeepSeek-V2), for prefill
+and for single-token decode over a cache.
 
 The route is the model's ``attn_impl`` (``kernels/ops.resolve_impl``): on
 the card ``gqa_forward`` calls kernel 8 (``ops.flash_attention``) with the
@@ -8,11 +9,19 @@ or with ``attn_impl="einsum"``, it takes ``_attend_chunked``, the
 reference model's q-chunked blockwise attention.  The two compute the same
 function (``tests/test_torch_lm_kernels.py``).
 
-Decode (``gqa_decode``) is plain PyTorch on every device, as in the
-reference: one query against the whole cache, which is full length
-(``cache_len`` = the longest sequence) or, for a window, a ring buffer of
-``cache_len`` = window slots.  It reaches no kernel.  MLA is ROADMAP Queue
-1 item 14.3b and raises.
+MLA's prefill (``mla_forward``) is the reference's expanded form: q and k
+of ``qk_nope_dim + qk_rope_dim`` columns a head, v of ``v_head_dim``.  Its
+kernel route zero-pads v to q's head dim, calls kernel 8 there and slices
+the output back: a zero column of v gives an exactly zero output column,
+and the kernel's scale is q's head dim, as the plain route's.
+
+Decode (``gqa_decode``, ``mla_decode``) is plain PyTorch on every device,
+as in the reference: one query against the whole cache, which is full
+length (``cache_len`` = the longest sequence) or, for a window, a ring
+buffer of ``cache_len`` = window slots.  MLA's cache holds the latent
+``ckv`` and the shared rotary key ``krope`` of each position, and its
+decode attends in the latent space (the absorbed form).  Decode reaches no
+kernel.
 """
 from __future__ import annotations
 
@@ -108,6 +117,15 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device):
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _ring_valid(cache_len: int, pos: int, window: int, device):
+    """Which of ``cache_len`` ring slots hold a position in ``(pos -
+    window, pos]``: slot i holds ``pos - ((pos - i) mod cache_len)``."""
+    idx = torch.arange(cache_len, device=device)
+    slot_pos = pos - torch.remainder(pos - idx, cache_len)  # floor-mod
+    w_eff = window if window > 0 else 1 << 30
+    return (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - w_eff)
+
+
 def gqa_decode(params, cache, x_t, pos: int, cfg: ModelConfig, window: int = 0):
     """Single-token decode.  x_t: (B, 1, d); pos: the new token's index.
 
@@ -128,10 +146,7 @@ def gqa_decode(params, cache, x_t, pos: int, cfg: ModelConfig, window: int = 0):
     slot = pos % cache_len  # == pos whenever cache_len covers the sequence
     cache["k"][:, slot] = k_t[:, 0]
     cache["v"][:, slot] = v_t[:, 0]
-    idx = torch.arange(cache_len, device=x_t.device)
-    slot_pos = pos - torch.remainder(pos - idx, cache_len)  # floor-mod
-    w_eff = window if window > 0 else 1 << 30
-    valid = (slot_pos >= 0) & (slot_pos <= pos) & (slot_pos > pos - w_eff)
+    valid = _ring_valid(cache_len, pos, window, x_t.device)
 
     kk = _repeat_kv(cache["k"], cfg.num_heads)
     vv = _repeat_kv(cache["v"], cfg.num_heads)
@@ -142,13 +157,96 @@ def gqa_decode(params, cache, x_t, pos: int, cfg: ModelConfig, window: int = 0):
     return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache
 
 
-def init_mla(*_args, **_kw):
-    raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14.3b)")
+def init_mla(generator, cfg: ModelConfig, dtype, device):
+    H = cfg.num_heads
+    qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+    r = cfg.kv_lora_rank
+
+    def w(shape, in_axis=0):
+        return dense_init(generator, shape, in_axis, dtype, device)
+
+    return {
+        # q: d -> q_lora -> per-head (nope + rope)
+        "wq_a": w((cfg.d_model, cfg.q_lora_rank)),
+        "wq_b": w((cfg.q_lora_rank, H, qk)),
+        # kv: d -> the latent, and the rotary key shared by the heads
+        "wkv_a": w((cfg.d_model, r)),
+        "wk_rope": w((cfg.d_model, cfg.qk_rope_dim)),
+        # latent -> per-head k_nope and v
+        "wk_b": w((r, H, cfg.qk_nope_dim)),
+        "wv_b": w((r, H, cfg.v_head_dim)),
+        "wo": w((H, cfg.v_head_dim, cfg.d_model), (0, 1)),
+    }
 
 
-def mla_forward(*_args, **_kw):
-    raise NotImplementedError("MLA is not ported yet (ROADMAP Queue 1 item 14.3b)")
+def mla_forward(params, x, positions, cfg: ModelConfig, window: int = 0,
+                impl: str = "auto"):
+    """Expanded-form MLA for training / prefill.  x: (B, S, d); positions:
+    (S,).  The kernel route hands kernel 8 v zero-padded to q's head dim
+    (64 -> 96 at minicpm3-4b) and keeps the first ``v_head_dim`` columns of
+    its output."""
+    q = torch.einsum("bsr,rhk->bshk", torch.matmul(x, params["wq_a"]), params["wq_b"])
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions[None, :], cfg.rope_theta)
+
+    c_kv = torch.matmul(x, params["wkv_a"])
+    k_rope = torch.matmul(x, params["wk_rope"])  # shared by the heads
+    k_rope = apply_rope(k_rope[:, :, None, :], positions[None, :], cfg.rope_theta)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["wk_b"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["wv_b"])
+
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:-1], cfg.qk_rope_dim)], dim=-1)
+    if ops.resolve_impl(impl, "attn", x.device) == "kernel":
+        dqk, dv = q_full.shape[-1], v.shape[-1]
+        if dv > dqk:
+            raise ValueError(f"v_head_dim {dv} is wider than q's head dim {dqk}: kernel 8 "
+                             "takes one head dim, and padding q would change its scale")
+        v_pad = torch.nn.functional.pad(v, (0, dqk - dv))
+        o = ops.flash_attention(q_full.contiguous(), k_full.contiguous(),
+                                v_pad.contiguous(), causal=True, window=int(window),
+                                impl="kernel")[..., :dv]
+    else:
+        o = _attend_chunked(q_full, k_full, v, positions, positions, int(window))
+    return torch.einsum("bshk,hkd->bsd", o, params["wo"])
 
 
-def mla_decode(*_args, **_kw):
-    raise NotImplementedError("MLA decode is not ported yet (ROADMAP Queue 1 item 14.3b)")
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device):
+    return {
+        "ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "krope": torch.zeros((batch, cache_len, cfg.qk_rope_dim), dtype=dtype,
+                             device=device),
+    }
+
+
+def mla_decode(params, cache, x_t, pos: int, cfg: ModelConfig, window: int = 0):
+    """Absorbed-form MLA decode: the query is taken into the latent space,
+    so the cache holds only ``kv_lora_rank + qk_rope_dim`` values a
+    position.  Writes slot ``pos % cache_len`` in place and masks the ring
+    as ``gqa_decode`` does.  Returns (out (B, 1, d), cache)."""
+    cache_len = cache["ckv"].shape[1]
+    posv = torch.full((1, 1), pos, device=x_t.device)
+    q = torch.einsum("bsr,rhk->bshk", torch.matmul(x_t, params["wq_a"]), params["wq_b"])
+    q_nope, q_rope = torch.split(q, [cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, posv, cfg.rope_theta)
+
+    c_t = torch.matmul(x_t, params["wkv_a"])  # (B, 1, r)
+    kr_t = torch.matmul(x_t, params["wk_rope"])
+    kr_t = apply_rope(kr_t[:, :, None, :], posv, cfg.rope_theta)[:, :, 0, :]
+    slot = pos % cache_len
+    cache["ckv"][:, slot] = c_t[:, 0]
+    cache["krope"][:, slot] = kr_t[:, 0]
+    ckv, krope = cache["ckv"], cache["krope"]
+    valid = _ring_valid(cache_len, pos, window, x_t.device)
+
+    # absorb: q_nope (B, 1, H, n) . wk_b (r, H, n) -> the latent query (B, H, r)
+    q_abs = torch.einsum("bshk,rhk->bhr", q_nope, params["wk_b"])
+    s_lat = torch.einsum("bhr,btr->bht", q_abs, ckv)
+    s_rope = torch.einsum("bshk,btk->bht", q_rope, krope)
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    s = (s_lat + s_rope).to(torch.float32) * scale
+    s = torch.where(valid[None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1).to(ckv.dtype)
+    o_lat = torch.einsum("bht,btr->bhr", p, ckv)
+    o = torch.einsum("bhr,rhk->bhk", o_lat, params["wv_b"])
+    return torch.einsum("bhk,hkd->bd", o, params["wo"])[:, None, :], cache

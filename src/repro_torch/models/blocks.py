@@ -1,9 +1,10 @@
-"""Per-layer blocks of the LM trunk: the attention block (GQA with a dense
-gated FFN, the ``attn`` kind and zamba's shared block) and the Mamba2
-block.  A block is (init, forward, cache init, decode) over a params dict;
-decode updates the block's cache in place and returns it.
+"""Per-layer blocks of the LM trunk: the attention block (GQA or MLA,
+followed by a dense gated FFN or a mixture of experts, which in Arctic runs
+beside a dense residual FFN; the ``attn`` kind and zamba's shared block)
+and the Mamba2 block.  A block is (init, forward, cache init, decode) over
+a params dict; decode updates the block's cache in place and returns it.
 
-MoE, MLA and xLSTM blocks are ROADMAP Queue 1 item 14.3b and raise.
+xLSTM blocks are ROADMAP Queue 1 item 14.3b and raise.
 """
 from __future__ import annotations
 
@@ -14,48 +15,69 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.ffn import ffn_forward, init_ffn
 from repro_torch.models.layers import rms_norm
-
-
-def check_attn_block(cfg: ModelConfig) -> None:
-    """Raise for the attention-block variants not ported yet."""
-    if cfg.attention == "mla":
-        raise NotImplementedError("MLA blocks are not ported yet (ROADMAP Queue 1 item 14.3b)")
-    if cfg.num_experts:
-        raise NotImplementedError("MoE blocks are not ported yet (ROADMAP Queue 1 item 14.3b)")
+from repro_torch.models.moe import init_moe, moe_forward
 
 
 def init_attn_block(generator, cfg: ModelConfig, dtype, device):
     """Norm scales in fp32 (zeros: the norm multiplies by ``1 + scale``),
-    GQA and FFN weights in ``dtype``."""
-    check_attn_block(cfg)
+    MLA or GQA, then the MoE (with Arctic's dense residual FFN) or the
+    dense FFN; weights in ``dtype`` but the MoE's fp32 router and shared
+    gate."""
     zeros = dict(dtype=torch.float32, device=device)
-    return {
-        "ln1": torch.zeros(cfg.d_model, **zeros),
-        "ln2": torch.zeros(cfg.d_model, **zeros),
-        "attn": attn.init_gqa(generator, cfg, dtype, device),
-        "ffn": init_ffn(generator, cfg.d_model, cfg.d_ff, dtype, device),
-    }
+    p = {"ln1": torch.zeros(cfg.d_model, **zeros), "ln2": torch.zeros(cfg.d_model, **zeros)}
+    if cfg.attention == "mla":
+        p["attn"] = attn.init_mla(generator, cfg, dtype, device)
+    else:
+        p["attn"] = attn.init_gqa(generator, cfg, dtype, device)
+    if cfg.num_experts:
+        p["moe"] = init_moe(generator, cfg, dtype, device)
+        if cfg.dense_residual:
+            p["ffn"] = init_ffn(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    else:
+        p["ffn"] = init_ffn(generator, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def ffn_sublayer(p, h, cfg: ModelConfig):
+    """The block's second sub-layer on the normed residual h: (its output,
+    the MoE's aux loss, None without one)."""
+    if not cfg.num_experts:
+        return ffn_forward(p["ffn"], h, cfg.act), None
+    mo, aux = moe_forward(p["moe"], h, cfg)
+    if cfg.dense_residual:
+        mo = mo + ffn_forward(p["ffn"], h, cfg.act)
+    return mo, aux
 
 
 def attn_block_forward(p, x, positions, cfg: ModelConfig, window, impl="auto"):
-    """Pre-norm GQA then pre-norm FFN, each added to the residual."""
+    """Pre-norm attention then the pre-norm FFN or MoE, each added to the
+    residual.  Returns (x, the MoE's aux loss or None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + attn.gqa_forward(p["attn"], h, positions, cfg, window, impl)
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_forward(p["ffn"], h, cfg.act)
+    if cfg.attention == "mla":
+        x = x + attn.mla_forward(p["attn"], h, positions, cfg, window, impl)
+    else:
+        x = x + attn.gqa_forward(p["attn"], h, positions, cfg, window, impl)
+    mo, aux = ffn_sublayer(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + mo, aux
 
 
 def init_attn_block_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype, device):
-    check_attn_block(cfg)
+    if cfg.attention == "mla":
+        return attn.init_mla_cache(cfg, batch, cache_len, dtype, device)
     return attn.init_kv_cache(cfg, batch, cache_len, dtype, device)
 
 
 def attn_block_decode(p, cache, x_t, pos: int, cfg: ModelConfig, window):
+    """One token through the block; the MoE's aux loss is dropped, as in
+    the reference."""
     h = rms_norm(x_t, p["ln1"], cfg.norm_eps)
-    a, cache = attn.gqa_decode(p["attn"], cache, h, pos, cfg, window)
+    if cfg.attention == "mla":
+        a, cache = attn.mla_decode(p["attn"], cache, h, pos, cfg, window)
+    else:
+        a, cache = attn.gqa_decode(p["attn"], cache, h, pos, cfg, window)
     x = x_t + a
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + ffn_forward(p["ffn"], h, cfg.act), cache
+    mo, _ = ffn_sublayer(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x + mo, cache
 
 
 def init_mamba_block(generator, cfg: ModelConfig, dtype, device):

@@ -3,11 +3,14 @@ training loss, prefill and cached single-token decode, and
 ``LMClientModel``, the LM as a federated client of ``FedAREngine``.
 
 Two structural kinds of the reference's three are ported:
-  attn   -- homogeneous attention blocks (GQA with a dense gated FFN)
+  attn   -- homogeneous attention blocks: GQA or MLA, then a dense gated
+            FFN or a mixture of experts (with Arctic's dense residual FFN)
   zamba  -- Mamba2 blocks plus ONE weight-shared attention block applied
             after every ``shared_attn_every``-th layer (Zamba2)
-The ``xlstm`` kind, the stubbed modality frontends, MoE and MLA raise
-``NotImplementedError`` (ROADMAP Queue 1 item 14.3b).
+The ``xlstm`` kind and the stubbed modality frontends raise
+``NotImplementedError`` (ROADMAP Queue 1 item 14.3b).  The trunk sums the
+MoE layers' aux losses in layer order, as the reference's scan carry does;
+``forward`` returns the sum and the loss adds it.
 
 Params are a dict of tensors in the reference's tree, except that
 ``layers`` is a list with one dict per layer (the reference stacks them on
@@ -77,7 +80,6 @@ class Model:
         if cfg.frontend:
             raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet "
                                       "(ROADMAP Queue 1 item 14.3b)")
-        blocks.check_attn_block(cfg)
         self.cfg = cfg
         self.kind = "zamba" if cfg.family == "hybrid" and cfg.shared_attn_every else "attn"
         self.device = resolve_device(device)
@@ -127,8 +129,9 @@ class Model:
     # ------------------------------------------------------------------
     def trunk(self, params, batch, *, remat: bool = False, attn_impl=None,
               ssm_impl=None):
-        """Returns (x_final (B, T, d), aux_loss, text_offset); aux is 0 (no
-        MoE).  ``remat`` recomputes each block in the backward pass
+        """Returns (x_final (B, T, d), aux_loss, text_offset); aux is the
+        fp32 sum of the MoE layers' aux losses, 0 without experts.
+        ``remat`` recomputes each block in the backward pass
         (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
         its scan body); ``attn_impl`` / ``ssm_impl`` override the model's
         routes for this call."""
@@ -143,17 +146,19 @@ class Model:
                 return checkpoint(block, *args, use_reentrant=False)
             return block(*args)
 
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.kind == "attn":
             for lp, w in zip(params["layers"], layer_windows(cfg).tolist()):
-                x = run(blocks.attn_block_forward, lp, x, positions, cfg, w, attn_impl)
+                x, a = run(blocks.attn_block_forward, lp, x, positions, cfg, w, attn_impl)
+                if a is not None:
+                    aux = aux + a
         else:
             shared = params["shared_attn"]
             for i, lp in enumerate(params["layers"]):
                 x = run(blocks.mamba_block_forward, lp, x, cfg, ssm_impl)
                 if (i + 1) % cfg.shared_attn_every == 0:
-                    x = run(blocks.attn_block_forward, shared, x, positions, cfg,
-                            cfg.sliding_window, attn_impl)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                    x, _ = run(blocks.attn_block_forward, shared, x, positions, cfg,
+                               cfg.sliding_window, attn_impl)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux, offset
 
     def forward(self, params, batch):
@@ -220,7 +225,8 @@ class Model:
     def init_cache(self, batch: int, seq_len: int):
         """Zeroed decode caches for ``batch`` sequences of up to ``seq_len``
         tokens, made in inference mode as ``decode_step`` updates them:
-        ``attn`` a list of per-layer KV caches; ``zamba`` ``{"mamba": [per
+        ``attn`` a list of per-layer KV caches (MLA: the latent ``ckv`` and
+        ``krope`` of each position); ``zamba`` ``{"mamba": [per
         layer conv + fp32 SSM state], "attn": [per shared-block
         application KV cache]}``.  KV and conv caches in ``cfg.dtype``."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device

@@ -766,10 +766,11 @@ def _check_blocks(cfg, params, tokens):
                 apps.append(lambda x, impl, lp=lp: blocks.mamba_block_forward(lp, x, cfg, impl))
                 if (i + 1) % cfg.shared_attn_every == 0:
                     apps.append(lambda x, impl: blocks.attn_block_forward(
-                        params["shared_attn"], x, pos, cfg, cfg.sliding_window, impl))
+                        params["shared_attn"], x, pos, cfg, cfg.sliding_window, impl)[0])
         else:
-            apps = [lambda x, impl, lp=lp, w=w: blocks.attn_block_forward(lp, x, pos, cfg, w, impl)
-                    for lp, w in zip(params["layers"], layer_windows(cfg).tolist())]
+            apps = [lambda x, impl, lp=lp, w=w: blocks.attn_block_forward(
+                lp, x, pos, cfg, w, impl)[0]
+                for lp, w in zip(params["layers"], layer_windows(cfg).tolist())]
         for n, app in enumerate(apps):
             got, want = app(x, "kernel") - x, app(x, "einsum") - x
             limit = 1e-4 + 1e-4 * want.abs().amax(dim=-1, keepdim=True)
@@ -785,6 +786,7 @@ def _check_blocks(cfg, params, tokens):
 
 @pytest.mark.parametrize("arch,layers,launches", [
     ("zamba2-7b", 4, (2, 4)), ("tinyllama-1.1b", 2, (2, 0)),
+    ("qwen2-moe-a2.7b", 2, (2, 0)), ("minicpm3-4b", 2, (2, 0)), ("arctic-480b", 2, (2, 0)),
 ])
 def test_lm_prefill_on_the_card_matches_plain_route(cuda_device, arch, layers, launches):
     """``Model`` on its default device runs kernels 8 and 9 once per
@@ -818,7 +820,9 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("arch,over", [
     ("zamba2-7b", {}), ("tinyllama-1.1b", {}), ("tinyllama-1.1b", dict(sliding_window=8)),
-], ids=["zamba2-7b", "tinyllama-1.1b", "tinyllama-ring8"])
+    ("qwen2-moe-a2.7b", {}), ("minicpm3-4b", {}), ("minicpm3-4b", dict(sliding_window=8)),
+], ids=["zamba2-7b", "tinyllama-1.1b", "tinyllama-ring8", "qwen2-moe", "minicpm3",
+        "minicpm3-ring8"])
 def test_lm_decode_on_the_card_matches_the_cpu(cuda_device, arch, over):
     """fp32 decode from the same params (drawn on a seeded CPU generator):
     16 prompt tokens then 8 of the CPU's greedy tokens, both devices fed
@@ -864,6 +868,90 @@ def test_lm_kernels_refuse_inputs_that_require_grad(cuda_device):
     # without grad both still launch
     flash_attention(q, k, k)
     ssm_scan(xd, ld, Bc, Bc)
+
+
+@pytest.mark.parametrize("dispatch", ["onehot", "scatter"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "arctic-480b"])
+def test_moe_on_the_card_matches_the_cpu(cuda_device, arch, dispatch):
+    """The MoE sub-layer (reduced, fp32, capacity factor 0.5 so that tokens
+    drop, 1,200 tokens so that the second group is padded) on the card
+    against the CPU from the same params and input: a token whose kept
+    experts differ must sit within 1e-5 of a tie and is left out; every
+    other token within 1e-4, and the aux loss."""
+    from repro_torch.models import moe
+
+    cfg = get_config(arch).reduced(moe_capacity_factor=0.5, moe_dispatch=dispatch)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    x = torch.randn(3, 400, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    card = {k: (v.to(cuda_device) if torch.is_tensor(v) else
+                {kk: vv.to(cuda_device) for kk, vv in v.items()}) for k, v in params.items()}
+    got, aux = moe.moe_forward(card, x.to(cuda_device), cfg)
+    want, aux_cpu = moe.moe_forward(params, x, cfg)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=1e-4, atol=1e-4)
+    on_card, _ = moe.kept_experts(card, x.to(cuda_device), cfg)
+    on_cpu, margin = moe.kept_experts(params, x, cfg)
+    differ = (on_card.cpu() != on_cpu).any(-1)
+    assert (margin[differ] < 1e-5).all()
+    same = (~differ).reshape(x.shape[:2])
+    torch.testing.assert_close(got.cpu()[same], want[same], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("over", [{}, dict(qk_nope_dim=64, qk_rope_dim=32, v_head_dim=64,
+                                           num_heads=40, num_kv_heads=40)],
+                         ids=["reduced", "hd96-40heads"])
+def test_mla_prefill_kernel_route_matches_plain_route(cuda_device, over):
+    """``mla_forward`` on the card in fp32: the kernel route (kernel 8 on v
+    padded to q's head dim, one launch) against the plain route on the same
+    params and input, at the reduced widths and at minicpm3-4b's head dims
+    (96 for q and k, 64 for v) and 40 heads, within 1e-4 of each row's
+    largest value.  (bf16 at these head dims: the next test.)"""
+    dtype = torch.float32
+    from repro_torch.models import attention
+
+    cfg = get_config("minicpm3-4b").reduced(**over)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = attention.init_mla(gen, cfg, dtype, cuda_device)
+    x = torch.randn(2, 300, cfg.d_model, generator=gen, device=cuda_device).to(dtype)
+    pos = torch.arange(300, device=cuda_device)
+    for window in (0, 64):
+        n0 = flash_attention.launches
+        got = attention.mla_forward(params, x, pos, cfg, window, "kernel")
+        assert flash_attention.launches == n0 + 1
+        want = attention.mla_forward(params, x, pos, cfg, window, "einsum")
+        _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,S", [(1, 300), (2, 1030)])
+def test_flash_attention_at_mla_head_dims(cuda_device, dtype, B, S):
+    """Kernel 8 at minicpm3-4b's (., 40, 96) with v's 64 columns padded with
+    zeros to 96: the padded output columns exactly 0, the rest the plain
+    version's on the unpadded v."""
+    gen = torch.Generator().manual_seed(S)
+    q, k = (torch.randn(B, S, 40, 96, generator=gen).to(cuda_device, dtype) for _ in range(2))
+    v = torch.randn(B, S, 40, 64, generator=gen).to(cuda_device, dtype)
+    got = flash_attention(q, k, torch.nn.functional.pad(v, (0, 32)), causal=True)
+    assert torch.equal(got[..., 64:], torch.zeros_like(got[..., 64:]))
+    want = ref.flash_attention_ref(q, k, torch.nn.functional.pad(v, (0, 32)), causal=True)
+    _close(got[..., :64].contiguous(), want[..., :64].contiguous(),
+           1e-4 if dtype == torch.float32 else BF16_RTOL)
+
+
+def test_mla_kernel_route_refuses_inputs_that_require_grad(cuda_device):
+    """ROADMAP Trap 5 through MLA's padded call: params that require grad
+    make kernel 8 raise on the kernel route; the plain route differentiates."""
+    from repro_torch.models import attention
+
+    cfg = get_config("minicpm3-4b").reduced()
+    params = attention.init_mla(torch.Generator(device=cuda_device).manual_seed(0), cfg,
+                                torch.float32, cuda_device)
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    x = torch.randn(1, 64, cfg.d_model, device=cuda_device)
+    pos = torch.arange(64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.mla_forward(params, x, pos, cfg, 0, "kernel")
+    attention.mla_forward(params, x, pos, cfg, 0, "einsum").sum().backward()
+    assert params["wv_b"].grad is not None
 
 
 def test_lm_client_update_on_the_card_matches_the_cpu(cuda_device):

@@ -345,14 +345,9 @@ def test_mamba2_decode_state_equals_the_chunked_scan_state():
 # what is not ported
 # ---------------------------------------------------------------------------
 
-def test_mla_and_xlstm_decode_still_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14.3"):
-        attention.mla_decode()
+def test_xlstm_decode_still_raises_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="Queue 1 item 14.3"):
         blocks.xlstm_pair_decode()
-    mla = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), attention="mla")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        blocks.init_attn_block_cache(mla, 1, 8, torch.float32, "cpu")
     xlstm = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), family="ssm",
                                 block_pattern="sx")
     with pytest.raises(NotImplementedError, match="xlstm.*Queue 1 item 14"):

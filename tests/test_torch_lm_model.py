@@ -334,8 +334,8 @@ def test_model_defaults_to_the_card():
 @pytest.mark.parametrize("over,what", [
     (dict(family="ssm", block_pattern="sx"), "xlstm"),
     (dict(frontend="vision_stub"), "frontend"),
-    (dict(attention="mla"), "MLA"),
-    (dict(num_experts=4, num_experts_per_tok=2), "MoE"),
+    (dict(frontend="audio_stub"), "frontend"),
+    (dict(family="ssm", block_pattern="s"), "xlstm"),
 ])
 def test_unported_kinds_raise(over, what):
     cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), **over)
