@@ -193,6 +193,25 @@ Phases (any failure raises and the script exits non-zero):
    bf16 forward and decode on the card against the port on the CPU (bf16:
    the median and 90th-percentile position errors against fp32).
 
+16. The xLSTM kind and the two stub frontends at full width and depth
+   (bf16, params from ``Model.init_params`` on a seeded CUDA generator,
+   counted against the reference's).  16a, xlstm-350m (arXiv:2405.04517;
+   12 (sLSTM, mLSTM) pairs, d_model 1,024): one 4 x 128 warm-up request
+   and 3 of 4 x 1,024 tokens, which may launch no kernel (the reference
+   gives the xLSTM none); a request's launches from two profiled short
+   requests; decode at B = 4 (64 + 64 after 8 warm-up steps); the fp32
+   card against the CPU pair by pair at full width on 2 pairs and 1 x 256
+   tokens; the fp32 decode-vs-prefill check at 2 pairs.  16b,
+   internvl2-1b (arXiv:2404.16821; 24 GQA layers, 14 heads over 2, 256
+   stub patch positions ahead of the text) and 16c, musicgen-medium
+   (arXiv:2306.05284; 48 MHA layers of 24 heads, GeGLU, codec tokens): 4
+   requests of 4 x 2,048 positions (the first a warm-up), each launching
+   ``flash_attention`` once a layer, one profiled; decode at B = 4 (32 +
+   32; internvl2-1b after priming the cache with its 256 patch positions);
+   the fp32 route check at full depth on 1 x 1,024 (256 + 768 for
+   internvl2-1b); the fp32 decode-vs-prefill check at 4 layers.  Cuts are
+   listed in ``xlstm_frontends_phase``.
+
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
 longest client's steps on its cluster's SMs at their share of the fp32
@@ -203,7 +222,9 @@ their plain versions at phases 9's and 12's shapes, in bf16 and fp32 (the
 1 x 8,192 prompt in bf16; gemma3-1b's head_dim 256 with and without its
 512 window, a ragged S; yi-9b's 32 heads over 4; phase 15's qwen2-moe-a2.7b
 (16 heads of 128) and minicpm3-4b (40 heads, q/k 96, v 64 zero-padded to 96,
-SDPA on the unpadded v with its backend named); the fp32 scan row by row
+SDPA on the unpadded v with its backend named); phase 16's internvl2-1b (14
+heads over 2, a GQA group of 7) and musicgen-medium (24 heads of 64), SDPA's
+backend named; the fp32 scan row by row
 against the float64 recurrence), with each bf16 instance's registers,
 spilled and shared bytes; and the defense's
 count sketch (``count_sketch``, a CUDA kernel that sums in a fixed order;
@@ -216,8 +237,8 @@ exits non-zero and prints no result.  ``--profile DIR`` also writes a
 ``torch.profiler`` table of one round of phases 3, 4, 5, 6 (both fleets,
 with a compressed round's device time split into ``torch.topk``, the
 gather, the two decodes, ``local_sgd`` and the rest), 7 (both layouts) and
-8, of each profiled request of phases 9, 12 and 15 and of each decode run's
-profiled steps of phases 9b, 12 and 15.
+8, of each profiled request of phases 9, 12, 15 and 16 and of each decode
+run's profiled steps of phases 9b, 12, 15 and 16.
 """
 from __future__ import annotations
 
@@ -1102,8 +1123,10 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                                  "takes more shared memory than a block may")
     for n, (label, B, S, H, K, hd, window, dtypes, *rest) in enumerate(flash_cases):
         # a case with a narrower v (MLA: dv 64 under q's 96) hands the
-        # kernel v zero-padded to hd, as mla_forward does
+        # kernel v zero-padded to hd, as mla_forward does; such a case, and
+        # one that asks for it, names the backend that serves SDPA
         dv = rest[0] if rest else hd
+        name_backend = dv < hd or (len(rest) > 1 and rest[1])
         q32, k32 = (torch.randn(B, S, h, hd, generator=gen, device=DEV) for h in (H, K))
         v32 = torch.randn(B, S, K, dv, generator=gen, device=DEV)
         for dtype in dtypes:
@@ -1144,10 +1167,13 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                         dtype=str(dtype)[6:], max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
             library = "scaled_dot_product_attention"
-            if dv < hd:
-                # which backend takes v narrower than q and k
+            if name_backend:
+                # which backend takes the call (v narrower than q and k, a
+                # GQA group of 7)
                 backend = sdpa_backend(sdpa)
-                case.update(v_head_dim=dv, library_backend=backend)
+                case.update(library_backend=backend)
+                if dv < hd:
+                    case.update(v_head_dim=dv)
                 library += f", {backend}"
             if not fp32:
                 hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
@@ -1225,15 +1251,19 @@ LM_KERNEL_SYMBOLS = {
 }
 
 
-def profile_device(run, names, path, label, units=1, unit="request"):
+def profile_device(run, names, path, label, units=1, unit="request", cpu=True):
     """``run()`` (``units`` requests or decode steps, ending in a sync)
     under ``torch.profiler``: each kernel's device ms and launches per
     unit, and the device busy and idle share of the wall time.  A profiler
     row belongs to a kernel when its demangled name holds one of the
     kernel's ``LM_KERNEL_SYMBOLS`` as a whole word; the GEMM class is a
     guess from library kernel names, so the rows it does not take are
-    printed.  Returns (wall ms, device busy ms, device launches) per unit."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    printed.  ``cpu=False`` records the device's activity alone: the
+    kernels and idle share are the same, the trace's processing takes a
+    fraction of the time, and the written table has no host ops.  Returns
+    (wall ms, device busy ms, device launches) per unit."""
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1318,8 +1348,9 @@ def block_forwards(cfg, params, pos):
     return apps
 
 
-def check_blocks(cfg, params, toks):
-    """The route check, block by block: the request runs through the plain
+def check_blocks(model, params, batch):
+    """The route check, block by block: the request (``batch``, embedded by
+    ``model.embed``: the vision stub's patches ahead of the text) runs through the plain
     route, and each of its block applications (``block_forwards``) that
     has a kernel also runs through the kernel route from the same input.
     Each such block's increment to the residual must agree within atol =
@@ -1332,10 +1363,12 @@ def check_blocks(cfg, params, toks):
     from repro_torch.models import moe
     from repro_torch.models.layers import rms_norm
 
+    cfg = model.cfg
     worst = (-1.0, 0.0, 0.0)  # (err / limit, err, limit) of the closest block
     n, flips, flip_margin, last_flipped = 0, 0, 0.0, None
     with torch.inference_mode():
-        x = torch.nn.functional.embedding(toks.long(), params["embed"])
+        x, _ = model.embed(params, batch)
+        positions = x.shape[:2]
         last = x
         pos = torch.arange(x.shape[1], device=x.device)
         for kind, lp, app in block_forwards(cfg, params, pos):
@@ -1348,7 +1381,7 @@ def check_blocks(cfg, params, toks):
                 flips += int(flipped.sum())
                 if flipped.any():
                     flip_margin = max(flip_margin, margin[flipped].max().item())
-                last_flipped = flipped.reshape(toks.shape)[:, -1]
+                last_flipped = flipped.reshape(positions)[:, -1]
                 x, last = app(x, "einsum"), app(last, "einsum")
                 continue
             got, want = app(x, "kernel") - x, app(x, "einsum") - x
@@ -1372,7 +1405,7 @@ def check_blocks(cfg, params, toks):
           f"+ rtol=1e-4 * max|plain increment|) ok")
     if cfg.num_experts:
         print(f"  MoE sub-layers, each on both routes' states: route flips between them "
-              f"{flips} of {cfg.num_layers * toks.numel()} token-layers"
+              f"{flips} of {cfg.num_layers * positions.numel()} token-layers"
               + (f" (largest router margin among them {flip_margin:.3e})" if flips else ""))
         if last_flipped is not None and last_flipped.any():
             raise AssertionError("the last MoE sub-layer routes a sequence's last token "
@@ -1389,10 +1422,47 @@ def check_blocks(cfg, params, toks):
 def per_request(cfg) -> tuple:
     """(flash_attention, ssm_scan) launches of one prefill: one attention
     launch per shared-block application and one scan per Mamba2 layer
-    (zamba), or one attention launch per layer (the attn kind)."""
-    if cfg.shared_attn_every:
+    (zamba), one attention launch per layer (the attn kind), or none (the
+    xlstm kind: the reference gives its blocks no kernel)."""
+    from repro_torch.models.model import model_kind
+
+    kind = model_kind(cfg)
+    if kind == "zamba":
         return cfg.num_layers // cfg.shared_attn_every, cfg.num_layers
-    return cfg.num_layers, 0
+    return (cfg.num_layers, 0) if kind == "attn" else (0, 0)
+
+
+def request_batch(cfg, shape, gen) -> dict:
+    """A request of ``shape`` = (batch, positions) on the card: random
+    token ids, and for the vision stub ``num_patches`` standard-normal
+    patch embeddings (width ``VISION_STUB_DIM``) taking the first
+    positions, the text the rest."""
+    from repro_torch.models.model import VISION_STUB_DIM
+
+    B, T = shape
+    P = cfg.num_patches if cfg.frontend == "vision_stub" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, T - P), generator=gen,
+                                     device=DEV)}
+    if P:
+        batch["patches"] = torch.randn(B, P, VISION_STUB_DIM, generator=gen, device=DEV)
+    return batch
+
+
+def prime_with_patches(model, params, cache, patches) -> None:
+    """Fills ``cache`` in place with the vision stub's patch positions
+    0..P-1: each projected patch embedding stepped through every attention
+    block's decode (the reference has no patch-priming entry point; its
+    decode test primes its cache the same way)."""
+    from repro_torch.models import blocks
+    from repro_torch.models.model import layer_windows
+
+    cfg = model.cfg
+    with torch.inference_mode():
+        pe = torch.matmul(patches.to(model.dtype), params["vision_proj"])
+        for p in range(pe.shape[1]):
+            x = pe[:, p:p + 1]
+            for lp, lc, w in zip(params["layers"], cache, layer_windows(cfg).tolist()):
+                x, _ = blocks.attn_block_decode(lp, lc, x, p, cfg, w)
 
 
 class WindowTally:
@@ -1417,11 +1487,15 @@ class WindowTally:
         self.ops.flash_attention = self.orig
 
 
-def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir):
-    """Phases 9 and 12: serving prefill.  ``requests`` is a list of (batch,
-    seq) shapes, the first a warm-up; each request's launches must be
-    ``per_request(cfg)``, and for the attn kind the windows handed to the
-    kernel those of ``layer_windows``.  Returns the launch counts of the
+def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir,
+                profile_shapes=None):
+    """Phases 9, 12, 15 and 16: serving prefill.  ``requests`` is a list of
+    (batch, positions) shapes (``request_batch``: with the vision stub the
+    patches take the first positions), the first a warm-up; each request's
+    launches must be ``per_request(cfg)``, no other kernel of ``every`` may
+    launch, and for the attn kind the windows handed to the kernel must be
+    those of ``layer_windows``.  One request of each shape is profiled, or
+    one of each of ``profile_shapes`` when given.  Returns the launch counts of the
     timed run, and the model and its params for the decode runs."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model, layer_windows, param_count
@@ -1439,70 +1513,80 @@ def serve_phase(cfg, lm_kernels, every, requests, expect_params, profile_dir):
     if expect_params is not None and n_params != expect_params:
         raise AssertionError(f"{n_params} params, the reference has {expect_params}")
     per_req = per_request(cfg)
-    dense = not cfg.shared_attn_every
+    attn_kind = model.kind == "attn"
     want_windows = collections.Counter(layer_windows(cfg).tolist())
     gen = torch.Generator(device=DEV).manual_seed(1)
-    prompts = [torch.randint(0, cfg.vocab_size, shape, generator=gen, device=DEV)
-               for shape in requests]
+    prompts = [request_batch(cfg, shape, gen) for shape in requests]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in every:
         k.launches = 0
     times = []
-    for toks in prompts:
+    for batch, shape in zip(prompts, requests):
         before = (flash.launches, ssm.launches)
         with WindowTally(ops) as windows:
             t0 = time.perf_counter()
-            logits = model.prefill(params, {"tokens": toks})
+            logits = model.prefill(params, batch)
             greedy = logits.argmax(-1).cpu()  # the request's answer; a sync
             times.append(time.perf_counter() - t0)
         got = (flash.launches - before[0], ssm.launches - before[1])
         if got != per_req:
-            raise AssertionError(f"request {tuple(toks.shape)} launched (flash_attention, "
+            raise AssertionError(f"request {shape} launched (flash_attention, "
                                  f"ssm_scan) = {got}, expected {per_req}")
-        if dense and windows != want_windows:
-            raise AssertionError(f"request {tuple(toks.shape)} handed the kernel windows "
+        if attn_kind and windows != want_windows:
+            raise AssertionError(f"request {shape} handed the kernel windows "
                                  f"{windows}, the layers have {want_windows}")
-        if (logits.shape != (toks.shape[0], cfg.vocab_size)
+        if (logits.shape != (shape[0], cfg.vocab_size)
                 or not torch.isfinite(logits).all()
                 or not ((greedy >= 0) & (greedy < cfg.vocab_size)).all()):
             raise AssertionError("prefill gave misshapen or non-finite logits")
-        print(f"  request {tuple(toks.shape)}: {times[-1] * 1e3:.3f} ms, greedy "
-              f"{greedy.tolist()}, launches flash_attention {got[0]} (by window "
-              f"{dict(sorted(windows.items()))}), ssm_scan {got[1]}")
+        print(f"  request {shape}" + (f" ({batch['patches'].shape[1]} patch positions)"
+                                      if "patches" in batch else "")
+              + f": {times[-1] * 1e3:.3f} ms, greedy {greedy.tolist()}, launches "
+              f"flash_attention {got[0]} (by window {dict(sorted(windows.items()))}), "
+              f"ssm_scan {got[1]}")
     launches = {k.__name__: k.launches for k in lm_kernels}
     print(f"launches in this run: {launches}")
+    others = {k.__name__: k.launches for k in every if k not in lm_kernels and k.launches}
+    if others:
+        raise AssertionError(f"prefill launched FedAR kernels {others}")
     timed = times[1:]
-    ntok = sum(int(t.numel()) for t in prompts[1:])
+    ntok = sum(int(b["tokens"].numel()) for b in prompts[1:])
+    npatch = sum(int(b["patches"].shape[0] * b["patches"].shape[1])
+                 for b in prompts[1:] if "patches" in b)
     print(f"requests/s over requests 2-{len(times)}: {len(timed) / sum(timed):.4f}; "
-          f"prompt tokens/s: {ntok / sum(timed):.1f}")
+          f"prompt tokens/s: {ntok / sum(timed):.1f}"
+          + (f" (text), patch positions/s: {npatch / sum(timed):.1f}" if npatch else ""))
     print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     dtype = getattr(torch, cfg.dtype)
-    names = ("flash_attention",) if dense else ("flash_attention", "ssm_scan")
-    for toks in {tuple(t.shape): t for t in prompts}.values():
-        profile_device(lambda: model.prefill(params, {"tokens": toks}).argmax(-1).cpu(),
-                       names, profile_dir, f"prefill_{cfg.name}_{toks.shape[0]}x{toks.shape[1]}")
+    names = ("flash_attention",) if attn_kind else ("flash_attention", "ssm_scan")
+    shapes = list(dict.fromkeys(requests)) if profile_shapes is None else profile_shapes
+    for shape in shapes:
+        batch = request_batch(cfg, shape, gen)
+        profile_device(lambda: model.prefill(params, batch).argmax(-1).cpu(),
+                       names, profile_dir, f"prefill_{cfg.name}_{shape[0]}x{shape[1]}")
         bounds = []
-        for w in sorted(want_windows):
+        for w in () if model.kind == "xlstm" else sorted(want_windows):
             # MLA: q and k at 96 columns, v and the output at 64
             hd, dv = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
                       if cfg.attention == "mla" else (cfg.resolved_head_dim, None))
-            fb = attn_bound(*toks.shape, cfg.num_heads, cfg.num_kv_heads, hd, w, dtype, dv)
+            fb = attn_bound(*shape, cfg.num_heads, cfg.num_kv_heads, hd, w, dtype, dv)
             bounds.append(f"flash_attention at window {w} {fb[0]:.4f} ms ({fb[1]})")
-        if not dense:
+        if model.kind == "zamba":
             _, nh = ssm_dims(cfg)
-            sb = ssd_bound(*toks.shape, nh, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk,
-                           dtype)
+            sb = ssd_bound(*shape, nh, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk, dtype)
             bounds.append(f"ssm_scan {sb[0]:.4f} ms ({sb[1]})")
-        print(f"  bound a launch: {', '.join(bounds)}")
+        print(f"  bound a launch: {', '.join(bounds) or 'no kernel on this path'}")
+        del batch
     del logits, prompts
     return launches, model, params
 
 
 def route_phase(cfg, lm_kernels, check_shape):
-    """The route check of phases 9 and 12 in fp32 at ``check_shape``: the
-    kernel route against the plain route, block by block and free-running.
-    Returns the fp32 model and its params (seed 2) for the decode checks."""
+    """The route check of phases 9, 12, 15 and 16 in fp32 at ``check_shape``
+    (``request_batch``): the kernel route against the plain route, block by
+    block and free-running.  Returns the fp32 model and its params (seed 2)
+    for the decode checks."""
     from repro_torch.models.model import Model
 
     flash, ssm = lm_kernels
@@ -1511,18 +1595,19 @@ def route_phase(cfg, lm_kernels, check_shape):
     model = Model(cfg32)
     params = model.init_params(torch.Generator(device=DEV).manual_seed(2))
     gen = torch.Generator(device=DEV).manual_seed(3)
-    toks = torch.randint(0, cfg.vocab_size, check_shape, generator=gen, device=DEV)
+    batch = request_batch(cfg, check_shape, gen)
     before = (flash.launches, ssm.launches)
-    got = model.prefill(params, {"tokens": toks})
+    got = model.prefill(params, batch)
     if (flash.launches - before[0], ssm.launches - before[1]) != per_req:
         raise AssertionError("the fp32 kernel route did not run each kernel per layer")
     plain = Model(cfg32, attn_impl="einsum", ssm_impl="einsum")
     t0 = time.perf_counter()
-    want = plain.prefill(params, {"tokens": toks})
+    want = plain.prefill(params, batch)
     torch.cuda.synchronize()
-    print(f"[route check] {cfg.name} fp32, {cfg.num_layers} layers, {check_shape}: plain "
-          f"route in {time.perf_counter() - t0:.3f} s")
-    check_blocks(cfg32, params, toks)
+    print(f"[route check] {cfg.name} fp32, {cfg.num_layers} layers, {check_shape}"
+          + (f" ({batch['patches'].shape[1]} patch positions)" if "patches" in batch else "")
+          + f": plain route in {time.perf_counter() - t0:.3f} s")
+    check_blocks(model, params, batch)
     # the whole request, each route on its own trajectory (no tolerance: the
     # random-init trunk amplifies any rounding difference layer after
     # layer); zamba's is set beside two plain routes that differ only in the
@@ -1531,7 +1616,7 @@ def route_phase(cfg, lm_kernels, check_shape):
     if cfg.shared_attn_every:
         runs[f"plain with chunk {cfg.ssm_chunk // 2}"] = Model(
             dataclasses.replace(cfg32, ssm_chunk=cfg.ssm_chunk // 2),
-            attn_impl="einsum", ssm_impl="einsum").prefill(params, {"tokens": toks})
+            attn_impl="einsum", ssm_impl="einsum").prefill(params, batch)
     for t in runs.values():
         if t.shape != (check_shape[0], cfg.vocab_size) or not torch.isfinite(t).all():
             raise AssertionError("the route check's logits are misshapen or non-finite")
@@ -1558,8 +1643,10 @@ def block_applications(cfg, params, cache):
     """(kind, block params, window, cache slot) of each block application
     of one decode step, in trunk order, as ``Model.decode_step`` walks
     them."""
-    from repro_torch.models.model import layer_windows
+    from repro_torch.models.model import layer_windows, model_kind
 
+    if model_kind(cfg) == "xlstm":
+        return [("xlstm", lp, None, c) for lp, c in zip(params["layers"], cache)]
     if "shared_attn" not in params:
         return [("attn", lp, w, c) for lp, w, c in
                 zip(params["layers"], layer_windows(cfg).tolist(), cache)]
@@ -1574,7 +1661,8 @@ def block_applications(cfg, params, cache):
 def decode_step_bytes(cfg, params, cache, batch: int, positions) -> list:
     """The bytes a decode step must move, at each of ``positions``: every
     weight it uses read once per use (zamba's shared block once per
-    application), the Mamba2 conv history and fp32 state read and written,
+    application), the Mamba2 conv history and fp32 state and the xLSTM's
+    fp32 states read and written,
     the KV slots that hold a position in the window read and the new slot
     written, the embedding rows read and the logits written."""
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -1583,7 +1671,7 @@ def decode_step_bytes(cfg, params, cache, batch: int, positions) -> list:
     kv = []  # (slots, window, bytes a slot) of each attention application
     for kind, lp, window, c in block_applications(cfg, params, cache):
         fixed += tensor_bytes(lp)
-        if kind == "mamba":
+        if kind in ("mamba", "xlstm"):
             fixed += 2 * tensor_bytes(c)
         else:
             clen = next(iter(c.values())).shape[1]  # GQA's k / v, MLA's ckv / krope
@@ -1593,7 +1681,7 @@ def decode_step_bytes(cfg, params, cache, batch: int, positions) -> list:
 
 
 def decode_run(model, params, batch, every, gen, profile_dir, prompt_len=512, gen_len=128,
-               warmup=8, profile_steps=4):
+               warmup=8, profile_steps=4, patches=0):
     """Phase 9b: one serving run as ``examples/serve_decode.py`` does it:
     ``batch`` random prompts of ``prompt_len`` tokens stepped through a
     fresh cache, then ``gen_len`` greedy tokens, the next token kept on the
@@ -1602,33 +1690,46 @@ def decode_run(model, params, batch, every, gen, profile_dir, prompt_len=512, ge
     (host clock over all steps), the prompt / generation split (CUDA
     events), generated tokens/s, launches a step and the device idle share
     (``torch.profiler`` over ``profile_steps`` more steps), peak memory,
-    cache bytes and the step's bytes bound."""
+    cache bytes and the step's bytes bound.  With ``patches`` (the vision
+    stub), that many random patch embeddings first fill positions 0..P-1
+    of the fresh cache (``prime_with_patches``, timed apart) and the text
+    follows them."""
+    from repro_torch.models.model import VISION_STUB_DIM
+
     cfg = model.cfg
     total = prompt_len + gen_len
+    P = patches
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen, device=DEV)
-    cache = model.init_cache(batch, total)
+    pv = torch.randn(batch, P, VISION_STUB_DIM, generator=gen, device=DEV) if P else None
+    cache = model.init_cache(batch, P + total)
     for t in range(warmup):
         model.decode_step(params, cache, prompt[:, t:t + 1], t)
     torch.cuda.synchronize()
-    cache = model.init_cache(batch, total)
+    cache = model.init_cache(batch, P + total)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in every:
         k.launches = 0
+    if P:
+        t0 = time.perf_counter()
+        prime_with_patches(model, params, cache, pv)
+        torch.cuda.synchronize()
+        print(f"  B = {batch}: {P} patch positions primed through the blocks' decode in "
+              f"{time.perf_counter() - t0:.3f} s")
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     finite = torch.ones((), dtype=torch.bool, device=DEV)
     out = []
     t0 = time.perf_counter()
     marks[0].record()
     for t in range(prompt_len):
-        logits, cache = model.decode_step(params, cache, prompt[:, t:t + 1], t)
+        logits, cache = model.decode_step(params, cache, prompt[:, t:t + 1], P + t)
     last_prompt = logits
     marks[1].record()
     tok = logits.argmax(-1, keepdim=True)
     for t in range(prompt_len, total):
         out.append(tok)
         finite &= torch.isfinite(logits).all()
-        logits, cache = model.decode_step(params, cache, tok, t)
+        logits, cache = model.decode_step(params, cache, tok, P + t)
         tok = logits.argmax(-1, keepdim=True)
     marks[2].record()
     torch.cuda.synchronize()
@@ -1646,7 +1747,7 @@ def decode_run(model, params, batch, every, gen, profile_dir, prompt_len=512, ge
     ms_step = wall * 1e3 / total
     gen_ms = marks[1].elapsed_time(marks[2])
     bound = [n / PEAK_BYTES_PER_S * 1e3
-             for n in decode_step_bytes(cfg, params, cache, batch, range(total))]
+             for n in decode_step_bytes(cfg, params, cache, batch, range(P, P + total))]
     print(f"  B = {batch}: {total} steps ({prompt_len} prompt + {gen_len} generated) in "
           f"{wall:.3f} s: {ms_step:.3f} ms a step (host clock), prompt "
           f"{marks[0].elapsed_time(marks[1]) / prompt_len:.3f} / generation "
@@ -1660,7 +1761,7 @@ def decode_run(model, params, batch, every, gen, profile_dir, prompt_len=512, ge
 
     def more_steps():
         step_logits = logits
-        for t in range(total - profile_steps, total):
+        for t in range(P + total - profile_steps, P + total):
             step_logits, _ = model.decode_step(params, cache, step_logits.argmax(-1, keepdim=True),
                                                t)
         torch.cuda.synchronize()
@@ -1671,7 +1772,8 @@ def decode_run(model, params, batch, every, gen, profile_dir, prompt_len=512, ge
           f"share against the unprofiled step {1 - busy / ms_step:.3f}")
     # stepped decode against the kernel-route prefill of the same prompt, in
     # bf16: no tolerance (Trap 3: the random-init trunk amplifies rounding)
-    pre = model.prefill(params, {"tokens": prompt})
+    pre = model.prefill(params, {"tokens": prompt} if pv is None else {"tokens": prompt,
+                                                                       "patches": pv})
     print(f"  decode at the prompt's last position vs prefill (kernel route, bf16, no "
           f"tolerance): max_abs_err {(last_prompt - pre).abs().max().item():.3e}, max|prefill| "
           f"{pre.abs().max().item():.3f}, greedy tokens equal in "
@@ -1680,19 +1782,23 @@ def decode_run(model, params, batch, every, gen, profile_dir, prompt_len=512, ge
 
 
 def serve_decode(model, params, batches, every, gen, profile_dir, prompt_len=512,
-                 gen_len=128):
-    """The bf16 decode runs of one model (phases 9b and 12): ``decode_run``
-    at each batch."""
+                 gen_len=128, patches=0):
+    """The bf16 decode runs of one model (phases 9b, 12, 15 and 16):
+    ``decode_run`` at each batch, after ``patches`` patch positions."""
     from repro_torch.models.model import decode_cache_len, param_count
 
     cfg = model.cfg
+    total = patches + prompt_len + gen_len
+    where = ("per-pair recurrent state (no KV cache)" if model.kind == "xlstm" else
+             f"{decode_cache_len(cfg, total)}-slot cache")
     print(f"\n[serve decode] {cfg.name}, {cfg.dtype}, {param_count(params):,} params "
-          f"({cfg.num_heads} heads over {cfg.num_kv_heads} kv heads): a {prompt_len}-token "
-          f"prompt stepped through a "
-          f"{decode_cache_len(cfg, prompt_len + gen_len)}-slot cache, then {gen_len} "
+          f"({cfg.num_heads} heads over {cfg.num_kv_heads} kv heads): "
+          + (f"{patches} patch positions and " if patches else "")
+          + f"a {prompt_len}-token prompt stepped through a {where}, then {gen_len} "
           "greedy tokens")
     for batch in batches:
-        decode_run(model, params, batch, every, gen, profile_dir, prompt_len, gen_len)
+        decode_run(model, params, batch, every, gen, profile_dir, prompt_len, gen_len,
+                   patches=patches)
 
 
 def decode_checks(model, params, every, gen):
@@ -1721,7 +1827,7 @@ def decode_checks(model, params, every, gen):
         raise AssertionError(f"the decode check launched kernels {launched}")
 
 
-def check_decode_blocks(model, params, toks):
+def check_decode_blocks(model, params, toks, patches=None):
     """Phase 9b's decode-vs-prefill check in fp32, block by block: for each
     block application, from the plain prefill's input to that block, the
     block's plain forward over T positions against its decode stepped
@@ -1729,15 +1835,16 @@ def check_decode_blocks(model, params, toks):
     residual must agree within atol = rtol = 1e-4 of that row's largest
     plain increment (``check_blocks``' rule, row by row); each Mamba2
     layer's final fp32 state must agree with ``ssd_chunked``'s in the same
-    way, a row being one head of one sequence."""
-    from repro_torch.models import blocks
-    from repro_torch.models import ssm
+    way, a row being one head of one sequence, and each xLSTM pair's mLSTM
+    state with ``_mlstm_chunked``'s.  With ``patches`` (the vision stub) the
+    projected patches are the first positions, stepped like the text."""
+    from repro_torch.models import blocks, ssm, xlstm
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.model import decode_cache_len, layer_windows
 
     cfg = model.cfg
-    B, T = toks.shape
-    worst = {"mamba": 0.0, "attn": 0.0, "state": 0.0}
+    batch = {"tokens": toks} if patches is None else {"tokens": toks, "patches": patches}
+    worst = {"mamba": 0.0, "attn": 0.0, "xlstm": 0.0, "state": 0.0}
 
     def check(what, got, want, dims):
         limit = 1e-4 + 1e-4 * want.abs().amax(dim=dims, keepdim=True)
@@ -1749,7 +1856,8 @@ def check_decode_blocks(model, params, toks):
 
     t0 = time.perf_counter()
     with torch.inference_mode():
-        x = torch.nn.functional.embedding(toks.long(), params["embed"])
+        x, _ = model.embed(params, batch)
+        B, T = x.shape[:2]
         positions = torch.arange(T, device=DEV)
         cache = model.init_cache(B, T)
         apps = block_applications(cfg, params, cache)
@@ -1762,15 +1870,29 @@ def check_decode_blocks(model, params, toks):
                     lp["mamba"], rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
                 _, state = ssm.ssd_chunked(xd, logdecay, Bc, Cc, cfg.ssm_chunk)
                 check("state", c["ssm"], state, (2, 3))
+            elif kind == "xlstm":
+                want = blocks.xlstm_pair_forward(lp, x, cfg)
+                got = [blocks.xlstm_pair_decode(lp, c, x[:, t:t + 1], cfg)[0]
+                       for t in range(T)]
+                h = x + xlstm.slstm_forward(lp["slstm"], rms_norm(x, lp["ln_s"], cfg.norm_eps),
+                                            cfg)
+                q, k, v, gates = xlstm._mlstm_inputs(
+                    lp["mlstm"], rms_norm(h, lp["ln_m"], cfg.norm_eps), cfg)
+                _, state = xlstm._mlstm_chunked(
+                    q, k, v, torch.nn.functional.logsigmoid(gates[:, :, 1]), gates[:, :, 0],
+                    min(128, T))
+                check("state", c["mlstm"]["C"], state, (2, 3))
             else:
                 want = blocks.attn_block_forward(lp, x, positions, cfg, window, "einsum")[0]
                 got = [blocks.attn_block_decode(lp, c, x[:, t:t + 1], t, cfg, window)[0]
                        for t in range(T)]
             check(kind, torch.cat(got, dim=1) - x, want - x, -1)
             x = want
-    print(f"  {cfg.name}, windows {sorted(set(layer_windows(cfg).tolist()))} "
-          f"({decode_cache_len(cfg, T)} KV "
-          f"slots): {len(apps)} blocks, {B} x {T} positions each, in "
+    print(f"  {cfg.name}, "
+          + ("(sLSTM, mLSTM) pairs" if model.kind == "xlstm" else
+             f"windows {sorted(set(layer_windows(cfg).tolist()))} "
+             f"({decode_cache_len(cfg, T)} KV slots)")
+          + f": {len(apps)} blocks, {B} x {T} positions each, in "
           f"{time.perf_counter() - t0:.2f} s; closest to tolerance (row by row): "
           + ", ".join(f"{k} {v:.3f}" for k, v in worst.items() if v) + " ok")
 
@@ -1880,20 +2002,24 @@ def scatter_request(cfg, model, params, flash) -> None:
           f"tokens equal in {int((s_greedy == o_greedy).sum())} of 4")
 
 
-def decode_vs_prefill(cfg, params, every, gen, layers: int) -> None:
+def decode_vs_prefill(cfg, params, every, gen, layers: int, shape=(2, 256)) -> None:
     """Phase 9b's fp32 decode-vs-prefill check on the first ``layers``
-    layers of ``params``, dropless (``moe_capacity_factor`` 16, as the
-    reference's decode test runs: prefill groups the whole batch and may
-    drop, decode never does).  No kernel may launch."""
-    from repro_torch.models.model import Model
+    layers of ``params`` (blocks: xLSTM pairs count two) over a
+    ``request_batch`` of ``shape``, dropless (``moe_capacity_factor`` 16,
+    as the reference's decode test runs: prefill groups the whole batch and
+    may drop, decode never does).  No kernel may launch."""
+    from repro_torch.models.model import Model, num_blocks
 
     dcfg = dataclasses.replace(cfg, num_layers=layers, moe_capacity_factor=16.0)
-    print(f"\n[decode vs prefill] {cfg.name} fp32, {layers} layers, dropless, block by "
-          "block, from the plain prefill's input to each block")
+    model = Model(dcfg)
+    print(f"\n[decode vs prefill] {cfg.name} fp32, {layers} layers"
+          + (", dropless" if cfg.num_experts else "") + ", block by block, from the plain "
+          "prefill's input to each block")
     for k in every:
         k.launches = 0
-    check_decode_blocks(Model(dcfg), dict(params, layers=params["layers"][:layers]),
-                        torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device=DEV))
+    batch = request_batch(cfg, shape, gen)
+    check_decode_blocks(model, dict(params, layers=params["layers"][:num_blocks(dcfg)]),
+                        batch["tokens"], batch.get("patches"))
     launched = {k.__name__: k.launches for k in every if k.launches}
     if launched:
         raise AssertionError(f"the decode check launched kernels {launched}")
@@ -2030,6 +2156,196 @@ def moe_mla_phase(lm_kernels, every, entries, profile_dir) -> None:
         print(f"[phase 15, {cfg.name}] {time.perf_counter() - t0:.1f} s")
     arctic_reduced(lm_kernels[0], every)
     print(f"[phase 15] {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------- phase 16
+# the reference's parameter counts (its ``init_params`` at full width)
+XLSTM_FRONTEND_PARAMS = {"xlstm-350m": 304_546_912, "internvl2-1b": 630_553_728,
+                         "musicgen-medium": 1_818_379_776}
+
+
+def xlstm_launches(model, params, profile_dir, lengths) -> None:
+    """The device launches of a 4 x S xlstm-350m request for each S of
+    ``lengths``, without profiling one (``torch.profiler`` over a request's
+    ~0.5 M launches would take longer than the phase): a prefill's
+    launches are a + b S for S a multiple of the mLSTM's chunk of 128 (one
+    sLSTM step a position, one mLSTM chunk a 128 positions), so requests
+    of 128 and 256 positions are profiled and the line through them is
+    read at each S.  The idle share is the 4 x 256 request's.  The
+    profiler records the device alone (``profile_device``'s ``cpu=False``):
+    with the host's ops it spent ~50 s on the two traces' ~90,000 launches
+    (NVIDIA H100 80GB HBM3, 700 W)."""
+    from repro_torch.models.model import num_blocks
+
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    counts = {}
+    for n in (128, 256):
+        toks = torch.randint(0, model.cfg.vocab_size, (4, n), generator=gen, device=DEV)
+        t0 = time.perf_counter()
+        wall, busy, counts[n] = profile_device(
+            lambda: model.prefill(params, {"tokens": toks}).argmax(-1).cpu(),
+            ("flash_attention", "ssm_scan"), profile_dir, f"prefill_{model.cfg.name}_4x{n}",
+            cpu=False)
+        print(f"  (profiling the 4 x {n} request took {time.perf_counter() - t0:.1f} s)")
+    per_position = (counts[256] - counts[128]) / 128
+    print(f"  launches a request: {counts[128]:g} at 4 x 128, {counts[256]:g} at 4 x 256 "
+          f"({per_position:g} a position, {per_position / num_blocks(model.cfg):g} a "
+          f"position a pair); " + ", ".join(
+              f"at 4 x {S}: {counts[256] + per_position * (S - 256):g}" for S in lengths)
+          + f"; device idle share at 4 x 256 {1 - busy / wall:.3f}")
+
+
+def xlstm_card_vs_cpu(cfg):
+    """Phase 16a's fp32 check at full width on 2 pairs: params drawn on a
+    seeded CPU generator and copied to the card; one 1 x 256 request (two
+    mLSTM chunks), each pair run on both devices from the CPU's input to
+    it, its increment to the residual within atol = rtol = 1e-4 of its
+    row's largest CPU increment (``check_blocks``' rule, row by row), and
+    the logits from the last pair's two outputs within 1e-4.  The whole
+    request is printed free-running on each device (no tolerance: the
+    trunk amplifies rounding).  Returns the card's fp32 model and params."""
+    from repro_torch.core.engine import ordered_leaves, with_leaves
+    from repro_torch.models import blocks
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import Model
+
+    cfg32 = dataclasses.replace(cfg, num_layers=4, dtype="float32")
+    cpu, card = Model(cfg32, device="cpu"), Model(cfg32)
+    p_cpu = cpu.init_params(torch.Generator().manual_seed(16))
+    p_card = with_leaves(p_cpu, [t.to(DEV) for _, t in ordered_leaves(p_cpu)])
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=torch.Generator().manual_seed(17))
+    t0 = time.perf_counter()
+    worst = 0.0
+    with torch.inference_mode():
+        x = cpu.embed(p_cpu, {"tokens": toks})[0]
+        for i, (lc, lg) in enumerate(zip(p_cpu["layers"], p_card["layers"])):
+            want = blocks.xlstm_pair_forward(lc, x, cfg32) - x
+            got = (blocks.xlstm_pair_forward(lg, x.to(DEV), cfg32) - x.to(DEV)).cpu()
+            limit = 1e-4 + 1e-4 * want.abs().amax(dim=-1, keepdim=True)
+            ratio = ((got - want).abs() / limit).max().item()
+            if not ratio <= 1.0:
+                raise AssertionError(f"xLSTM pair {i}: card off the CPU by {ratio:.3f} of the "
+                                     "tolerance")
+            worst = max(worst, ratio)
+            last, x = x + got, x + want
+
+        def head(h):
+            return cpu.logits(p_cpu, rms_norm(h[:, -1], p_cpu["final_norm"], cfg.norm_eps))
+
+        lk, lc = head(last), head(x)
+        free_card = card.forward(p_card, {"tokens": toks.to(DEV)})[0].cpu()
+        free_cpu = cpu.forward(p_cpu, {"tokens": toks})[0]
+    print(f"\n[16a check] xlstm-350m fp32 at full width, {len(p_cpu['layers'])} pairs, 1 x 256 "
+          f"tokens, card vs CPU in {time.perf_counter() - t0:.2f} s: each pair from the CPU's "
+          f"input, closest to tolerance (row by row) {worst:.3f} ok")
+    compare("logits from the last pair's two outputs, card vs CPU", lk, lc, atol=1e-4,
+            rtol=1e-4)
+    print(f"  free-running request (no tolerance): card vs CPU max_abs_err "
+          f"{(free_card - free_cpu).abs().max().item():.3e} on logits of max "
+          f"{free_cpu.abs().max().item():.3f}, greedy tokens equal at "
+          f"{int((free_card.argmax(-1) == free_cpu.argmax(-1)).sum())} of 256 positions")
+    return card, p_card
+
+
+def xlstm_frontends_phase(lm_kernels, every, entries, profile_dir) -> None:
+    """Phase 16: the xLSTM kind and the two stub frontends at full width and
+    depth in bf16 (params from ``Model.init_params`` on a seeded CUDA
+    generator, counted against the reference's).
+
+    16a, xlstm-350m (arXiv:2405.04517; 12 (sLSTM, mLSTM) pairs, d_model
+    1,024, 4 heads, mLSTM head dim 512, sLSTM 256): one 4 x 128 warm-up
+    request, then 3 requests of 4 x 1,024 tokens, which may launch no
+    kernel; the launches of a request from two short profiled requests
+    (``xlstm_launches``); decode at B = 4, a 64-token prompt and 64 greedy
+    tokens after 8 warm-up steps; the fp32 card-vs-CPU check at full width
+    on 2 pairs, 1 x 256 (``xlstm_card_vs_cpu``); the fp32 decode-vs-prefill
+    check over 2 x 256 positions at 2 pairs.  Cut: the requests are 4 x
+    1,024, not 4 x 2,048 (the sLSTM steps one position at a time: ~474,000
+    eager launches and ~8.8 s a 4 x 2,048 request), the warm-up 4 x 128,
+    and decode 64 + 64 (phase 9b's 512 + 128 would be ~15 s more).
+
+    16b, internvl2-1b (arXiv:2404.16821; 24 GQA layers, 14 heads over 2 of
+    64, 256 stub patches of width 1,024 through ``vision_proj``): 4
+    requests of 4 x (256 patch positions + 1,792 text tokens), the first a
+    warm-up, each launching ``flash_attention`` 24 times, one profiled;
+    decode at B = 4 after priming the cache with the 256 patch positions
+    (~15 s: a decode step a position), then a 32-token prompt and 32 greedy
+    tokens (cut from 16a's 64 + 64); the fp32 route check at
+    full depth on 1 x (256 + 768); the fp32 decode-vs-prefill check at 4
+    layers over 2 x (256 + 64) positions, patches included.
+
+    16c, musicgen-medium (arXiv:2306.05284; 48 MHA layers, 24 heads of 64,
+    GeGLU; codec token ids, the audio stub having no params): as 16b on 4 x
+    2,048 tokens, 48 launches a request, decode 32 + 32 (~130 ms a step);
+    the fp32 route check at full depth (7.3 GB of fp32 params) on 1 x
+    1,024; decode-vs-prefill at 4 layers over 2 x 256."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm
+    from repro_torch.models.model import num_blocks
+
+    t_phase = time.perf_counter()
+    t, parts = t_phase, []
+
+    def lap(what):
+        nonlocal t
+        now = time.perf_counter()
+        parts.append(f"{what} {now - t:.1f}")
+        t = now
+
+    cfg = get_config("xlstm-350m")
+    t0 = time.perf_counter()
+    d_inner, nh, mhd = xlstm.mlstm_dims(cfg)
+    print(f"\n[serve prefill] {cfg.name} ({cfg.citation}), {num_blocks(cfg)} (sLSTM, mLSTM) "
+          f"pairs, d_model {cfg.d_model}, {nh} heads (mLSTM head dim {mhd}, sLSTM "
+          f"{xlstm.slstm_dims(cfg)[1]}), {cfg.dtype}; card memory in use before: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    launches, model, params = serve_phase(cfg, lm_kernels, every, [(4, 128)] + [(4, 1024)] * 3,
+                                          XLSTM_FRONTEND_PARAMS[cfg.name], profile_dir,
+                                          profile_shapes=())
+    lap("prefill")
+    xlstm_launches(model, params, profile_dir, (1024, 2048))
+    lap("launch profiles")
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    serve_decode(model, params, (4,), every, gen, profile_dir, 64, 64)
+    lap("decode")
+    del model, params
+    torch.cuda.empty_cache()
+    model, params = xlstm_card_vs_cpu(cfg)
+    lap("card vs CPU")
+    decode_vs_prefill(model.cfg, params, every, gen, 4)
+    lap("decode vs prefill")
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"[phase 16a, {cfg.name}] {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+
+    for name in ("internvl2-1b", "musicgen-medium"):
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        P = cfg.num_patches if cfg.frontend == "vision_stub" else 0
+        print(f"\n[serve prefill] {cfg.name} ({cfg.citation}), {cfg.num_layers} layers, "
+              f"d_model {cfg.d_model}, {cfg.num_heads} heads over {cfg.num_kv_heads} kv heads "
+              f"of {cfg.resolved_head_dim}, {cfg.act} FFN, frontend {cfg.frontend}"
+              + (f" ({P} patch positions ahead of the text)" if P else "")
+              + f", {cfg.dtype}; card memory in use before: "
+              f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+        t, parts = t0, []
+        launches, model, params = serve_phase(cfg, lm_kernels, every, [(4, 2048)] * 4,
+                                              XLSTM_FRONTEND_PARAMS[name], profile_dir)
+        entries["flash_attention"].setdefault("phase16", {})[name] = dict(
+            launches=launches["flash_attention"], per_request=per_request(cfg)[0])
+        lap("prefill")
+        serve_decode(model, params, (4,), every, gen, profile_dir, 32, 32, patches=P)
+        lap("decode")
+        del model, params
+        torch.cuda.empty_cache()
+        model, params = route_phase(cfg, lm_kernels, (1, 1024))
+        lap("route check")
+        decode_vs_prefill(model.cfg, params, every, gen, 4, shape=(2, P + 64 if P else 256))
+        lap("decode vs prefill")
+        del model, params
+        torch.cuda.empty_cache()
+        print(f"[phase 16, {cfg.name}] {time.perf_counter() - t0:.1f} s ({', '.join(parts)})")
+    print(f"[phase 16] {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3013,8 +3329,10 @@ def main() -> int:
     # tinyllama-1.1b's (32 heads of 64 over 4 kv heads); phase 12's:
     # gemma3-1b's local and global layers (4 heads of 256 over one kv head,
     # bf16 at 4 x 2,048, fp32 at the route check's 1 x 1,024, and a ragged
-    # S) and yi-9b's (32 heads of 128 over 4); zamba2-7b's SSD (112 heads of
-    # 64, state 64) over the same two prompt shapes as its attention
+    # S) and yi-9b's (32 heads of 128 over 4); phase 15's and phase 16's
+    # (internvl2-1b's 14 heads over 2, a group of 7; musicgen-medium's 24 of
+    # 64; each with SDPA's backend named); zamba2-7b's SSD (112 heads of 64,
+    # state 64) over the same two prompt shapes as its attention
     zamba = get_config("zamba2-7b")
     both = (torch.bfloat16, torch.float32)
     entries.update(lm_kernel_phase(
@@ -3030,7 +3348,9 @@ def main() -> int:
          ("gemma3-1b, local, ragged S", 1, 1000, 4, 1, 256, 512, both),
          ("yi-9b", 4, 2048, 32, 4, 128, 0, both[:1]),
          ("qwen2-moe-a2.7b", 4, 2048, 16, 16, 128, 0, both),
-         ("minicpm3-4b, MLA", 4, 2048, 40, 40, 96, 0, both, 64)],
+         ("minicpm3-4b, MLA", 4, 2048, 40, 40, 96, 0, both, 64),
+         ("internvl2-1b, 256 patches + 1,792 text", 4, 2048, 14, 2, 64, 0, both, 64, True),
+         ("musicgen-medium", 4, 2048, 24, 24, 64, 0, both, 64, True)],
         [("zamba2-7b", 4, 2048, 112, 64, 64, both),
          ("zamba2-7b, one long prompt", 1, 8192, 112, 64, 64, both[:1])],
         zamba.ssm_chunk))
@@ -3355,6 +3675,10 @@ def main() -> int:
     # --- phase 15: MoE and MLA serving, qwen2-moe-a2.7b and minicpm3-4b at
     # full width, arctic-480b at reduced()
     moe_mla_phase(lm_kernels, every, entries, profile_dir)
+
+    # --- phase 16: the xLSTM kind and the two stub frontends at full width,
+    # xlstm-350m, internvl2-1b and musicgen-medium
+    xlstm_frontends_phase(lm_kernels, every, entries, profile_dir)
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",

@@ -3,9 +3,7 @@ FedAR hyper-parameters (``FedConfig``, Table I trust constants et al.).
 
 The port's own copies of the reference's two dataclasses: the same field
 names and defaults, so a config written for one package reads the same in
-the other.  Fields whose feature a later slice ports are kept here and
-rejected with ``NotImplementedError`` when switched on (by the engine for
-``FedConfig``, by ``models/model.py`` for ``ModelConfig``).
+the other.
 """
 from __future__ import annotations
 

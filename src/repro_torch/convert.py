@@ -53,11 +53,14 @@ def _leaf_tensor(a) -> torch.Tensor:
 def lm_params_from_jax(tree, cfg, device, dtype=None):
     """The reference's ``Model.init_params`` tree (numpy or JAX leaves, layer
     params stacked on a leading L axis) -> the port's ``Model`` params on
-    ``device``: the same keys, with ``layers`` a list of ``cfg.num_layers``
-    per-layer dicts (views of the stacked tensors).  Each leaf keeps its
-    dtype; ``dtype`` casts the leaves that are not fp32 (in a bf16 model,
-    every leaf but the norm scales, ``A_log``, ``D``, ``dt_bias`` and the
-    MoE's ``router`` and ``shared_gate``)."""
+    ``device``: the same keys, with ``layers`` a list of per-layer dicts
+    (views of the stacked tensors), one per layer or, for xLSTM, one per
+    (sLSTM, mLSTM) pair.  Each leaf keeps its dtype; ``dtype`` casts the
+    leaves that are not fp32 (in a bf16 model, every leaf but the norm
+    scales, ``A_log``, ``D``, ``dt_bias``, the MoE's ``router`` and
+    ``shared_gate``, and the xLSTM's ``wx``, ``r``, ``bias``, ``wif`` and
+    ``if_bias``)."""
+    from repro_torch.models.model import num_blocks
 
     def convert(node):
         if isinstance(node, dict):
@@ -70,39 +73,54 @@ def lm_params_from_jax(tree, cfg, device, dtype=None):
     out = {k: convert(v) for k, v in tree.items() if k != "layers"}
     stacked = convert(tree["layers"])
 
+    n = num_blocks(cfg)
+
     def layer(node, i):
         if isinstance(node, dict):
             return {k: layer(v, i) for k, v in node.items()}
-        if node.shape[0] != cfg.num_layers:
+        if node.shape[0] != n:
             raise ValueError(f"a layer leaf has {node.shape[0]} rows, the config "
-                             f"{cfg.num_layers} layers")
+                             f"{n} blocks")
         return node[i]
 
-    out["layers"] = [layer(stacked, i) for i in range(cfg.num_layers)]
+    out["layers"] = [layer(stacked, i) for i in range(n)]
     return out
 
 
 def _unstack(node, n: int, device):
-    """``{name: (n, ...) array}`` -> n dicts of views of the stacked tensors."""
-    stacked = {k: _leaf_tensor(v).to(device) for k, v in node.items()}
-    for k, t in stacked.items():
+    """A nest of ``{name: (n, ...) array}`` dicts -> n nests of views of the
+    stacked tensors."""
+    def convert(node, path):
+        if isinstance(node, dict):
+            return {k: convert(v, f"{path}/{k}" if path else k) for k, v in node.items()}
+        t = _leaf_tensor(node).to(device)
         if t.shape[0] != n:
-            raise ValueError(f"cache leaf {k!r} has {t.shape[0]} rows, expected {n}")
-    return [{k: t[i] for k, t in stacked.items()} for i in range(n)]
+            raise ValueError(f"cache leaf {path!r} has {t.shape[0]} rows, expected {n}")
+        return t
+
+    def index(node, i):
+        return ({k: index(v, i) for k, v in node.items()} if isinstance(node, dict)
+                else node[i])
+
+    stacked = convert(node, "")
+    return [index(stacked, i) for i in range(n)]
 
 
 def lm_cache_from_jax(tree, cfg, device):
     """The reference's ``Model.init_cache`` tree (numpy or JAX leaves,
     stacked on a leading layer axis) -> the port's cache on ``device``: a
     list of per-layer dicts for the ``attn`` kind (``k`` and ``v``, or
-    MLA's latent ``ckv`` and ``krope``); for ``zamba``,
+    MLA's latent ``ckv`` and ``krope``); for ``xlstm`` a list of per-pair
+    ``{"slstm": {h, c, n, m}, "mlstm": {C}}``; for ``zamba``,
     ``{"mamba": [per layer], "attn": [per shared-block application]}``.
     Each leaf keeps its dtype."""
+    from repro_torch.models.model import num_blocks
+
     if "mamba" in tree:
         return {"mamba": _unstack(tree["mamba"], cfg.num_layers, device),
                 "attn": _unstack(tree["attn"], cfg.num_layers // cfg.shared_attn_every,
                                  device)}
-    return _unstack(tree, cfg.num_layers, device)
+    return _unstack(tree, num_blocks(cfg), device)
 
 
 def lm_cache_to_numpy(cache):
@@ -112,8 +130,10 @@ def lm_cache_to_numpy(cache):
         t = t.detach().cpu()
         return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
 
-    def stack(dicts):
-        return {k: np.stack([leaf(d[k]) for d in dicts]) for k in dicts[0]}
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([d[k] for d in nodes]) for k in nodes[0]}
+        return np.stack([leaf(t) for t in nodes])
 
     if isinstance(cache, dict):
         return {k: stack(v) for k, v in cache.items()}

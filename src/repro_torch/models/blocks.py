@@ -1,10 +1,9 @@
 """Per-layer blocks of the LM trunk: the attention block (GQA or MLA,
 followed by a dense gated FFN or a mixture of experts, which in Arctic runs
-beside a dense residual FFN; the ``attn`` kind and zamba's shared block)
-and the Mamba2 block.  A block is (init, forward, cache init, decode) over
-a params dict; decode updates the block's cache in place and returns it.
-
-xLSTM blocks are ROADMAP Queue 1 item 14.3b and raise.
+beside a dense residual FFN; the ``attn`` kind and zamba's shared block),
+the Mamba2 block and the xLSTM pair (an sLSTM then an mLSTM sub-layer).  A
+block is (init, forward, cache init, decode) over a params dict; decode
+updates the block's cache in place and returns it.
 """
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ import torch
 from repro_torch.common.config import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.ffn import ffn_forward, init_ffn
 from repro_torch.models.layers import rms_norm
 from repro_torch.models.moe import init_moe, moe_forward
@@ -102,13 +102,36 @@ def mamba_block_decode(p, cache, x_t, cfg: ModelConfig):
     return x_t + y, cache
 
 
-def init_xlstm_pair(*_args, **_kw):
-    raise NotImplementedError("xLSTM blocks are not ported yet (ROADMAP Queue 1 item 14.3b)")
+def init_xlstm_pair(generator, cfg: ModelConfig, dtype, device):
+    """The two sub-layers with their fp32 norm scales."""
+    zeros = dict(dtype=torch.float32, device=device)
+    return {
+        "ln_s": torch.zeros(cfg.d_model, **zeros),
+        "slstm": xlstm_mod.init_slstm(generator, cfg, dtype, device),
+        "ln_m": torch.zeros(cfg.d_model, **zeros),
+        "mlstm": xlstm_mod.init_mlstm(generator, cfg, dtype, device),
+    }
 
 
-def xlstm_pair_forward(*_args, **_kw):
-    raise NotImplementedError("xLSTM blocks are not ported yet (ROADMAP Queue 1 item 14.3b)")
+def xlstm_pair_forward(p, x, cfg: ModelConfig):
+    """Pre-norm sLSTM then pre-norm mLSTM, each added to the residual."""
+    h = rms_norm(x, p["ln_s"], cfg.norm_eps)
+    x = x + xlstm_mod.slstm_forward(p["slstm"], h, cfg)
+    h = rms_norm(x, p["ln_m"], cfg.norm_eps)
+    return x + xlstm_mod.mlstm_forward(p["mlstm"], h, cfg)
 
 
-def xlstm_pair_decode(*_args, **_kw):
-    raise NotImplementedError("xLSTM decode is not ported yet (ROADMAP Queue 1 item 14.3b)")
+def init_xlstm_pair_cache(cfg: ModelConfig, batch: int, device):
+    return {
+        "slstm": xlstm_mod.init_slstm_cache(cfg, batch, device),
+        "mlstm": xlstm_mod.init_mlstm_cache(cfg, batch, device),
+    }
+
+
+def xlstm_pair_decode(p, cache, x_t, cfg: ModelConfig):
+    h = rms_norm(x_t, p["ln_s"], cfg.norm_eps)
+    y, _ = xlstm_mod.slstm_decode(p["slstm"], cache["slstm"], h, cfg)
+    x = x_t + y
+    h = rms_norm(x, p["ln_m"], cfg.norm_eps)
+    y, _ = xlstm_mod.mlstm_decode(p["mlstm"], cache["mlstm"], h, cfg)
+    return x + y, cache

@@ -2,22 +2,26 @@
 training loss, prefill and cached single-token decode, and
 ``LMClientModel``, the LM as a federated client of ``FedAREngine``.
 
-Two structural kinds of the reference's three are ported:
+The reference's three structural kinds:
   attn   -- homogeneous attention blocks: GQA or MLA, then a dense gated
             FFN or a mixture of experts (with Arctic's dense residual FFN)
+  xlstm  -- ``num_layers // 2`` (sLSTM, mLSTM) pairs
   zamba  -- Mamba2 blocks plus ONE weight-shared attention block applied
             after every ``shared_attn_every``-th layer (Zamba2)
-The ``xlstm`` kind and the stubbed modality frontends raise
-``NotImplementedError`` (ROADMAP Queue 1 item 14.3b).  The trunk sums the
-MoE layers' aux losses in layer order, as the reference's scan carry does;
-``forward`` returns the sum and the loss adds it.
+and the two stubbed modality frontends: ``vision_stub`` projects the
+batch's ``patches`` (B, P, 1,024) through ``vision_proj`` and puts them
+ahead of the text (the loss scores text positions only); ``audio_stub``
+has no params and no branch, its inputs being codec token ids.  The trunk
+sums the MoE layers' aux losses in layer order, as the reference's scan
+carry does; ``forward`` returns the sum and the loss adds it.
 
 Params are a dict of tensors in the reference's tree, except that
 ``layers`` is a list with one dict per layer (the reference stacks them on
 a leading L axis for ``lax.scan``); the trunk is a Python loop over it.
 ``convert.lm_params_from_jax`` maps the reference's tree onto this one.
 Decode caches mirror that layout (a list per layer; for zamba, lists of
-Mamba2 layers and of shared-block applications) and are updated in place
+Mamba2 layers and of shared-block applications; for xlstm, per pair
+``{"slstm": {h, c, n, m}, "mlstm": {C}}``) and are updated in place
 (``convert.lm_cache_from_jax`` maps the reference's stacked cache).
 
 Kernel routing is per model: ``attn_impl`` and ``ssm_impl`` (``auto |
@@ -25,7 +29,8 @@ kernel | einsum``, ``kernels/ops.resolve_impl``) pick kernel 8
 (``flash_attention``) and kernel 9 (``ssm_scan``) on the card and the
 reference model's plain PyTorch lowering otherwise.  The loss and decode
 reach neither kernel: they are plain PyTorch on every device, as in the
-reference (kernels 8 and 9 have no backward).
+reference (kernels 8 and 9 have no backward).  The xLSTM blocks reach no
+kernel on any route: the reference gives them none.
 """
 from __future__ import annotations
 
@@ -44,6 +49,22 @@ from repro_torch.kernels import ops
 from repro_torch.models import blocks
 from repro_torch.models.client import ClientModel
 from repro_torch.models.layers import dense_init, embed_init, rms_norm
+
+VISION_STUB_DIM = 1024  # InternViT output dim fed by the stubbed frontend
+
+
+def model_kind(cfg: ModelConfig) -> str:
+    """``zamba``, ``xlstm`` or ``attn``, as the reference's ``Model`` picks."""
+    if cfg.family == "hybrid" and cfg.shared_attn_every:
+        return "zamba"
+    if cfg.family == "ssm" and "s" in cfg.block_pattern:
+        return "xlstm"
+    return "attn"
+
+
+def num_blocks(cfg: ModelConfig) -> int:
+    """Entries of ``params["layers"]``: one per layer, one per xLSTM pair."""
+    return cfg.num_layers // 2 if model_kind(cfg) == "xlstm" else cfg.num_layers
 
 
 def layer_windows(cfg: ModelConfig) -> np.ndarray:
@@ -74,14 +95,8 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, device=None, *, attn_impl: str = "auto",
                  ssm_impl: str = "auto"):
-        if cfg.family == "ssm" and "s" in cfg.block_pattern:
-            raise NotImplementedError("the xlstm kind is not ported yet "
-                                      "(ROADMAP Queue 1 item 14.3b)")
-        if cfg.frontend:
-            raise NotImplementedError(f"the {cfg.frontend} frontend is not ported yet "
-                                      "(ROADMAP Queue 1 item 14.3b)")
         self.cfg = cfg
-        self.kind = "zamba" if cfg.family == "hybrid" and cfg.shared_attn_every else "attn"
+        self.kind = model_kind(cfg)
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.attn_impl = ops.resolve_impl(attn_impl, "attn", self.device)
@@ -93,7 +108,8 @@ class Model:
     def init_params(self, generator: torch.Generator) -> Dict[str, Any]:
         """Seeded init drawn on ``generator``'s device and placed on the
         model's: fan-in normal projections and 0.02-normal embeddings in
-        ``cfg.dtype``; norm scales, ``A_log``, ``D`` and ``dt_bias`` in fp32."""
+        ``cfg.dtype``; norm scales, ``A_log``, ``D``, ``dt_bias`` and the
+        xLSTM's gate weights and biases in fp32."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device
         p: Dict[str, Any] = {
             "embed": embed_init(generator, (cfg.vocab_size, cfg.d_model), dtype, dev),
@@ -102,9 +118,15 @@ class Model:
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab_size), 0, dtype,
                                       dev)
+        if cfg.frontend == "vision_stub":
+            p["vision_proj"] = dense_init(generator, (VISION_STUB_DIM, cfg.d_model), 0,
+                                          dtype, dev)
         if self.kind == "attn":
             p["layers"] = [blocks.init_attn_block(generator, cfg, dtype, dev)
                            for _ in range(cfg.num_layers)]
+        elif self.kind == "xlstm":
+            p["layers"] = [blocks.init_xlstm_pair(generator, cfg, dtype, dev)
+                           for _ in range(num_blocks(cfg))]
         else:
             p["layers"] = [blocks.init_mamba_block(generator, cfg, dtype, dev)
                            for _ in range(cfg.num_layers)]
@@ -114,11 +136,20 @@ class Model:
     # ------------------------------------------------------------------
     # embedding / head helpers
     # ------------------------------------------------------------------
+    def embed_tokens(self, params, tokens):
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        return F.embedding(tokens, params["embed"])
+
     def embed(self, params, batch):
-        """Returns (x (B, T, d), text_offset); the offset is 0 without a
-        frontend."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        return F.embedding(tokens, params["embed"]), 0
+        """Returns (x (B, T, d), text_offset): with the vision stub the
+        projected ``patches`` come first and the offset is their count,
+        else it is 0."""
+        x = self.embed_tokens(params, batch["tokens"])
+        if self.cfg.frontend != "vision_stub":
+            return x, 0
+        patches = torch.as_tensor(batch["patches"], device=self.device).to(self.dtype)
+        pe = torch.matmul(patches, params["vision_proj"])
+        return torch.cat([pe, x], dim=1), pe.shape[1]
 
     def logits(self, params, x):
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
@@ -152,6 +183,9 @@ class Model:
                 x, a = run(blocks.attn_block_forward, lp, x, positions, cfg, w, attn_impl)
                 if a is not None:
                     aux = aux + a
+        elif self.kind == "xlstm":
+            for lp in params["layers"]:
+                x = run(blocks.xlstm_pair_forward, lp, x, cfg)
         else:
             shared = params["shared_attn"]
             for i, lp in enumerate(params["layers"]):
@@ -228,13 +262,18 @@ class Model:
         ``attn`` a list of per-layer KV caches (MLA: the latent ``ckv`` and
         ``krope`` of each position); ``zamba`` ``{"mamba": [per
         layer conv + fp32 SSM state], "attn": [per shared-block
-        application KV cache]}``.  KV and conv caches in ``cfg.dtype``."""
+        application KV cache]}``; ``xlstm`` a list of per-pair ``{"slstm":
+        {h, c, n, m}, "mlstm": {C}}``, all fp32.  KV and conv caches in
+        ``cfg.dtype``."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device
         clen = decode_cache_len(cfg, seq_len)
         with torch.inference_mode():
             if self.kind == "attn":
                 return [blocks.init_attn_block_cache(cfg, batch, clen, dtype, dev)
                         for _ in range(cfg.num_layers)]
+            if self.kind == "xlstm":
+                return [blocks.init_xlstm_pair_cache(cfg, batch, dev)
+                        for _ in range(num_blocks(cfg))]
             n_attn = cfg.num_layers // cfg.shared_attn_every
             return {
                 "mamba": [blocks.init_mamba_block_cache(cfg, batch, dtype, dev)
@@ -247,14 +286,19 @@ class Model:
         """One decode step.  tokens: (B, 1) ints, on the model's device to
         keep the step free of host syncs; pos: the new token's index, a
         Python int.  Updates ``cache`` in place and returns (logits (B,
-        vocab), the same cache object)."""
+        vocab), the same cache object).  Decode embeds tokens only, as the
+        reference's does (a vision prompt primes the cache by stepping its
+        projected patches through the blocks)."""
         cfg = self.cfg
         pos = operator.index(pos)
         with torch.inference_mode():
-            x, _ = self.embed(params, {"tokens": tokens})
+            x = self.embed_tokens(params, tokens)
             if self.kind == "attn":
                 for lp, lc, w in zip(params["layers"], cache, layer_windows(cfg).tolist()):
                     x, _ = blocks.attn_block_decode(lp, lc, x, pos, cfg, w)
+            elif self.kind == "xlstm":
+                for lp, lc in zip(params["layers"], cache):
+                    x, _ = blocks.xlstm_pair_decode(lp, lc, x, cfg)
             else:
                 shared, every = params["shared_attn"], cfg.shared_attn_every
                 for i, (lp, lc) in enumerate(zip(params["layers"], cache["mamba"])):
@@ -285,7 +329,7 @@ def param_count(params) -> int:
 class LMClientModel(ClientModel):
     """Transformer LM client behind the engine's ``ClientModel`` surface.
 
-    Wraps ``Model`` (the ported kinds, usually a ``.reduced()`` config) so
+    Wraps ``Model`` (any of the kinds, usually a ``.reduced()`` config) so
     ``FedAREngine`` runs trust scoring, straggler masking, buffered async
     aggregation and the sketched defense over transformer clients.  The
     param tree crosses the aggregation boundary through

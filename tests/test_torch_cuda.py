@@ -747,18 +747,21 @@ def test_lm_kernel_wrappers_validate_arguments(cuda_device):
                  torch.randn(1, 8, 65, device=dev))
 
 
-def _check_blocks(cfg, params, tokens):
+def _check_blocks(cfg, params, tokens, x=None):
     """Each block application of the prefill, from the plain route's input
     to it: the kernel route's increment to the residual within atol = rtol
     = 1e-4 of its row's largest plain increment (a row is one position of
     one sequence), and the logits from the last block's two outputs within
-    1e-4 (``chip_smoke.check_blocks``' bound, row by row)."""
+    1e-4 (``chip_smoke.check_blocks``' bound, row by row).  ``x``: the
+    embedded request, when the tokens' embeddings are not all of it (the
+    vision stub's patches come first)."""
     from repro_torch.models import blocks
     from repro_torch.models.layers import rms_norm
     from repro_torch.models.model import layer_windows
 
     with torch.inference_mode():
-        x = torch.nn.functional.embedding(tokens.long(), params["embed"])
+        if x is None:
+            x = torch.nn.functional.embedding(tokens.long(), params["embed"])
         pos = torch.arange(x.shape[1], device=x.device)
         if "shared_attn" in params:
             apps = []
@@ -808,6 +811,77 @@ def test_lm_prefill_on_the_card_matches_plain_route(cuda_device, arch, layers, l
                 ssm_scan.launches - counts[1]) == launches
         assert got.shape == (2, cfg.vocab_size) and torch.isfinite(got).all()
         _check_blocks(cfg, params, tokens)
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "musicgen-medium"])
+def test_frontend_prefill_on_the_card_matches_plain_route(cuda_device, arch):
+    """The two stub frontends at ``reduced()`` (internvl2-1b with its 16
+    patch positions ahead of 48 text tokens): kernel 8 once a layer, each
+    block on the kernel route against the plain route from the same input
+    (``_check_blocks``), over two seeds."""
+    from repro_torch.models.model import VISION_STUB_DIM
+
+    cfg = get_config(arch).reduced()
+    model = Model(cfg)
+    for seed in range(2):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        params = model.init_params(gen)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 48), generator=gen,
+                                         device=cuda_device)}
+        if cfg.frontend == "vision_stub":
+            batch["patches"] = torch.randn(2, cfg.num_patches, VISION_STUB_DIM, generator=gen,
+                                           device=cuda_device)
+        n0 = flash_attention.launches
+        got = model.prefill(params, batch)
+        assert flash_attention.launches - n0 == cfg.num_layers
+        assert got.shape == (2, cfg.vocab_size) and torch.isfinite(got).all()
+        x, offset = model.embed(params, batch)
+        assert offset == (cfg.num_patches if cfg.frontend == "vision_stub" else 0)
+        _check_blocks(cfg, params, batch["tokens"], x)
+
+
+def test_xlstm_pair_on_the_card_matches_the_cpu(cuda_device):
+    """One reduced xLSTM pair in fp32 from the same params (drawn on a
+    seeded CPU generator): its prefill over 2 x 256 positions (two mLSTM
+    chunks) and 32 decode steps on the card against the CPU within 1e-4 of
+    each row's largest value, the caches after the last step too, and no
+    kernel launched (the xLSTM has none)."""
+    from repro_torch.models import blocks
+
+    cfg = get_config("xlstm-350m").reduced()
+    params = blocks.init_xlstm_pair(torch.Generator().manual_seed(0), cfg, torch.float32, "cpu")
+    card = {k: (v.to(cuda_device) if torch.is_tensor(v) else
+                {kk: vv.to(cuda_device) for kk, vv in v.items()}) for k, v in params.items()}
+    x = torch.randn(2, 256, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    counts = (flash_attention.launches, ssm_scan.launches)
+    with torch.inference_mode():
+        got = blocks.xlstm_pair_forward(card, x.to(cuda_device), cfg)
+        want = blocks.xlstm_pair_forward(params, x, cfg)
+        _close(got.cpu() - x, want - x, 1e-4)
+        cache = blocks.init_xlstm_pair_cache(cfg, 2, cuda_device)
+        cache_cpu = blocks.init_xlstm_pair_cache(cfg, 2, "cpu")
+        for t in range(32):
+            step, _ = blocks.xlstm_pair_decode(card, cache, x[:, t:t + 1].to(cuda_device), cfg)
+            step_cpu, _ = blocks.xlstm_pair_decode(params, cache_cpu, x[:, t:t + 1], cfg)
+            _close(step.cpu() - x[:, t:t + 1], step_cpu - x[:, t:t + 1], 1e-4)
+    assert (flash_attention.launches, ssm_scan.launches) == counts
+    for got_c, want_c in zip(_leaves(cache), _leaves(cache_cpu)):
+        torch.testing.assert_close(got_c.cpu(), want_c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("H,K", [(14, 2), (24, 24)], ids=["internvl2-14over2", "musicgen-24"])
+def test_flash_attention_at_the_frontend_configs_heads(cuda_device, dtype, H, K):
+    """Kernel 8 at internvl2-1b's 14 heads over 2 (a GQA group of 7) and
+    musicgen-medium's 24 of 64, on a ragged S, against the plain version."""
+    gen = torch.Generator().manual_seed(H * 100 + K)
+    q = torch.randn(2, 1030, H, 64, generator=gen).to(cuda_device, dtype)
+    k, v = (torch.randn(2, 1030, K, 64, generator=gen).to(cuda_device, dtype) for _ in "kv")
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == n0 + 1 and got.shape == q.shape
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True),
+           1e-4 if dtype == torch.float32 else BF16_RTOL)
 
 
 def _leaves(tree):

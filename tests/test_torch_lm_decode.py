@@ -339,16 +339,3 @@ def test_mamba2_decode_state_equals_the_chunked_scan_state():
     _, _, xd, logdecay, Bc, Cc = ssm.scan_inputs(lp, x, cfg)
     _, state = ssm.ssd_chunked(xd, logdecay, Bc, Cc, cfg.ssm_chunk)
     _close(_np(cache["ssm"]), _np(state))
-
-
-# ---------------------------------------------------------------------------
-# what is not ported
-# ---------------------------------------------------------------------------
-
-def test_xlstm_decode_still_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14.3"):
-        blocks.xlstm_pair_decode()
-    xlstm = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), family="ssm",
-                                block_pattern="sx")
-    with pytest.raises(NotImplementedError, match="xlstm.*Queue 1 item 14"):
-        Model(xlstm, device="cpu")

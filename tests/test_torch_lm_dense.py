@@ -28,7 +28,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jax_flash_kernel
 from repro.models.model import Model as JModel
 from repro.models.model import layer_windows as jlayer_windows
-from repro_torch.configs import ARCH_IDS, PORTED, get_config
+from repro_torch.configs import PORTED, get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM
@@ -54,7 +54,6 @@ S = 48                  # prefill length, past the window too
 # kernel 8's plain version: tolerances of tests/test_torch_lm_kernels.py
 FP32_TOL, BF16_TOL = 1e-5, 1.6e-2
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
-REMAINING = [a for a in ARCH_IDS if a not in PORTED]
 
 
 def _close(got, want, tol=TOL):
@@ -106,12 +105,6 @@ def test_dense_configs_equal_the_reference_field_by_field(arch):
         assert cfg.tie_embeddings and cfg.act == "gelu"
     else:
         assert (layer_windows(cfg) == 0).all() and cfg.num_heads // cfg.num_kv_heads == 8
-
-
-@pytest.mark.parametrize("arch", REMAINING)
-def test_remaining_kinds_still_raise_naming_item_14_3b(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14.3b"):
-        get_config(arch)
 
 
 # ---------------------------------------------------------------------------
