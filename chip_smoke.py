@@ -65,11 +65,12 @@ Phases (any failure raises and the script exits non-zero):
 
 9b. Serving decode (``Model.init_cache`` / ``decode_step``, plain PyTorch,
    as ``examples/serve_decode.py`` runs it): on phase 9's bf16 params, B = 4
-   with a 512-token prompt stepped through a fresh cache and 128 greedy
-   tokens after 8 warm-up steps, then B = 1 with a 64-token prompt and 64
-   tokens through 128 slots; then tinyllama-1.1b at full width (32 heads
-   over 4 kv heads), B = 4, 64 + 64 through 128 slots (both cut from 512 +
-   128 to keep the phase short).  Each run prints ms a step (host
+   with a 64-token prompt stepped through a fresh cache and 64 greedy
+   tokens after 8 warm-up steps, then B = 1 with the same 64 + 64 through
+   128 slots; then tinyllama-1.1b at full width (32 heads over 4 kv heads),
+   B = 4, 64 + 64 through 128 slots (all cut from 512 + 128 to keep the
+   script well inside its time limit: eager decode is host-bound, ~100 ms
+   a zamba2-7b step at every length).  Each run prints ms a step (host
    clock, one sync at the end), generated tokens/s, launches a step and the
    device idle share (``torch.profiler`` over 4 more steps), peak memory,
    cache bytes and the step's bytes bound; no kernel may launch, the
@@ -108,7 +109,7 @@ Phases (any failure raises and the script exits non-zero):
    ``flash_attention`` 22 times (the eval's forward); rounds 2-4 are each
    held against a plain-route round (``agg_impl = defense_impl =
    "einsum"``) from the same state.  One more round runs under
-   ``torch.profiler`` for the device's idle share.  Then the count sketch
+   ``torch.profiler`` (the device alone) for the device's idle share.  Then the count sketch
    at the path's (4, D) (bit-equal over ten runs), ``fedavg_agg`` at (4, D)
    (N x D past 2^31) and ``sketch_similarity`` at 4 x 256; then the
    example's reduced fleet (2 layers, d_model 128, 8 clients, 8 rounds),
@@ -121,8 +122,8 @@ Phases (any failure raises and the script exits non-zero):
    each launching ``flash_attention`` 48 times, with requests/s, prompt
    tokens/s, peak memory and one profiled request (kernel device ms, idle
    share); decode at B = 4, a 64-token prompt through a fresh 128-slot
-   cache and 64 greedy tokens after 8 warm-up steps (cut from phase 9b's
-   512 + 128 to keep the phase short: ~4,400 eager launches a step), no
+   cache and 64 greedy tokens after 8 warm-up steps (cut from 512 + 128
+   to keep the phase short: ~4,400 eager launches a step), no
    kernel launched and the logits finite; the fp32 route check block by
    block on one 1 x 1,024 request at full width but 4 layers (cut: 48
    layers are 35 GB of fp32 params).  12b, gemma3-1b
@@ -181,7 +182,7 @@ Phases (any failure raises and the script exits non-zero):
    request; for 15a the one-hot dispatch's two einsums timed alone at the
    request's shapes and one request on ``moe_dispatch="scatter"``; decode
    at B = 4, a 64-token prompt and 64 greedy tokens through 128 slots after
-   8 warm-up steps (cut from phase 9b's 512 + 128), no kernel launched;
+   8 warm-up steps (cut from 512 + 128), no kernel launched;
    the fp32 route check block by block on one 1 x 1,024 request (qwen2 at
    4 layers, an MoE block split into its attention sub-layer, held kernel
    route against plain route, and its MoE sub-layer, which has no kernel
@@ -212,12 +213,31 @@ Phases (any failure raises and the script exits non-zero):
    internvl2-1b); the fp32 decode-vs-prefill check at 4 layers.  Cuts are
    listed in ``xlstm_frontends_phase``.
 
+17. The trainer and the kernels' new widths.  17a,
+   ``repro_torch.launch.train.main`` on tinyllama-1.1b at full width
+   (bf16 params, fp32 AdamW m and v), 4 steps of 8 x 128 tokens with a
+   checkpoint: every loss finite, every param leaf moved, the optimizer
+   state fp32 in the params' shapes, the checkpoint restored bit-equal, no
+   kernel of the port launched; seconds a step (steps 2-3), training
+   tokens/s, peak memory, and the device launches and idle share of the
+   fourth step (profiled).  17b, the trainer's step on the card against
+   the CPU in fp32 on reduced tinyllama-1.1b and qwen2-moe-a2.7b (dropless),
+   3 AdamW steps with clipping and a warmup-cosine schedule: losses within
+   1e-5 relative, m and v within 2e-4.  17c, the 12-robot fleet at
+   ``small_model(256)`` and ``small_model(100)`` on the kernel route, 3
+   rounds each held against ``sgd_impl="einsum"`` with the round's local
+   SGD in float64 as the arbiter of kinked rows; 4 timed rounds at 512
+   clients with ``small_model(256)``.
+
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
 longest client's steps on its cluster's SMs at their share of the fp32
 peak).  It holds ``local_sgd_ragged`` on phase 7's tile buffer against its
 plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
-(N, n_max) rectangle; and ``flash_attention`` and ``ssm_scan`` against
+(N, n_max) rectangle; both local-SGD kernels at H = 256 (a non-portable
+cluster of 16) and H = 100 (padded to 7 x 16 columns), dense at 512
+clients with both activations and a partial last batch and ragged on
+phase 7's tiles; and ``flash_attention`` and ``ssm_scan`` against
 their plain versions at phases 9's and 12's shapes, in bf16 and fp32 (the
 1 x 8,192 prompt in bf16; gemma3-1b's head_dim 256 with and without its
 512 window, a ragged S; yi-9b's 32 heads over 4; phase 15's qwen2-moe-a2.7b
@@ -271,6 +291,13 @@ DEV = "cuda"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+
+
+def progress(t_start: float, done: str) -> None:
+    """A line on standard error after each phase, with the seconds since
+    the start: a run stopped at its time limit shows how far it got."""
+    print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s: {done}", file=sys.stderr,
+          flush=True)
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -721,6 +748,81 @@ def ragged_bound(packed, tile_mask, rows, D, H, C, E):
     nbytes = 4 * (tiles.numel() * B * (I + 2) + D * (1 + R) + 3 * R)
     # one (1, B) row per tile: sgd_flops counts the tiles with a real sample
     return bound_ms(nbytes, sgd_flops(tile_mask[tiles.to(DEV)], B, I, H, C, E))
+
+
+def wide_sgd_phase(ref, local_sgd, local_sgd_ragged, packed) -> dict:
+    """Phase 2, kernels 1 and 4 at hidden widths past the unpadded plan's: H = 256
+    (16 slices of 16 columns, a non-portable cluster) and H = 100 (padded
+    to 7 x 16).  Dense on phase 4's fleet (R = 512, n = 200, E = 5),
+    clients alternating ReLU and softmax, the last batch partial (13 of 20
+    samples live); ragged on phase 7's tile buffer.  Each against its plain
+    version by phase 4's per-row rule, with ms, bound, chain floor and the
+    plan's resources.  Returns {H: {"dense": ..., "ragged": ...}} for the
+    JSON line.
+
+    Phase 4's rule holds for the fleet's digit images.  On uniform-random
+    pixels (all 784 live) more ReLU pre-activations end within rounding of
+    0, and a row of the fp32 plain version can kink past the rule's 2e-3
+    where the kernel's row stays within ~1e-7 of the plain version run in
+    float64 (``scripts/local_sgd_widths.py --f64``), so the check runs on
+    the fleet."""
+    from repro_torch.data.federated import scaled_fleet
+    from repro_torch.kernels.local_sgd import kernel_attrs, live_batches
+
+    I, C, B, E, lr = 784, 10, 20, 5, 0.1
+    gen = torch.Generator().manual_seed(28)
+    fleet = scaled_fleet(512, samples_per_client=200)
+    x = torch.as_tensor(fleet["x"], device=DEV)
+    y = torch.as_tensor(fleet["y"], device=DEV)
+    R, n = y.shape
+    act = (torch.arange(R) % 2).to(torch.int32).to(DEV)
+    mask = torch.ones(R, n, dtype=torch.bool, device=DEV)
+    mask[:, n - 7:] = False
+    rag = (packed.tiles["x"], packed.tiles["y"], packed.tile_mask, packed.act, packed.nb,
+           packed.off)
+    rag_steps = E * int(packed.nb.max())
+    out = {}
+    for H in (256, 100):
+        D = H + C + I * H + H * C
+        g = (torch.randn(D, generator=gen) * 0.05).to(DEV)
+        a = kernel_attrs(I, H, C, B)
+        K = a["cluster"]
+        print(f"local_sgd / local_sgd_ragged at H = {H}: H padded to {K} x {a['slice']} "
+              f"columns, {a['dynamic_smem']} dynamic shared bytes a CTA, {a['registers']} "
+              f"registers and {a['local_bytes']} spilled bytes a thread, "
+              f"{a['max_clusters']} clusters of {K} on the card at once")
+        kw = dict(hidden=H, classes=C, lr=lr, epochs=E)
+        got = local_sgd(g, x, y, act, mask, batch_size=B, **kw)
+        want = ref.local_sgd_ref(g, x, y, act, mask, batch_size=B, **kw)
+        torch.cuda.synchronize()
+        err = compare_rows(f"dense, R={R}, n={n}, mixed activations, partial last batch",
+                           got, want, atol=1e-4, rtol=1e-4, kink_atol=2e-3)
+        k_ms = time_ms(lambda: local_sgd(g, x, y, act, mask, batch_size=B, **kw), reps=3)
+        p_ms = time_ms(lambda: ref.local_sgd_ref(g, x, y, act, mask, batch_size=B, **kw),
+                       reps=2)
+        b_ms, b_by = bound_ms(4 * (x.numel() + y.numel() + mask.numel() + D + R * D + R),
+                              sgd_flops(mask, B, I, H, C, E))
+        steps = E * int(live_batches(mask, B).max())
+        floor = chain_floor_ms(steps, B, I, H, C, K)
+        print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3g} ms ({b_by}); "
+              f"chain floor {floor:.3g} ms ({steps} steps on {K} SMs)")
+        dense = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                     chain_floor_ms=floor, **a)
+        got = local_sgd_ragged(g, *rag, **kw)
+        want = ref.local_sgd_ragged_ref(g, *rag, **kw)
+        torch.cuda.synchronize()
+        err = compare_rows(f"ragged, phase 7's {packed.act.shape[0]} clients", got, want,
+                           atol=1e-4, rtol=1e-4, kink_atol=2e-3)
+        k_ms = time_ms(lambda: local_sgd_ragged(g, *rag, **kw), reps=3)
+        p_ms = time_ms(lambda: ref.local_sgd_ragged_ref(g, *rag, **kw), reps=1)
+        b_ms, b_by = ragged_bound(packed, packed.tile_mask, None, D, H, C, E)
+        floor = chain_floor_ms(rag_steps, B, I, H, C, K)
+        print(f"    kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3g} ms ({b_by}); "
+              f"chain floor {floor:.3g} ms ({rag_steps} steps on {K} SMs)")
+        out[H] = dict(dense=dense, ragged=dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                               bound_ms=b_ms, bound_by=b_by,
+                                               chain_floor_ms=floor))
+    return out
 
 
 def compare_exact(name, got, want):
@@ -1251,7 +1353,7 @@ LM_KERNEL_SYMBOLS = {
 }
 
 
-def profile_device(run, names, path, label, units=1, unit="request", cpu=True):
+def profile_device(run, names, path, label, units=1, unit="request", cpu=None):
     """``run()`` (``units`` requests or decode steps, ending in a sync)
     under ``torch.profiler``: each kernel's device ms and launches per
     unit, and the device busy and idle share of the wall time.  A profiler
@@ -1260,8 +1362,12 @@ def profile_device(run, names, path, label, units=1, unit="request", cpu=True):
     guess from library kernel names, so the rows it does not take are
     printed.  ``cpu=False`` records the device's activity alone: the
     kernels and idle share are the same, the trace's processing takes a
-    fraction of the time, and the written table has no host ops.  Returns
+    fraction of the time (the host's ops cost ~0.5 ms of it a device
+    launch), and the written table has no host ops.  By default the host's
+    ops are recorded only when a table is written (``path``).  Returns
     (wall ms, device busy ms, device launches) per unit."""
+    if cpu is None:
+        cpu = path is not None
     activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -2109,7 +2215,7 @@ def moe_mla_phase(lm_kernels, every, entries, profile_dir) -> None:
     4 x 2,048 requests (kernel 8 once a layer), the one-hot dispatch's
     einsums timed alone (15a), one request on the scatter dispatch (15a),
     decode at B = 4 (a 64-token prompt and 64 greedy tokens through 128
-    slots, cut from phase 9b's 512 + 128 to keep the phase short), the
+    slots, cut from 512 + 128 to keep the phase short), the
     fp32 route check on one 1 x 1,024 request (qwen2 at 4 layers: 2.28 GB
     of fp32 a layer; minicpm3 at full depth, 17 GB) and the fp32
     decode-vs-prefill check at 4 layers (cut from the route check's depth:
@@ -2262,7 +2368,7 @@ def xlstm_frontends_phase(lm_kernels, every, entries, profile_dir) -> None:
     check over 2 x 256 positions at 2 pairs.  Cut: the requests are 4 x
     1,024, not 4 x 2,048 (the sLSTM steps one position at a time: ~474,000
     eager launches and ~8.8 s a 4 x 2,048 request), the warm-up 4 x 128,
-    and decode 64 + 64 (phase 9b's 512 + 128 would be ~15 s more).
+    and decode 64 + 64 (512 + 128 would be ~15 s more).
 
     16b, internvl2-1b (arXiv:2404.16821; 24 GQA layers, 14 heads over 2 of
     64, 256 stub patches of width 1,024 through ``vision_proj``): 4
@@ -3232,6 +3338,283 @@ def mesh_phase(req, eval_set, kernels, every) -> None:
     print(f"[phase 14] {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 17
+def instrumented_steps(train, record, profile_dir):
+    """``train.build_train_step`` wrapped so that each step the driver takes
+    ends in a sync and leaves its host seconds and losses in ``record``;
+    the fourth step runs under ``profile_device`` (device-only trace)."""
+    build = train.build_train_step
+
+    def wrapped(model, tc):
+        step = build(model, tc)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(record) == 3:
+                box = []
+
+                def one():
+                    box.append(step(state, batch))
+                    torch.cuda.synchronize()
+
+                prof = profile_device(one, (), profile_dir, "train_step", unit="step",
+                                      cpu=False)
+                new, mets = box[0]
+            else:
+                new, mets = step(state, batch)
+                prof = None
+            torch.cuda.synchronize()
+            record.append(dict(seconds=time.perf_counter() - t0, profile=prof,
+                               **{k: float(v) for k, v in mets.items()}))
+            return new, mets
+
+        return run
+
+    return wrapped
+
+
+def trainer_full_width(every, smi: str, profile_dir) -> None:
+    """17a: ``repro_torch.launch.train.main`` on tinyllama-1.1b at full width
+    (bf16 params, fp32 AdamW state), 4 steps of 8 x 128 tokens, with a
+    checkpoint: every loss finite, every param leaf moved, the optimizer
+    state fp32 in the params' shapes, the checkpoint restored bit-equal,
+    no kernel of the port launched (the loss takes the plain routes)."""
+    import repro_torch.launch.train as train
+    from repro_torch.checkpoint.ckpt import restore
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ordered_leaves
+    from repro_torch.models.model import Model
+
+    batch, seq, steps = 8, 128, 4
+    record = []
+    for k in every:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build, train.build_train_step = (train.build_train_step,
+                                     instrumented_steps(train, record, profile_dir))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "tinyllama.pt")
+        try:
+            state = train.main(["--arch", "tinyllama-1.1b", "--full", "--optimizer", "adamw",
+                                "--steps", str(steps), "--batch", str(batch), "--seq",
+                                str(seq), "--ckpt", ckpt])
+        finally:
+            train.build_train_step = build
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k.__name__: k.launches for k in every if k.launches}
+        t1 = time.perf_counter()
+        back, step = restore(ckpt, state.params)
+        same = step == steps and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for (_, a), (_, b) in zip(ordered_leaves(back), ordered_leaves(state.params)))
+        size = Path(ckpt).stat().st_size
+        restore_s = time.perf_counter() - t1
+    del back
+    losses = [r["loss"] for r in record]
+    print(f"  losses {[round(v, 4) for v in losses]}; step seconds "
+          f"{[round(r['seconds'], 4) for r in record]}")
+    if len(record) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"trainer losses {losses}")
+    if launched:
+        raise AssertionError(f"the trainer launched kernels of the port: {launched}")
+    init = Model(get_config("tinyllama-1.1b")).init_params(
+        torch.Generator(device=DEV).manual_seed(0))
+    still = [p for (p, a), (_, b) in zip(ordered_leaves(state.params), ordered_leaves(init))
+             if torch.equal(a, b)]
+    del init
+    if still:
+        raise AssertionError(f"param leaves that did not move: {still[:5]}")
+    for key in ("m", "v"):
+        for (path, m), (_, q) in zip(ordered_leaves(state.opt_state[key]),
+                                     ordered_leaves(state.params)):
+            if m.dtype != torch.float32 or m.shape != q.shape:
+                raise AssertionError(f"AdamW {key} at {path}: {m.dtype} {tuple(m.shape)}")
+    dtypes = sorted({str(t.dtype) for _, t in ordered_leaves(state.params)})
+    if not same:
+        raise AssertionError("the checkpoint did not restore bit-equal")
+    timed = [r["seconds"] for r in record[1:3]]
+    s_step = sum(timed) / len(timed)
+    wall_ms, busy_ms, launches = record[3]["profile"]
+    print(f"  every loss finite, every param leaf moved, params {dtypes}, AdamW m and v "
+          f"fp32 in the params' shapes, checkpoint {size / 1e9:.3f} GB restored bit-equal "
+          f"in {restore_s:.2f} s ok; no kernel of the port launched ok")
+    print(f"  {s_step:.4f} s a step (steps 2-3, host clock ending in a sync), "
+          f"{batch * seq / s_step:.1f} training tokens/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; the profiled step: {launches:.0f} device launches, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}; {wall:.1f} s in main; {smi}")
+
+
+def trainer_card_vs_cpu(arch: str, over: dict) -> None:
+    """17b: the trainer's step on the card against the CPU, fp32 reduced
+    config, params drawn on a seeded CPU generator and copied to the card;
+    3 AdamW steps with a global-norm clip of 1.0 and a warmup-cosine
+    schedule: the losses within 1e-5 relative, m and v within atol = rtol
+    = 2e-4."""
+    from repro_torch.common.config import TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import flatten, ordered_leaves, with_leaves
+    from repro_torch.data.pipeline import lm_batches
+    from repro_torch.launch.train import TrainState, build_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_config(arch).reduced(**over)
+    tc = TrainConfig(optimizer="adamw", lr=3e-3, grad_clip=1.0, schedule="cosine",
+                     warmup_steps=1, total_steps=3)
+    cpu, card = Model(cfg, device="cpu"), Model(cfg)
+    p_cpu = cpu.init_params(torch.Generator().manual_seed(17))
+    p_card = with_leaves(p_cpu, [t.to(DEV) for _, t in ordered_leaves(p_cpu)])
+    runs = [(build_train_step(m, tc), TrainState(p, make_optimizer(tc).init(p), 0))
+            for m, p in ((cpu, p_cpu), (card, p_card))]
+    losses = [[], []]
+    t0 = time.perf_counter()
+    for batch in lm_batches(cfg, batch=2, seq=32, steps=3, seed=3):
+        for i, (dev, (step, state)) in enumerate(zip(("cpu", DEV), runs)):
+            state, mets = step(state, {k: torch.as_tensor(v, device=dev)
+                                       for k, v in batch.items()})
+            runs[i] = (step, state)
+            losses[i].append(float(mets["loss"]))
+    cpu_state, card_state = runs[0][1], runs[1][1]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0]))
+    ok = rel <= 1e-5
+    print(f"  {arch} reduced ({cfg.num_layers} layers, d_model {cfg.d_model}, fp32"
+          f"{', dropless' if over else ''}): losses card {[round(v, 6) for v in losses[1]]}, "
+          f"CPU {[round(v, 6) for v in losses[0]]}, largest relative difference {rel:.3e} "
+          f"(tolerance 1e-5) {'ok' if ok else 'FAIL'}; the first step's gradient norm "
+          f"{_first_grad_norm(cpu, p_cpu, cfg):.3f} against the clip's 1.0; "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not ok:
+        raise AssertionError(f"{arch}: trainer losses card vs CPU differ by {rel:.3e}")
+    for key in ("m", "v"):
+        compare(f"AdamW {key} after 3 steps, card vs CPU",
+                flatten(card_state.opt_state[key]).cpu(),
+                flatten(cpu_state.opt_state[key]), atol=2e-4, rtol=2e-4)
+
+
+def _first_grad_norm(model, params, cfg) -> float:
+    """The fp32 global gradient norm of the first batch of 17b (printed, so
+    the line shows whether the clip bites)."""
+    from repro_torch.core.engine import ordered_leaves, with_leaves
+    from repro_torch.data.pipeline import lm_batches
+
+    batch = next(lm_batches(cfg, batch=2, seq=32, steps=1, seed=3))
+    leaves = [t.detach().requires_grad_(True) for _, t in ordered_leaves(params)]
+    with torch.enable_grad():
+        loss, _ = model.loss(with_leaves(params, leaves),
+                             {k: torch.as_tensor(v) for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(torch.linalg.vector_norm(torch.cat([g.reshape(-1) for g in grads
+                                                     if g is not None])))
+
+
+def check_wide_round(r, server, plain_engine, data, start, end, H) -> None:
+    """Round ``r`` of 17c: the kernel route (``start`` -> ``end``) against one
+    ``sgd_impl="einsum"`` round from the same state, with the clients' local
+    SGD of the round run in float64 (``ref.local_sgd_ref``) as the arbiter.
+    The kernel's rows must lie within atol = rtol = 1e-4 of the float64
+    rows; trust and masks must be identical and params within 2e-4; a
+    defense-history row may leave the 2e-4 band (up to the 2e-2 kink bound
+    of ``check_round``) only for a client whose fp32 plain rows left the
+    float64 ones: a ReLU pre-activation within rounding of 0 that took the
+    other branch there (at 12 clients phase 4's 1% of kinked rows is none).
+    """
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.local_sgd import local_sgd
+
+    got, out = plain_engine.step(start, data)
+    for key, want in (("selected", out.selected), ("on_time", out.on_time)):
+        if not np.array_equal(server.history[key][r], want.cpu().numpy()):
+            raise AssertionError(f"round {r}: {key} differs from the einsum route")
+    if not torch.equal(end.trust.score, got.trust.score):
+        raise AssertionError(f"round {r}: trust differs from the einsum route")
+    compare(f"round {r} params vs einsum route", end.params, got.params, atol=2e-4,
+            rtol=2e-4)
+    fed = server.engine.fed
+    x, y, act = data["x"], data["y"], data["activations"]
+    m = data.get("mask")
+    m = torch.ones(y.shape, dtype=torch.bool, device=DEV) if m is None else m
+    kw = dict(hidden=H, classes=10, lr=server.engine.lr, batch_size=fed.local_batch_size,
+              epochs=fed.local_epochs)
+    f64 = ref.local_sgd_ref(start.params.double(), x.double(), y, act, m,
+                            dtype=torch.float64, **kw)
+    limit = 1e-4 + 1e-4 * f64.abs().max().item()
+    k_err = (local_sgd(start.params, x, y, act, m, **kw).double() - f64).abs().amax(1)
+    p_err = (ref.local_sgd_ref(start.params, x, y, act, m, **kw).double()
+             - f64).abs().amax(1)
+    kinked = set(torch.nonzero(p_err > limit).flatten().tolist())
+    h_err = (end.fg_history - got.fg_history).abs().amax(1)
+    h_limit = 2e-4 + 2e-4 * got.fg_history.abs().max().item()
+    over = set(torch.nonzero(h_err > h_limit).flatten().tolist())
+    ok = (k_err.max().item() <= limit and over <= kinked
+          and h_err.max().item() <= 2e-2)
+    print(f"  round {r}: kernel rows vs float64 max {k_err.max().item():.3e} (tolerance "
+          f"{limit:.3e}); fp32 plain rows off float64 past it at clients {sorted(kinked)} "
+          f"(max {p_err.max().item():.3e}); fg_history vs einsum route max "
+          f"{h_err.max().item():.3e}, rows over {h_limit:.3e}: {sorted(over)} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"round {r}: the kernel route at H = {H} disagrees")
+
+
+def fedar_wide(req, eval_set, sketched, every, entries) -> None:
+    """17c: the 12-robot Table II fleet at ``small_model(256)`` and
+    ``small_model(100)`` on the kernel route, 3 rounds of fedar +
+    foolsgold_sketch, each round held against ``sgd_impl="einsum"`` from
+    the same state with float64 as the arbiter (``check_wide_round``);
+    then 4 timed rounds at N = 512 with ``small_model(256)``."""
+    from repro_torch.configs.fedar_mnist import fleet_fed, small_model
+    from repro_torch.core.fedar import FedARServer
+    from repro_torch.data.federated import scaled_fleet, table2_fleet
+
+    fleet = table2_fleet()
+    for H in (256, 100):
+        fed = fleet_fed(12, defense="foolsgold_sketch")
+        server = FedARServer(small_model(H), fed, req, device=DEV)
+        data = server.engine.device_data(fleet)
+        print(f"  12 robots, 784 -> {H} -> 10, fedar + foolsgold_sketch, 3 rounds")
+        _, launches, starts = timed_rounds(server, data, eval_set, 3, sketched, every)
+        plain = FedARServer(small_model(H), dataclasses.replace(fed, sgd_impl="einsum"), req,
+                            device=DEV)
+        for r, (start, end) in enumerate(zip(starts, starts[1:] + [server.state])):
+            check_wide_round(r, server, plain.engine, data, start, end, H)
+        print(f"  acc {[round(a, 4) for a in server.history['acc']]}")
+    big = scaled_fleet(512, samples_per_client=200)
+    server = FedARServer(small_model(256), fleet_fed(512, defense="foolsgold_sketch"), req,
+                         device=DEV)
+    data = server.engine.device_data(big)
+    print("  512 clients x 200 samples, 784 -> 256 -> 10, 4 rounds")
+    times, launches, _ = timed_rounds(server, data, eval_set, 4, sketched, every)
+    if not torch.isfinite(server.state.params).all():
+        raise AssertionError("512-client run at H = 256 produced non-finite params")
+    entries["local_sgd"]["phase17"] = dict(launches=launches["local_sgd"],
+                                           steady_rounds_per_s=3 / sum(times[1:]))
+
+
+def trainer_phase(req, eval_set, sketched, every, entries, smi: str, profile_dir) -> None:
+    """Phase 17: the trainer at full width (17a), held card vs CPU (17b),
+    and FedAR at the kernels' new widths (17c)."""
+    t_phase = time.perf_counter()
+    print("\n[17a trainer] repro_torch.launch.train.main --arch tinyllama-1.1b --full "
+          "--optimizer adamw --steps 4 --batch 8 --seq 128 --ckpt <tmp>")
+    trainer_full_width(every, smi, profile_dir)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print("\n[17b trainer, card vs CPU] 3 AdamW steps, clip 1.0, warmup-cosine schedule")
+    trainer_card_vs_cpu("tinyllama-1.1b", {})
+    trainer_card_vs_cpu("qwen2-moe-a2.7b", dict(moe_capacity_factor=16.0))
+    t1 = time.perf_counter()
+    print("\n[17c FedAR at the kernels' new widths]")
+    fedar_wide(req, eval_set, sketched, every, entries)
+    t2 = time.perf_counter()
+    print(f"[phase 17] {t2 - t_phase:.1f} s (17a {t0 - t_phase:.1f}, 17b {t1 - t0:.1f}, "
+          f"17c {t2 - t1:.1f})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -3243,6 +3626,7 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    sys.stdout.reconfigure(line_buffering=True)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
     from repro_torch.core.engine import PackedLayout, flatten, unflatten
@@ -3288,11 +3672,13 @@ def main() -> int:
     for line in lib.build_log.splitlines():
         if "registers" in line or "error" in line or "warning" in line:
             print(f"  {line.strip()}")
+    progress(t_start, "phase 1, the kernels' build")
 
     # --- phase 2: each kernel vs its plain version on the card
     fleet = table2_fleet()
     entries = kernel_phase(ref, kernels, fleet)
     entries.update(codec_phase(ref, codecs))
+    progress(t_start, "phase 2, the FedAR kernels and the codecs")
     # phase 7's fleet on both layouts, for the ragged kernel's check; moved
     # to the card again in phase 7, so that phases 3-6 measure their peak
     # memory without it
@@ -3321,6 +3707,12 @@ def main() -> int:
           f"the rectangle; built and moved in {time.perf_counter() - t0:.2f} s")
     entries["local_sgd_ragged"] = ragged_phase(ref, local_sgd_ragged, local_sgd,
                                                lay, skew_dense)
+    progress(t_start, "phase 2, the ragged kernel")
+    wide = wide_sgd_phase(ref, local_sgd, local_sgd_ragged, lay)
+    progress(t_start, "phase 2, the local-SGD kernels at H = 256 and 100")
+    for H, cases in wide.items():
+        entries["local_sgd"].setdefault("wide", {})[H] = cases["dense"]
+        entries["local_sgd_ragged"].setdefault("wide", {})[H] = cases["ragged"]
     del skew_packed, skew_dense, lay
     # phase 9's shapes: zamba2-7b's shared block (32 heads of 112, no kv
     # grouping) over 4 x 2,048 tokens and over one 8,192-token prompt (bf16
@@ -3355,6 +3747,7 @@ def main() -> int:
          ("zamba2-7b, one long prompt", 1, 8192, 112, 64, 64, both[:1])],
         zamba.ssm_chunk))
     torch.cuda.empty_cache()
+    progress(t_start, "phase 2, the LM kernels")
 
     # --- phase 3: the main path, 12 robots at full width
     fed = fleet_fed(12, defense="foolsgold_sketch")
@@ -3385,6 +3778,7 @@ def main() -> int:
     check_routes(server, plain, steps=rounds * 250)
     if args.profile:
         profile_round(server, data, eval_set, Path(args.profile), "n12")
+    progress(t_start, "phase 3")
 
     # --- phase 4: scale, 512 clients; round 1 is warm-up, 2-6 are timed
     t0 = time.perf_counter()
@@ -3443,6 +3837,7 @@ def main() -> int:
           f"{agg_ms:.4f}, sketch_similarity {sim_ms:.4f}")
     if args.profile:
         profile_round(server, big_dev, eval_set, Path(args.profile), "n512")
+    progress(t_start, "phase 4")
 
     # --- phase 5: buffered async + 4-bit QSGD, 512 clients at full width
     fed_async = fleet_fed(512, aggregation="async", compress="qsgd", compress_bits=4,
@@ -3483,6 +3878,7 @@ def main() -> int:
                       force=force)
     for name in ("pack_codes", "unpack_codes"):
         entries[name]["launches"] = launches5[name]
+    progress(t_start, "phase 5")
 
     # --- phase 6: top-k at full width, 12 robots, then 512 clients
     fed_topk = fleet_fed(12, compress="topk", defense="foolsgold_sketch")
@@ -3529,6 +3925,7 @@ def main() -> int:
     if args.profile:
         profile_round(server, big_dev, eval_set, Path(args.profile), "n512_topk",
                       topk=True)
+    progress(t_start, "phase 6")
 
     # --- phase 7: gated packed at full width, 512 quantity-skewed clients
     skew_packed, skew_dense = prepare_skew()
@@ -3592,6 +3989,7 @@ def main() -> int:
         profile_round(dense, skew_dense, eval_set, Path(args.profile),
                       "n512_skew_dense")
     del skew_dense, dense
+    progress(t_start, "phase 7")
 
     # --- phase 8: drift windows on the packed layout, 64 clients
     drift = make_federated("digits", 64, scenario="robot_drift",
@@ -3617,6 +4015,7 @@ def main() -> int:
          gated, starts, sgd_args, xb, yb, ab, mb, want, other, spread, deltas, w, tau,
          unit, st, g, sel, desc, sel_d, rows, call)
     torch.cuda.empty_cache()
+    progress(t_start, "phase 8")
 
     # --- phase 9: serving prefill, zamba2-7b at full width and depth
     print(f"\n[serve prefill] zamba2-7b, {zamba.num_layers} layers, d_model "
@@ -3627,14 +4026,14 @@ def main() -> int:
         zamba, lm_kernels, every, [(4, 2048)] * 4 + [(1, 8192)], 6_750_498_384, profile_dir)
     for name, count in launches9.items():
         entries[name]["launches"] = count
+    progress(t_start, "phase 9")
 
     # --- phase 9b: serving decode in bf16 at full width on phase 9's params
     # and on tinyllama-1.1b's; after phase 9's fp32 route check, decode
     # against prefill block by block on its fp32 model
     t9b = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(4)
-    serve_decode(model, params, (4,), every, gen, profile_dir)
-    serve_decode(model, params, (1,), every, gen, profile_dir, 64, 64)
+    serve_decode(model, params, (4, 1), every, gen, profile_dir, 64, 64)
     del model, params
     torch.cuda.empty_cache()
     model = Model(get_config("tinyllama-1.1b"))
@@ -3651,12 +4050,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     t9b += time.perf_counter() - t0
     print(f"[phase 9b] {t9b:.1f} s (decode runs and checks, set-up included)")
+    progress(t_start, "phase 9b")
 
     # --- phase 10: the host-store cohort engine, chaos faults, checkpoints
     cohort_phase(req, eval_set, sketched, codecs, every, ref, local_sgd, entries)
+    progress(t_start, "phase 10")
 
     # --- phase 11: federated LM training, tinyllama-1.1b at full width
     lm_train_phase(req, every, entries, smi, profile_dir)
+    progress(t_start, "phase 11")
 
     # --- phase 12: dense serving at full width, yi-9b then gemma3-1b
     t12 = time.perf_counter()
@@ -3665,20 +4067,30 @@ def main() -> int:
     dense_phase(get_config("gemma3-1b"), lm_kernels, every, entries, profile_dir,
                 decode=(512, 128), route_layers=None, decode_check=True)
     print(f"[phase 12] {time.perf_counter() - t12:.1f} s")
+    progress(t_start, "phase 12")
 
     # --- phase 13: the IDX data layer and the two FedAR examples
     data_phase(req, every, packed_kernels, sketched, entries)
+    progress(t_start, "phase 13")
 
     # --- phase 14: the client mesh, one NCCL rank (and k ranks on k cards)
     mesh_phase(req, make_digits(500, seed=99), sketched, every)
+    progress(t_start, "phase 14")
 
     # --- phase 15: MoE and MLA serving, qwen2-moe-a2.7b and minicpm3-4b at
     # full width, arctic-480b at reduced()
     moe_mla_phase(lm_kernels, every, entries, profile_dir)
+    progress(t_start, "phase 15")
 
     # --- phase 16: the xLSTM kind and the two stub frontends at full width,
     # xlstm-350m, internvl2-1b and musicgen-medium
     xlstm_frontends_phase(lm_kernels, every, entries, profile_dir)
+    progress(t_start, "phase 16")
+
+    # --- phase 17: the trainer at full width and card vs CPU, and FedAR at
+    # the local-SGD kernels' new widths
+    trainer_phase(req, make_digits(500, seed=99), sketched, every, entries, smi, profile_dir)
+    progress(t_start, "phase 17")
     print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s, the kernels' build included")
 
     order = ("local_sgd", "fedavg_agg", "sketch_similarity", "local_sgd_ragged",

@@ -13,7 +13,10 @@ kernels of the round (local SGD, aggregation, the defense similarity block,
 the count sketch, and the uplink codecs: 4-bit code packing, its inverse
 and the top-k decode) and of the LM's prefill (flash attention, the Mamba2
 SSD scan) are CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
-(``kernels/ops.py``).
+(``kernels/ops.py``).  ``python -m repro_torch.launch.train`` trains an LM
+config with the optimizers of ``optim/``; ``python -m
+repro_torch.launch.dryrun`` checks every config and input shape on the
+production meshes on PyTorch's ``meta`` device.
 """
 from repro_torch.common.config import FedConfig
 from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed, small_model

@@ -1,9 +1,11 @@
-"""Configuration dataclasses: the LM architecture (``ModelConfig``) and the
-FedAR hyper-parameters (``FedConfig``, Table I trust constants et al.).
+"""Configuration dataclasses: the LM architecture (``ModelConfig``), the
+workload shapes (``InputShape``, ``INPUT_SHAPES``), the FedAR
+hyper-parameters (``FedConfig``, Table I trust constants et al.), the
+trainer's (``TrainConfig``) and the production mesh (``MeshConfig``).
 
-The port's own copies of the reference's two dataclasses: the same field
-names and defaults, so a config written for one package reads the same in
-the other.
+The port's own copies of the reference's dataclasses: the same field names
+and defaults, so a config written for one package reads the same in the
+other.
 """
 from __future__ import annotations
 
@@ -138,6 +140,28 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class InputShape:
+    """One of the assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
 class FedConfig:
     """FedAR hyper-parameters.  Trust constants are Table I of the paper."""
 
@@ -227,3 +251,38 @@ class FedConfig:
         if self.quarantine_cap is not None:
             return self.quarantine_cap
         return 1e6 if self.faults != "none" else None
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The trainer's optimizer, schedule and step options
+    (``launch/train.py``, ``optim/``)."""
+
+    optimizer: str = "sgd"  # sgd | momentum | adamw
+    lr: float = 0.1
+    momentum: float = 0.9
+    weight_decay: float = 0.0
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 0.0
+    warmup_steps: int = 0
+    schedule: str = "const"  # const | cosine
+    total_steps: int = 1000
+    remat: bool = True
+    loss_chunk: int = 0  # 0 = unchunked; else vocab-loss computed seq-chunked
+    # Kept for parity with the reference, where it unrolls the layer scan
+    # (its roofline cost-analysis mode).  It changes nothing here: the
+    # port's layers are always a Python loop.
+    unroll: bool = False
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pods: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.pods

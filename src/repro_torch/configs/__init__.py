@@ -13,9 +13,10 @@ client model ``fedar-mnist``.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
-from repro_torch.common.config import ModelConfig
+from repro_torch.common.config import InputShape, ModelConfig
 
 ARCH_IDS = [
     "zamba2-7b",
@@ -40,3 +41,26 @@ def get_config(arch: str) -> ModelConfig:
     if arch not in _MOD:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS + ['fedar-mnist']}")
     return importlib.import_module(f"repro_torch.configs.{_MOD[arch]}").CONFIG
+
+
+LONG_WINDOW = 4096  # window cap applied to attention layers at 500k context
+
+
+def cfg_for_shape(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """Shape-conditioned config tweaks.
+
+    long_500k requires sub-quadratic attention: SSM archs run natively; every
+    attention layer gets a sliding window (ring-buffer KV cache) capped at
+    LONG_WINDOW.
+    """
+    if shape.name == "long_500k" and cfg.attention != "none":
+        over = {}
+        if cfg.sliding_window == 0 or cfg.sliding_window > LONG_WINDOW:
+            over["sliding_window"] = LONG_WINDOW
+        if cfg.global_every and (
+            cfg.local_window == 0 or cfg.local_window > LONG_WINDOW
+        ):
+            over["local_window"] = min(cfg.local_window or LONG_WINDOW, LONG_WINDOW)
+        if over:
+            cfg = dataclasses.replace(cfg, **over)
+    return cfg

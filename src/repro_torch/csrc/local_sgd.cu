@@ -23,10 +23,10 @@
 // owns the whole client streams w1 from L2 every step.
 //
 // What the design does about it:
-// - One client per cluster of K CTAs (K = 8 at H = 128; K depends on
-//   (I, H, C, B) only, never on R, so a client's sums run in the same order
-//   in both forms and at any fleet size).  CTA `rank` owns the H/K hidden
-//   columns [rank*H/K, (rank+1)*H/K): its slice of w1 (784 x 16 fp32 =
+// - One client per cluster of K CTAs (K = 8 at H = 128, 16 at H = 256; K
+//   depends on (I, H, C, B) only, never on R, so a client's sums run in the
+//   same order in both forms and at any fleet size).  CTA `rank` owns the HS
+//   hidden columns [rank*HS, (rank+1)*HS): its slice of w1 (784 x 16 fp32 =
 //   50 KB, stored transposed with an odd 16-byte row stride so that float4
 //   reads are free of bank conflicts), of b1 and its rows of w2 stay in
 //   shared memory for the whole chain and go to `out` once at the end.  The
@@ -75,9 +75,30 @@
 //   order  (R,)          int32, cluster c trains client order[c]
 //   out    (R, D)        post-SGD params, same flat order as g
 // I must be a multiple of 4 (16-byte rows for the bulk copy and float4
-// reads), H/K 8 or 16 columns with K <= 8 (so H is one of 8, 16, 24, 32,
-// 40, 48, 56, 64, 80, 96, 112, 128) and C at most 16; the wrapper checks
-// them.
+// reads), H at most 256 and C at most 16; the wrapper checks them.
+//
+// Hidden widths.  Where H splits into at most 8 slices of 8 or 16 columns
+// (H one of 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128) the plan is
+// that split, unpadded, on a portable cluster.  Any other H up to 256 is
+// padded up to Hp = K * HS columns, HS = 16 (8 for H < 8), K = ceil(H /
+// HS) <= 16: H = 100 takes 7 x 16, 200 takes 13 x 16, 256 takes 16 x 16
+// (209,152 shared bytes a CTA at I = 784, B = 20).  A cluster of more than
+// 8 CTAs is non-portable (cudaFuncAttributeNonPortableClusterSizeAllowed)
+// and must fit one GPC, so fewer clusters are resident at once.  Above 256
+// a slice would have to be wider than 16 columns: 24 fit a CTA's shared
+// memory only up to 12 CTAs (H = 288; the cluster's partial buffers grow
+// with K), 32 at no K (I = 784, B = 20).  Past that w1 would have to stream
+// from L2, another design.
+//
+// Pad columns (h >= H, only in the last CTA's slice) are not the model's:
+// their w1 columns, b1 entries and w2 rows start at zero in shared memory
+// and are never written to `out`; D and every offset into g and out use the
+// true H.  Under ReLU a pad column's pre-activation is exactly 0, so its h,
+// its dh and every update it feeds stay 0.  A softmax hidden layer maps 0
+// to 1/sum, not 0, so the slice's row max and exp-sum take only the real
+// columns and a pad column's h is set to 0; with h = 0 and its w2 row 0,
+// its dh, its share of the row dot sum(dh * h) and its w2 update are 0
+// too.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,7 +112,8 @@ constexpr int kThreads = 256;   // 8 warps: two on each SM sub-partition
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 5;        // batch rows of a warp's forward tile
 constexpr int kCols = 8;        // hidden columns of a forward / update tile
-constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kMaxPortable = 8;  // the portable cluster size
+constexpr int kMaxCluster = 16;  // the non-portable limit on Hopper
 static_assert(kRows * kCols == 40, "a forward tile: 32 outputs + 8 outputs");
 
 // Shared-memory plan of one CTA; computed on the host, passed by value.
@@ -104,17 +126,23 @@ struct Plan {
 
 __host__ __device__ inline int up4(int v) { return (v + 3) & ~3; }
 
-// K: the largest cluster (<= 8) whose slices are 8 or 16 columns wide; 0
-// when there is none.  A function of the shapes only.
+// K: the largest portable cluster whose slices are 8 or 16 columns wide;
+// else H padded to K slices of HS columns, K <= 16; 0 for H > 256.  A
+// function of the shapes only.
 Plan make_plan(int I, int H, int C, int B) {
   Plan p{};
-  for (int k = kMaxCluster; k >= 1; --k)
+  for (int k = kMaxPortable; k >= 1; --k)
     if (H % k == 0 && (H / k == 8 || H / k == 16)) {
       p.K = k;
+      p.HS = H / k;
       break;
     }
+  if (p.K == 0) {
+    p.HS = H < 8 ? 8 : 16;
+    p.K = (H + p.HS - 1) / p.HS;
+    if (p.K > kMaxCluster) p.K = 0;
+  }
   if (p.K == 0) return p;
-  p.HS = H / p.K;
   p.Bp = (B + kRows - 1) / kRows * kRows;
   p.W = 4 * ((up4(I) / 4) | 1);  // odd count of 16-byte units: conflict-free rows
   p.RB = up4(p.Bp * C > 2 * p.Bp ? p.Bp * C : 2 * p.Bp);
@@ -353,6 +381,7 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const int warp = tid >> 5;
   const int half = lane >> 4, l16 = lane & 15;
   const int h0 = rank * HS;
+  const int nreal = H - h0 < HS ? H - h0 : HS;  // the slice's model columns
   const int quads = I / 4;
   const int npairs = (quads + 1) / 2;
   const int ftiles = Bp / kRows * colg;  // forward warp tiles
@@ -382,10 +411,11 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const float* gw2 = gw1 + (long long)I * H;
   for (int k = tid; k < I * HS; k += nthr) {
     const int i = k / HS, hl = k % HS;
-    w1s[hl * W + i] = gw1[(long long)i * H + h0 + hl];
+    w1s[hl * W + i] = hl < nreal ? gw1[(long long)i * H + h0 + hl] : 0.f;
   }
-  for (int k = tid; k < HS * C; k += nthr) w2b[k] = gw2[(long long)h0 * C + k];
-  for (int k = tid; k < HS; k += nthr) b1s[k] = gb1[h0 + k];
+  for (int k = tid; k < HS * C; k += nthr)
+    w2b[k] = k < nreal * C ? gw2[(long long)h0 * C + k] : 0.f;
+  for (int k = tid; k < HS; k += nthr) b1s[k] = k < nreal ? gb1[h0 + k] : 0.f;
   for (int k = tid; k < C; k += nthr) b2s[k] = gb2[k];
   for (int k = B * I + tid; k < Bp * I; k += nthr) {
     xs[k] = 0.f;
@@ -496,18 +526,21 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
     const float* w2s = w2b + cur * HS * C;  // this step's w2 rows
     float* w2n = w2b + nxt * HS * C;        // the next step's
     // --- softmax hidden layer: each CTA's row max and exp-sum over its
-    // slice; one barrier; then a half warp per row takes the global max and
-    // sum over the K slices (rank order) and the row's h
+    // slice's model columns; one barrier; then a half warp per row takes the
+    // global max and sum over the K slices (rank order) and the row's h (0
+    // in a pad column)
     if (soft) {
       float* buf = red + (nred & 1) * K * RB;
       for (int b = tid; b < B; b += nthr) {
         const float* hp = hpre + b * HS;
         float m = -INFINITY;
 #pragma unroll
-        for (int hl = 0; hl < HS; ++hl) m = fmaxf(m, hp[hl]);
+        for (int hl = 0; hl < HS; ++hl)
+          if (hl < nreal) m = fmaxf(m, hp[hl]);
         float sum = 0.f;
 #pragma unroll
-        for (int hl = 0; hl < HS; ++hl) sum += expf(hp[hl] - m);
+        for (int hl = 0; hl < HS; ++hl)
+          if (hl < nreal) sum += expf(hp[hl] - m);
         push(cluster, buf, RB, rank, K, 2 * b, m);
         push(cluster, buf, RB, rank, K, 2 * b + 1, sum);
       }
@@ -520,7 +553,7 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
           sum += buf[rk * RB + 2 * b + 1] * expf(buf[rk * RB + 2 * b] - m);
         if (l16 < HS) {  // HS <= 16: a lane a column
           const int k = b * HS + l16;
-          hact[k] = expf(hpre[k] - m) / sum;
+          hact[k] = l16 < nreal ? expf(hpre[k] - m) / sum : 0.f;
         }
       }
       ++nred;
@@ -676,26 +709,36 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   }
   __syncthreads();
   float* orow = out + (long long)r * D;
-  for (int k = tid; k < HS; k += nthr) orow[h0 + k] = b1s[k];
+  for (int k = tid; k < nreal; k += nthr) orow[h0 + k] = b1s[k];
   if (rank == 0)
     for (int k = tid; k < C; k += nthr) orow[H + k] = b2s[k];
   float* ow1 = orow + H + C;
   for (int k = tid; k < I * HS; k += nthr) {
     const int i = k / HS, hl = k % HS;
-    ow1[(long long)i * H + h0 + hl] = w1s[hl * W + i];
+    if (hl < nreal) ow1[(long long)i * H + h0 + hl] = w1s[hl * W + i];
   }
   float* ow2 = ow1 + (long long)I * H;
   const float* w2s = w2b + (use & 1) * HS * C;
-  for (int k = tid; k < HS * C; k += nthr) ow2[(long long)h0 * C + k] = w2s[k];
+  for (int k = tid; k < nreal * C; k += nthr) ow2[(long long)h0 * C + k] = w2s[k];
   cluster.sync();  // no CTA leaves while a peer may still read its partials
+}
+
+// The plan's dynamic shared bytes and, for a cluster of more than 8 CTAs,
+// permission to launch a non-portable cluster size.
+template <typename Kernel>
+cudaError_t set_attributes(Kernel kernel, const Plan& p) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  if (err == cudaSuccess && p.K > kMaxPortable)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
 }
 
 template <bool kRagged, int kHS>
 int launch(const Plan& p, const float* g, const float* x, const int* y, const int* act,
            const float* mask, const int* nb, const int* off, const int* order, float* out,
            int R, int npad, int I, int H, int C, int B, int epochs, float lr, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      local_sgd_kernel<kRagged, kHS>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  cudaError_t err = set_attributes(local_sgd_kernel<kRagged, kHS>, p);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(R * p.K));
@@ -734,15 +777,16 @@ int dispatch(const float* g, const float* x, const int* y, const int* act, const
 
 }  // namespace
 
-// The cluster size K, one CTA's threads and its dynamic shared bytes for
-// (I, H, C, B); -1 for a shape the kernel cannot take (I not a multiple of
-// 4, H not 8 or 16 columns a CTA over at most 8 CTAs, C over 16).
-extern "C" int fedar_local_sgd_plan(int I, int H, int C, int B, int* K, int* threads,
-                                    int* smem_bytes) {
+// The cluster size K, the slice width HS, one CTA's threads and its
+// dynamic shared bytes for (I, H, C, B); -1 for a shape the kernel cannot
+// take (I not a multiple of 4, H over 256, C over 16).
+extern "C" int fedar_local_sgd_plan(int I, int H, int C, int B, int* K, int* HS,
+                                    int* threads, int* smem_bytes) {
   if (I < 4 || I % 4 != 0 || H < 1 || C < 1 || C > 16 || B < 1) return -1;
   const Plan p = make_plan(I, H, C, B);
   if (p.K == 0) return -1;
   *K = p.K;
+  *HS = p.HS;
   *threads = kThreads;
   *smem_bytes = p.bytes;
   return 0;
@@ -757,8 +801,7 @@ int attrs(const Plan& p, int* regs, int* local_bytes, int* max_clusters) {
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  err = cudaFuncSetAttribute(local_sgd_kernel<false, kHS>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  err = set_attributes(local_sgd_kernel<false, kHS>, p);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)p.K);

@@ -4,7 +4,9 @@ ClientUpdate (Algorithm 2 lines 16-21) is the round's FLOP-dominant op:
 every client runs E epochs of batch SGD on its local shard.  The CUDA
 kernel (``csrc/local_sgd.cu``) runs each client's whole epochs x batches
 chain in one launch on a thread-block cluster of K CTAs, each CTA holding
-an H/K-column slice of w1 in shared memory (K from ``plan``).  ``local_sgd``
+an HS-column slice of w1 in shared memory (K and HS from ``plan``; a
+width that no portable split of 8- or 16-column slices covers is padded
+up to K x 16 columns, K <= 16, so H runs up to ``MAX_HIDDEN``).  ``local_sgd``
 takes the dense (R, n) sample rectangle and replaces the Pallas TPU kernel
 ``repro/kernels/local_sgd.py::local_sgd_fused``; ``local_sgd_ragged`` takes
 the packed layout's batch-tile buffer, each client reading its own tiles,
@@ -99,38 +101,52 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
 
 local_sgd.launches = 0
 
+# The widest hidden layer the kernel takes: 16 CTAs (Hopper's non-portable
+# cluster limit) of 16 columns.  Wider slices outgrow a CTA's shared memory
+# (see csrc/local_sgd.cu), so wider H needs w1 streamed from L2: another
+# design.
+MAX_HIDDEN = 256
 
-def plan(I: int, H: int, C: int, B: int) -> tuple[int, int, int]:
-    """The kernel's cluster size K, threads a CTA and one CTA's dynamic
-    shared bytes for (I, H, C, B); raises for a shape that fits no K."""
-    K, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if ops.library().fedar_local_sgd_plan(I, H, C, B, ctypes.byref(K),
+
+def plan(I: int, H: int, C: int, B: int) -> tuple[int, int, int, int]:
+    """The kernel's cluster size K, slice width HS (H padded to K * HS
+    columns), threads a CTA and one CTA's dynamic shared bytes for (I, H,
+    C, B); raises for a shape that fits no plan."""
+    K, HS, threads, smem = (ctypes.c_int() for _ in range(4))
+    if ops.library().fedar_local_sgd_plan(I, H, C, B, ctypes.byref(K), ctypes.byref(HS),
                                           ctypes.byref(threads),
                                           ctypes.byref(smem)) != 0:
         raise ValueError(
             f"local_sgd kernel cannot take I={I}, H={H}, C={C}, B={B}: I must be "
-            "a multiple of 4 (16-byte rows for the bulk copy), H split into at "
-            "most 8 slices of 8 or 16 columns, C at most 16")
+            f"a multiple of 4 (16-byte rows for the bulk copy), H at most "
+            f"{MAX_HIDDEN} (16 slices of 16 columns; wider slices of w1 outgrow "
+            "a CTA's shared memory), C at most 16")
     if smem.value > ops.MAX_SMEM_BYTES:
         raise ValueError(
             f"local_sgd kernel needs {smem.value} bytes of shared memory a CTA "
             f"for I={I}, H={H}, C={C}, B={B} (cluster of {K.value}); a block may "
             f"use {ops.MAX_SMEM_BYTES}")
-    return K.value, threads.value, smem.value
+    return K.value, HS.value, threads.value, smem.value
 
 
 def kernel_attrs(I: int, H: int, C: int, B: int) -> dict:
-    """The dense instance's resources at (I, H, C, B): cluster size, threads
-    and dynamic shared bytes a CTA, registers and spilled (local) bytes a
-    thread as ``cudaFuncGetAttributes`` reports them, and the clusters that
-    fit on the card at once (``cudaOccupancyMaxActiveClusters``)."""
-    K, threads, smem = plan(I, H, C, B)
+    """The dense instance's resources at (I, H, C, B): cluster size, slice
+    width, threads and dynamic shared bytes a CTA, registers and spilled
+    (local) bytes a thread as ``cudaFuncGetAttributes`` reports them, and
+    the clusters that fit on the card at once
+    (``cudaOccupancyMaxActiveClusters``).  Raises if no cluster fits: the
+    kernel could not launch at this plan."""
+    K, HS, threads, smem = plan(I, H, C, B)
     vals = [ctypes.c_int() for _ in range(3)]
     ops.check_launch(ops.library().fedar_local_sgd_attrs(
         I, H, C, B, *(ctypes.byref(v) for v in vals)), "local_sgd_attrs")
-    return dict(cluster=K, threads=threads, dynamic_smem=smem,
-                **dict(zip(("registers", "local_bytes", "max_clusters"),
-                           (v.value for v in vals))))
+    attrs = dict(cluster=K, slice=HS, threads=threads, dynamic_smem=smem,
+                 **dict(zip(("registers", "local_bytes", "max_clusters"),
+                            (v.value for v in vals))))
+    if attrs["max_clusters"] < 1:
+        raise ValueError(f"local_sgd kernel: no cluster of {K} CTAs with {smem} shared "
+                         f"bytes each fits this card at H={H}")
+    return attrs
 
 
 def _require_aligned(t, name):

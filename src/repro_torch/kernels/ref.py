@@ -43,22 +43,24 @@ def split_flat(flat, input_dim: int, hidden: int, classes: int) -> dict:
 
 
 def local_sgd_ref(g_flat, x, y, act, mask, *, hidden: int, classes: int,
-                  lr: float, batch_size: int, epochs: int):
+                  lr: float, batch_size: int, epochs: int, dtype=torch.float32):
     """Every client's masked local SGD from the shared global row
     ``g_flat`` (D,): E epochs of batch SGD with the hand-written gradient of
     the masked softmax cross-entropy through the Table II hidden activation
     (the fused kernel's arithmetic).  x (R, n, I), y (R, n), act (R,) int
     (0=relu, 1=softmax), mask (R, n) bool/float validity.  The sample axis
     is zero-padded to whole batches (mask-False), and a batch whose mask
-    count is zero is skipped.  Returns the (R, D) post-SGD flat rows."""
+    count is zero is skipped.  Returns the (R, D) post-SGD flat rows in
+    ``dtype`` (float32, the kernel's type; float64 is the yardstick that the
+    float32 versions' rounding is measured by)."""
     R, n, I = x.shape
     B = batch_size
     nb = -(-n // B)
     pad = nb * B - n
-    x = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, pad))
+    x = torch.nn.functional.pad(x.to(dtype), (0, 0, 0, pad))
     y = torch.nn.functional.pad(y.to(torch.int64), (0, pad))
-    m = torch.nn.functional.pad(mask.to(torch.float32), (0, pad))
-    p = split_flat(g_flat.to(torch.float32), I, hidden, classes)
+    m = torch.nn.functional.pad(mask.to(dtype), (0, pad))
+    p = split_flat(g_flat.to(dtype), I, hidden, classes)
     w1 = p["w1"].expand(R, I, hidden).clone()
     b1 = p["b1"].expand(R, hidden).clone()
     w2 = p["w2"].expand(R, hidden, classes).clone()
@@ -71,7 +73,7 @@ def local_sgd_ref(g_flat, x, y, act, mask, *, hidden: int, classes: int,
             hpre = torch.bmm(xb, w1) + b1[:, None, :]
             h = torch.where(soft, torch.softmax(hpre, -1), torch.relu(hpre))
             logits = torch.bmm(h, w2) + b2[:, None, :]
-            onehot = torch.nn.functional.one_hot(yb, classes).to(torch.float32)
+            onehot = torch.nn.functional.one_hot(yb, classes).to(dtype)
             scale = (mb / torch.clamp(cnt, min=1.0)[:, None])[..., None]
             gl = (torch.softmax(logits, -1) - onehot) * scale
             dw2 = torch.bmm(h.transpose(1, 2), gl)
@@ -82,7 +84,7 @@ def local_sgd_ref(g_flat, x, y, act, mask, *, hidden: int, classes: int,
             dw1 = torch.bmm(xb.transpose(1, 2), dhp)
             db1 = dhp.sum(1)
             # an all-padding batch is skipped (exact no-op), as in the kernel
-            live = (cnt > 0.0).to(torch.float32)
+            live = (cnt > 0.0).to(dtype)
             w1 = w1 - (lr * live)[:, None, None] * dw1
             b1 = b1 - (lr * live)[:, None] * db1
             w2 = w2 - (lr * live)[:, None, None] * dw2

@@ -5,7 +5,8 @@ own device (on an H100 a CUDA generator fills zamba2-7b's 6.75 B params
 in under a second, ``chip_smoke.py`` phase 9) and place the result on
 ``device``.  The values differ from the
 reference's ``jax.random`` draws, so parity tests load the reference's
-params through ``convert.lm_params_from_jax``.
+params through ``convert.lm_params_from_jax``.  On the ``meta`` device
+they draw nothing and give the shapes alone (``launch/input_specs.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import torch.nn.functional as F
 
 
 def _normal(generator: torch.Generator, shape, std: float, dtype, device):
+    if torch.device(device).type == "meta":  # shapes only, nothing to draw
+        return torch.empty(shape, dtype=dtype, device=device)
     t = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
     return (t * std).to(device=device, dtype=dtype)

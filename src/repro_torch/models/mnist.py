@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.configs.fedar_mnist import MnistConfig
 from repro_torch.kernels.local_sgd import local_sgd as local_sgd_kernel
-from repro_torch.kernels.local_sgd import local_sgd_ragged, plan
+from repro_torch.kernels.local_sgd import kernel_attrs, local_sgd_ragged
 from repro_torch.models.client import ClientModel
 
 
@@ -144,7 +144,10 @@ class MnistClientModel(ClientModel):
         )
 
     def check_fused(self, batch_size: int) -> None:
-        plan(self.cfg.input_dim, self.cfg.hidden, self.cfg.num_classes, batch_size)
+        """Raises unless the fused kernel takes this shape and at least one
+        of its clusters fits the card."""
+        kernel_attrs(self.cfg.input_dim, self.cfg.hidden, self.cfg.num_classes,
+                     batch_size)
 
     def fused_block_update(self, global_flat, fields, sample_mask, *,
                            lr, batch_size, epochs):

@@ -129,7 +129,7 @@ def test_local_sgd_shape_that_fits_no_cluster_raises(cuda_device):
     size; I = 18 is no whole number of 16-byte rows."""
     from repro_torch.kernels.local_sgd import plan
 
-    assert plan(784, 128, 10, 20)[0] == 8
+    assert plan(784, 128, 10, 20)[:2] == (8, 16)
     g, x, y, act, mask = _sgd_inputs(cuda_device, I=784, H=128)
     with pytest.raises(ValueError, match="shared memory"):
         local_sgd(g, x, y, act, mask, hidden=128, classes=10, lr=0.1, batch_size=80,
@@ -140,14 +140,105 @@ def test_local_sgd_shape_that_fits_no_cluster_raises(cuda_device):
                   epochs=1)
 
 
-@pytest.mark.parametrize("hidden", [100, 256])
+@pytest.mark.parametrize("hidden", [257, 512])
 def test_engine_rejects_a_width_the_kernel_cannot_take(cuda_device, hidden):
-    """A hidden width with no cluster plan (100: not 8 or 16 columns a
-    CTA; 256: more than 8 CTAs) raises when the server is built on the
-    kernel route, before any round; the plain route takes it."""
-    with pytest.raises(ValueError, match="cannot take"):
+    """A hidden width past the kernel's ceiling (more than 16 slices of 16
+    columns) raises, naming the ceiling, when the server is built on the
+    kernel route, before any round; nothing falls back to the plain route,
+    which takes it only when asked for."""
+    with pytest.raises(ValueError, match="at most 256"):
         FedARServer(small_model(hidden), fleet_fed(12), TaskRequirement())
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=16, H=hidden)
+    n0 = local_sgd.launches
+    with pytest.raises(ValueError, match="at most 256"):
+        local_sgd(g, x, y, act, mask, hidden=hidden, classes=10, lr=0.1, batch_size=20,
+                  epochs=1)
+    assert local_sgd.launches == n0
     FedARServer(small_model(hidden), fleet_fed(12, sgd_impl="einsum"), TaskRequirement())
+
+
+# Digests of kernel 1's and 4's output bits (the first 16 hex digits of
+# SHA-256) at the widths the unpadded plan takes (at most 8 slices of 8 or
+# 16 columns), on scripts/local_sgd_widths.py's inputs (I = 784, R = 12,
+# n = 200, E = 5), as the kernel wrote them before H could be padded, on an
+# NVIDIA H100 80GB HBM3 (CUDA 12.8, torch 2.11): the padded plan leaves
+# those widths bit for bit as they were.
+UNPADDED_PLAN_DIGESTS = {8: "5d1e3ad28c80c62a", 16: "09c3518f4284ecf5", 32: "bf83501bb2441c89",
+                     64: "fb9b4cdb12359b0f", 128: "7172f3ee2a6f51d1"}
+
+
+def _widths_script():
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "scripts" / "local_sgd_widths.py"
+    spec = importlib.util.spec_from_file_location("local_sgd_widths", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("H", sorted(UNPADDED_PLAN_DIGESTS))
+def test_local_sgd_bit_equal_to_the_unpadded_plan(cuda_device, H):
+    from repro_torch.kernels.local_sgd import plan
+
+    w = _widths_script()
+    g, x, y, act, mask = (torch.as_tensor(a, device=cuda_device)
+                          for a in w.inputs(H, 12, 200))
+    kw = dict(hidden=H, classes=10, lr=0.1, epochs=5)
+    dense = local_sgd(g, x, y, act, mask, batch_size=20, **kw)
+    xt, yt, mt, nb, off = (torch.as_tensor(a, device=cuda_device) for a in
+                           w.ragged(x.cpu().numpy(), y.cpu().numpy(), mask.cpu().numpy(), 20))
+    rag = local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw)
+    assert w.digest(dense) == w.digest(rag) == UNPADDED_PLAN_DIGESTS[H]
+    K, HS = plan(784, H, 10, 20)[:2]
+    assert K * HS == H and K <= 8
+
+
+@pytest.mark.parametrize("H,K", [(100, 7), (200, 13), (256, 16)])
+def test_local_sgd_kernel_at_wide_hidden_matches_plain(cuda_device, H, K):
+    """H padded to K slices of 16 columns (K > 8: a non-portable cluster):
+    both activations, a ragged tail, an all-masked batch and an all-False
+    client against the plain version; the ragged form bit-equal to the
+    dense; at least one cluster resident."""
+    from repro_torch.kernels.local_sgd import kernel_attrs
+
+    a = kernel_attrs(784, H, 10, 20)
+    assert (a["cluster"], a["slice"]) == (K, 16) and a["max_clusters"] >= 1
+    assert a["dynamic_smem"] <= ops.MAX_SMEM_BYTES and a["local_bytes"] == 0
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=784, H=H, R=6, n=57)
+    g = g / 6
+    kw = dict(hidden=H, classes=10, lr=0.1, epochs=3)
+    got = local_sgd(g, x, y, act, mask, batch_size=20, **kw)
+    torch.testing.assert_close(got, ref.local_sgd_ref(g, x, y, act, mask, batch_size=20,
+                                                      **kw), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[2], g)
+    xt, yt, mt, nb, off = _ragged_from_dense(x, y, mask, 20)
+    assert torch.equal(local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw), got)
+
+
+@pytest.mark.parametrize("layout", ["dense", "packed"])
+@pytest.mark.parametrize("hidden", [100, 256])
+def test_wide_hidden_rounds_on_the_kernel_route_match_einsum(cuda_device, hidden, layout):
+    """``small_model(100)`` and ``small_model(256)`` through the engine on
+    the kernel route (``sgd_impl="auto"``), dense and packed, against
+    ``sgd_impl="einsum"``: trust and masks identical, params within 2e-4."""
+    ds = make_federated("digits", 16, scenario="quantity_skew", samples_per_client=60,
+                        seed=7)
+    fed = fleet_fed(16, defense="foolsgold_sketch")
+    kern = local_sgd if layout == "dense" else local_sgd_ragged
+    n0 = kern.launches
+    server = FedARServer(small_model(hidden), fed, TaskRequirement())
+    data = server.engine.prepare_data(ds, layout=layout)
+    server.run(data, rounds=3)
+    assert kern.launches == n0 + 3
+    plain = FedARServer(small_model(hidden), dataclasses.replace(fed, sgd_impl="einsum"),
+                        TaskRequirement())
+    plain.run(data, rounds=3)
+    for key in ("trust", "selected", "on_time"):
+        np.testing.assert_array_equal(np.stack(server.history[key]),
+                                      np.stack(plain.history[key]))
+    torch.testing.assert_close(server.state.params, plain.state.params,
+                               rtol=2e-4, atol=2e-4)
 
 
 def test_fedavg_agg_kernel_matches_plain(cuda_device):

@@ -110,9 +110,9 @@ def test_dense_foolsgold_trajectory_matches_live_reference(aggregation):
 
 def test_imports_leave_out_jax_and_reference():
     """Importing every module of the port, the LM trunk's and its two
-    kernels', the fault schedule's, the cohort engine's and the checkpoints'
-    included, pulls in neither JAX nor the reference package (nor
-    ``msgpack``)."""
+    kernels', the fault schedule's, the cohort engine's, the checkpoints',
+    the optimizers' and the launchers' included, pulls in neither JAX nor
+    the reference package (nor ``msgpack``)."""
     code = (
         "import pkgutil, sys, importlib, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
@@ -126,6 +126,9 @@ def test_imports_leave_out_jax_and_reference():
         "      'repro_torch.configs.tinyllama_1_1b'}\n"
         "lm |= {'repro_torch.core.faults', 'repro_torch.core.client_store',\n"
         "       'repro_torch.checkpoint.ckpt'}\n"
+        "lm |= {'repro_torch.optim.' + m for m in ('optimizers', 'schedule')}\n"
+        "lm |= {'repro_torch.launch.' + m for m in ('train', 'mesh', 'sharding',\n"
+        "       'input_specs', 'dryrun')}\n"
         "assert lm <= set(sys.modules), lm - set(sys.modules)\n"
         "print('ok')\n"
     )

@@ -151,6 +151,75 @@ def test_model_local_sgd_matches_reference(masked):
                                        rtol=1e-5, atol=1e-5)
 
 
+# Kernels 1 and 4 take any hidden width up to 256 on the card, padding H
+# to K slices of 16 columns where no portable split fits (H = 100, 200);
+# their plain versions are the CPU route and the card's yardstick.
+WIDE = (100, 200, 256)
+
+
+def _wide_inputs(Hw, R=4, n=30, seed=5):
+    """Both activations (clients alternate), a ragged tail, an all-masked
+    batch and an all-False client at hidden width ``Hw``."""
+    rng = np.random.default_rng(seed)
+    D = Hw + C + I * Hw + Hw * C
+    g = (rng.standard_normal(D) * 0.3).astype(np.float32)
+    x = rng.random((R, n, I), dtype=np.float32)
+    y = rng.integers(0, C, (R, n)).astype(np.int32)
+    act = (np.arange(R) % 2).astype(np.int32)
+    mask = np.ones((R, n), bool)
+    mask[1, n - 7:] = False
+    mask[2, :] = False
+    mask[3, :10] = False
+    return g, x, y, act, mask
+
+
+def _split(g, Hw):
+    p = ref.split_flat(torch.as_tensor(g), I, Hw, C)
+    return {k: jnp.asarray(v.numpy()) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("Hw", WIDE)
+def test_local_sgd_plain_matches_pallas_interpret_at_wide_hidden(Hw):
+    """``local_sgd`` (on CPU tensors, its plain version) against the Pallas
+    ``local_sgd_fused`` in interpret mode at H = 100, 200, 256, B = 10,
+    2 epochs: atol = rtol = 1e-5 (fp32 reassociation)."""
+    g, x, y, act, mask = _wide_inputs(Hw)
+    p = _split(g, Hw)
+    new = jax_sgd_kernel(p["w1"], p["b1"], p["w2"], p["b2"], jnp.asarray(x),
+                         jnp.asarray(y), jnp.asarray(act), jnp.asarray(mask),
+                         lr=0.1, batch_size=10, epochs=2, interpret=True)
+    got = local_sgd(torch.as_tensor(g), torch.as_tensor(x), torch.as_tensor(y),
+                    torch.as_tensor(act), torch.as_tensor(mask), hidden=Hw,
+                    classes=C, lr=0.1, batch_size=10, epochs=2)
+    np.testing.assert_allclose(got.numpy(), _jax_flat(new), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), g)
+
+
+@pytest.mark.parametrize("Hw", WIDE)
+def test_local_sgd_ragged_plain_matches_pallas_interpret_at_wide_hidden(Hw):
+    """``local_sgd_ragged`` (plain on the CPU) against the Pallas
+    ``local_sgd_fused_ragged`` in interpret mode at H = 100, 200, 256: the
+    dense inputs cut into tiles of 10, client 1 with one tile fewer."""
+    from repro.kernels.local_sgd import local_sgd_fused_ragged
+    from repro_torch.kernels.local_sgd import local_sgd_ragged
+
+    g, x, y, act, mask = _wide_inputs(Hw)
+    R, n, _ = x.shape
+    Bt = 10
+    xt, yt, mt = x.reshape(-1, Bt, I), y.reshape(-1, Bt), mask.reshape(-1, Bt)
+    nb = np.full(R, n // Bt, np.int32)
+    nb[1] -= 1
+    off = (np.arange(R) * (n // Bt)).astype(np.int32)
+    arrays = (xt, yt, mt, act, nb, off)
+    got = local_sgd_ragged(torch.as_tensor(g), *(torch.as_tensor(a) for a in arrays),
+                           hidden=Hw, classes=C, lr=0.1, epochs=2)
+    p = _split(g, Hw)
+    pallas = local_sgd_fused_ragged(
+        p["w1"], p["b1"], p["w2"], p["b2"], *(jnp.asarray(a) for a in arrays),
+        lr=0.1, epochs=2, nb_max=int(nb.max()), interpret=True)
+    np.testing.assert_allclose(got.numpy(), _jax_flat(pallas), rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------------------- sketch_similarity
 def test_sketch_similarity_plain_matches_reference():
     """M != N and K = 300, not a multiple of 128: fp32 dot products,
