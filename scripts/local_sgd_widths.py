@@ -9,8 +9,10 @@ E = 5, mixed ReLU / softmax clients, a ragged tail, an all-masked batch and
 an all-False client) and prints one JSON line: the SHA-256 digest of each
 form's output bits, the largest error against the plain version
 (``kernels/ref.py``), the kernel's median device ms (CUDA events) and, where
-the copy has it, the plan's cluster size, slice width, resources and the
-clusters resident at once.  Two copies whose digests agree at a width run
+the copy has it, the plan's cluster size, slice width, resources, the
+clusters resident at once and whether w1 streams from L2 (``streamed``:
+the wide instance, H > 256).  A width the copy's kernel refuses prints
+``refused`` with its message.  Two copies whose digests agree at a width run
 that width bit for bit alike.  ``--f64`` also holds the kernel and the fp32
 plain version against the plain version in float64, row by row: where the
 two fp32 versions part, it shows which one left the float64 rows.
@@ -106,7 +108,11 @@ def main() -> int:
         g, x, y, act, mask = (torch.as_tensor(a, device=dev)
                               for a in inputs(H, args.clients, args.samples))
         kw = dict(hidden=H, classes=C, lr=lr, epochs=E)
-        dense = mod.local_sgd(g, x, y, act, mask, batch_size=B, **kw)
+        try:
+            dense = mod.local_sgd(g, x, y, act, mask, batch_size=B, **kw)
+        except ValueError as err:
+            print(json.dumps(dict(label=args.label, H=H, refused=str(err))))
+            continue
         rag_args = [torch.as_tensor(a, device=dev) for a in
                     ragged(x.cpu().numpy(), y.cpu().numpy(), mask.cpu().numpy(), B)]
         xt, yt, mt, nb, off = rag_args

@@ -1,0 +1,979 @@
+// Fused masked local SGD for the FedAR client MLP (784 -> H -> 10), one
+// thread-block cluster per client, in two forms built from one template.
+// This header holds the template; local_sgd.cu instantiates the narrow plan
+// (H <= 256) and the C interface, local_sgd_wide.cu the wide instance (two
+// translation units, so that nvcc builds them side by side):
+//
+//   local_sgd_kernel<false>  the dense (R, npad) sample rectangle
+//   local_sgd_kernel<true>   the ragged batch-tile buffer of the packed
+//                            layout: client r walks its own nb[r] tiles
+//                            from tile off[r]
+//
+// Replaces: src/repro/kernels/local_sgd.py:148 local_sgd_fused (Pallas TPU;
+// body _sgd_kernel and _batch_body) and :243 local_sgd_fused_ragged (body
+// _ragged_kernel).  Each client runs E epochs x its batches of forward,
+// hand-written backward and SGD update; the hidden activation is ReLU or
+// softmax per client (Table II); the loss gradient is
+// (softmax - onehot) * m / max(sum m, 1); a batch whose mask count is zero
+// is skipped, like pl.when(cnt > 0).  fp32 on the CUDA cores throughout.
+//
+// What bounds it on an H100: a client's SGD steps are a chain, each step
+// reading the weights the previous one wrote, so the kernel's time is the
+// longest client's chain (E x its live batches, up to 350 steps) times the
+// latency of one step.  One step is ~4*B*I*H = 8 MFLOP at B = 20, H = 128:
+// ~16 us on one SM's share of the 67 TFLOP/s fp32 peak.  fp32 w1 at H = 128
+// (401 KB) does not fit one SM's 227 KB of shared memory, so a block that
+// owns the whole client streams w1 from L2 every step.
+//
+// What the design does about it:
+// - One client per cluster of K CTAs (K = 8 at H = 128, 16 at H = 256; K
+//   depends on (I, H, C, B) only, never on R, so a client's sums run in the
+//   same order in both forms and at any fleet size).  CTA `rank` owns the HS
+//   hidden columns [rank*HS, (rank+1)*HS): its slice of w1 (784 x 16 fp32 =
+//   50 KB, stored transposed with an odd 16-byte row stride so that float4
+//   reads are free of bank conflicts), of b1 and its rows of w2 stay in
+//   shared memory for the whole chain and go to `out` once at the end.  The
+//   forward x @ w1[:, slice], the activation, dh[:, slice], the w2-slice
+//   update and the x^T dh update of the w1 slice are all local.
+// - Register tiles sized for shared-memory traffic, the limit of an fp32
+//   product this small: 8 warps, two on each SM sub-partition.  In the
+//   forward a warp owns 5 batch rows x 8 hidden columns and its lanes split
+//   I in 4-row groups, so a lane's 40 sums take 52 floats read for 160 FMAs;
+//   a reduce-scatter over the lanes (40 shuffles) leaves each output on one
+//   lane.  In the w1 update a thread owns 8 columns x two 4-row groups of I
+//   and walks the batch; whole warps past those tiles take b1.
+// - What crosses the slices goes through distributed shared memory: each
+//   CTA stores its partial (h_slice @ w2[slice], B x C; for softmax-hidden
+//   clients also the row max / exp-sum and, backward, the row dot sum
+//   dh.h) into its own slot of every CTA's buffer, one cluster barrier,
+//   then every CTA sums the K slots in rank order.  So every CTA holds
+//   bit-identical logits, d-logits and b2 updates.  The buffers alternate
+//   with a running count, so one barrier per reduction is enough: a buffer
+//   is written again only after the next reduction's barrier, which every
+//   reader has passed.  w2 is double-buffered by step parity, so its update
+//   runs beside dh, which reads the old rows.
+// - The batch's x tile (B x I contiguous fp32, 62,720 B at B = 20) comes in
+//   by bulk copy (cp.async.bulk, multicast to every CTA of the cluster; each
+//   rank issues 1/K of the bytes, so L2 serves the tile once), completing
+//   on a per-slot mbarrier.  Two slots: the next live batch's tile is
+//   issued right after the current step's logits barrier (by then every
+//   CTA has finished the previous step, the last reader of that slot) and
+//   lands during the backward pass.  The mask row and labels of the next
+//   live batch are read ahead by one warp (its loads overlap the forward
+//   product); an all-masked batch is never loaded at all.
+// - The wrapper orders clusters longest chain first (an int32 order
+//   computed on the card), so the longest chain starts in the first wave.
+// What bounds it now: the chain's step latency: the forward and the w1
+// update (shared-memory reads), then short latency-bound phases (the
+// logits' partials, the cluster barrier, d logits, dh) and 4 block
+// barriers; a softmax-hidden step adds two cluster reductions.
+//
+// Layouts (all fp32 unless noted, row-major, contiguous):
+//   g      (D,)          global params, flat order b1 | b2 | w1 | w2
+//   dense:  x (R, npad, I) samples, npad = nb * B (zero-padded tail);
+//           y (R, npad) int32 labels; mask (R, npad) validity
+//   ragged: x (T, B, I) batch tiles; y (T, B) int32; mask (T, B);
+//           nb, off (R,) int32 batch count and first tile of each client
+//   act    (R,)          int32, 1 = softmax hidden, else ReLU
+//   order  (R,)          int32, cluster c trains client order[c]
+//   out    (R, D)        post-SGD params, same flat order as g
+// I must be a multiple of 4 (16-byte rows for the bulk copy and float4
+// reads), H at most 1,024 (past 256, B at most 20) and C at most 16; the
+// wrapper checks them.
+//
+// Hidden widths.  Where H splits into at most 8 slices of 8 or 16 columns
+// (H one of 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128) the plan is
+// that split, unpadded, on a portable cluster.  Any other H up to 256 is
+// padded up to Hp = K * HS columns, HS = 16 (8 for H < 8), K = ceil(H /
+// HS) <= 16: H = 100 takes 7 x 16, 200 takes 13 x 16, 256 takes 16 x 16
+// (209,152 shared bytes a CTA at I = 784, B = 20).  A cluster of more than
+// 8 CTAs is non-portable (cudaFuncAttributeNonPortableClusterSizeAllowed)
+// and must fit one GPC, so fewer clusters are resident at once.  Above 256
+// a slice would have to be wider than 16 columns: 24 fit a CTA's shared
+// memory only up to 12 CTAs (H = 288; the cluster's partial buffers grow
+// with K), 32 at no K (I = 784, B = 20).
+//
+// The wide instance (256 < H <= 1,024; kHS = 0): w1 streamed from L2.
+// HS = ceil(H / 16) rounded up to a multiple of 8 (24 at H = 257, 32 at
+// 512, 56 at 813 and 879, 64 at 1,024) and K = ceil(H / HS) <= 16 (11 at
+// 257, 15 at 813).  The slice of w1 leaves shared memory: its working copy
+// is the client's own output row, out[r]'s w1 columns [h0, h0 + HS), read
+// and written in place, as the Pallas kernel keeps its parameters in its
+// output tiles.  That row starts at float H + C of a row D floats long
+// (D = 646,345 at H = 813: D * 4 is no multiple of 16), so neither 16-byte
+// cp.async nor a TMA tensor map can address it for general H; the kernel
+// uses 4-byte loads and stores, coalesced along a row of w1 (a warp's 32
+// lanes take 32 neighbouring columns).  The other choice, an aligned
+// workspace of padded pitch copied to out at the end, would take R * I *
+// Hp * 4 bytes (1.6 GB at R = 512, H = 1,024) and one more pass over them.
+// Each w1 element has one owner thread for the whole chain: warps split
+// the slice into groups of 32 columns (one or two) and I into 8 or 4 runs
+// of rows, and a lane owns one column of its run.  One pass over the run
+// (`wide_pass`, 16 rows of w1 in flight, loads `ld.global.cg`, L2 only)
+// updates each element with the step's x^T d hpre, its column of d hpre in
+// registers, writes it back once, and on the new value sums the next live
+// step's x @ w1[:, col] for every batch row in registers (that step's x
+// tile has landed by then); the runs' partials meet in shared memory,
+// summed in run order.  Only a chain's first step runs the forward alone.
+// Because the owner that reads an element is the one that wrote it, no
+// barrier guards w1.  A step moves the slice twice through L2 (784 x 32 x
+// 4 = 100 KB a CTA at H = 512: one read, one write), against 50 MB of L2
+// for the ~1.6-2.8 MB of w1 of each resident client (7 of 11-16 CTAs).
+// The x tiles (kBT = 20 rows a slot, those past B zero), b1, the w2 rows,
+// the B x HS activations and the cluster's partial buffers stay in shared
+// memory as in the narrow plan, which is unchanged for H <= 256.
+//
+// Pad columns (h >= H, only in the last CTA's slice) are not the model's:
+// their w1 columns, b1 entries and w2 rows start at zero in shared memory
+// (in the wide instance their w1 is never read, an exact 0, since in out
+// they would alias the next row's first columns) and are never written to
+// `out`; D and every offset into g and out use the true H.  Under ReLU a
+// pad column's pre-activation is exactly 0, so its h, its dh and every
+// update it feeds stay 0.  A softmax hidden layer maps 0
+// to 1/sum, not 0, so the slice's row max and exp-sum take only the real
+// columns and a pad column's h is set to 0; with h = 0 and its w2 row 0,
+// its dh, its share of the row dot sum(dh * h) and its w2 update are 0
+// too.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;   // 8 warps: two on each SM sub-partition
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 5;        // batch rows of a warp's forward tile
+constexpr int kCols = 8;        // hidden columns of a forward / update tile
+constexpr int kMaxPortable = 8;  // the portable cluster size
+constexpr int kMaxCluster = 16;  // the non-portable limit on Hopper
+constexpr int kMaxWideSlice = 64;  // the wide instance: two 32-column groups
+constexpr int kBT = 20;            // the wide instance's batch rows in registers
+static_assert(kRows * kCols == 40, "a forward tile: 32 outputs + 8 outputs");
+
+// Shared-memory plan of one CTA; computed on the host, passed by value.
+// Offsets are in floats, all multiples of 4 (16 bytes).
+struct Plan {
+  int K, HS, Bp, W, RB;
+  int o_x, o_w1, o_hpre, o_hact, o_dh, o_dhp, o_w2, o_b1, o_b2, o_lg, o_red, o_ms, o_ys,
+      o_misc, o_bar, bytes;
+  int wide, o_part;  // w1 streamed from L2; the runs' forward partials
+};
+
+__host__ __device__ inline int up4(int v) { return (v + 3) & ~3; }
+
+// K: the largest portable cluster whose slices are 8 or 16 columns wide;
+// else H padded to K slices of HS columns, K <= 16; past H = 256 the wide
+// instance's K x HS; K = 0 for a shape no plan takes.  A function of the
+// shapes only.
+Plan make_plan(int I, int H, int C, int B) {
+  Plan p{};
+  for (int k = kMaxPortable; k >= 1; --k)
+    if (H % k == 0 && (H / k == 8 || H / k == 16)) {
+      p.K = k;
+      p.HS = H / k;
+      break;
+    }
+  if (p.K == 0) {
+    p.HS = H < 8 ? 8 : 16;
+    p.K = (H + p.HS - 1) / p.HS;
+    if (p.K > kMaxCluster) {
+      p.wide = 1;
+      p.HS = ((H + kMaxCluster - 1) / kMaxCluster + 7) / 8 * 8;
+      p.K = (H + p.HS - 1) / p.HS;
+      if (p.HS > kMaxWideSlice || B > kBT) p.K = 0;
+    }
+  }
+  if (p.K == 0) return p;
+  // the wide instance's x slots hold kBT rows, those past B zero
+  p.Bp = p.wide ? kBT : (B + kRows - 1) / kRows * kRows;
+  p.W = 4 * ((up4(I) / 4) | 1);  // odd count of 16-byte units: conflict-free rows
+  p.RB = up4(p.Bp * C > 2 * p.Bp ? p.Bp * C : 2 * p.Bp);
+  int off = 0;
+  auto take = [&off](int n) {
+    int o = off;
+    off += up4(n);
+    return o;
+  };
+  p.o_x = take(2 * p.Bp * I);
+  p.o_w1 = take(p.wide ? 0 : p.HS * p.W);
+  p.o_hpre = take(p.Bp * p.HS);
+  p.o_hact = take(p.Bp * p.HS);
+  p.o_dh = take(p.Bp * p.HS);
+  p.o_dhp = take(p.Bp * p.HS);
+  p.o_w2 = take(2 * p.HS * C);
+  p.o_b1 = take(p.HS);
+  p.o_b2 = take(C);
+  p.o_lg = take(p.Bp * C);
+  p.o_red = take(2 * p.K * p.RB);
+  p.o_ms = take(2 * p.Bp);
+  p.o_ys = take(2 * p.Bp);
+  if (p.wide) p.o_part = take(kWarps / ((p.HS + 31) / 32) * p.Bp * p.HS);
+  p.o_misc = take(8);  // next live step (3), mask counts (2)
+  off = (off + 1) & ~1;  // 8-byte aligned mbarriers
+  p.o_bar = off;
+  off += 2 * 2;  // two 8-byte barriers
+  p.bytes = off * 4;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the barrier's phase of this parity has completed.  A wait
+// that outlasts ~10 s of SM clock traps (a launch error) instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > 20000000000ll) __trap();
+  }
+}
+
+// One CTA's share of a batch tile: bytes [rank * chunk, ...) of the tile,
+// multicast into the same offsets of every CTA of the cluster, each
+// completing on that CTA's barrier of the slot.  The issuing thread first
+// arms its own barrier for the whole tile (peers' bytes may land before
+// that: the transaction count may go negative within a phase).
+__device__ __forceinline__ void issue_tile(const float* src, float* dst, uint64_t* bar,
+                                           uint32_t tile_bytes, int rank, int K) {
+  const uint32_t b = smem_addr(bar);
+  mbar_expect_tx(b, tile_bytes);
+  const uint32_t chunk = (tile_bytes / 16 + K - 1) / K * 16;
+  const uint32_t lo = rank * chunk;
+  if (lo >= tile_bytes) return;
+  const uint32_t n = tile_bytes - lo < chunk ? tile_bytes - lo : chunk;
+  const uint32_t d = smem_addr(reinterpret_cast<char*>(dst) + lo);
+  const char* s = reinterpret_cast<const char*>(src) + lo;
+  if (K > 1) {
+    const uint16_t mask = (uint16_t)((1u << K) - 1);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster"
+        " [%0], [%1], %2, [%3], %4;" ::"r"(d),
+        "l"(s), "r"(n), "r"(b), "h"(mask)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];" ::"r"(d),
+        "l"(s), "r"(n), "r"(b)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Reduce-scatter by recursive halving, one level per lane bit below N (8 or
+// 32): lane l returns the sum of v[l % N] over the lanes that differ from it
+// only in those bits, in a fixed order.
+template <int O, int N>
+__device__ __forceinline__ void halve(float (&v)[N], int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int j = 0; j < O; ++j) {
+    const float send = upper ? v[j] : v[j + O];
+    const float keep = upper ? v[j + O] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float reduce_scatter(float (&v)[N], int lane) {
+  if constexpr (N >= 32) halve<16>(v, lane);
+  if constexpr (N >= 16) halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0];
+}
+
+// A forward tile's 40 sums over the warp: lane l returns output l for
+// l < 32 (reduce-scatter), and every lane returns output 32 + (l & 7)
+// (reduce-scatter over lane bits 0-2, then a butterfly over bits 3-4).
+__device__ __forceinline__ void reduce_tile(float (&acc)[40], int lane, float& lo,
+                                            float& hi) {
+  float a[32], b[8];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) a[j] = acc[j];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) b[j] = acc[32 + j];
+  lo = reduce_scatter(a, lane);
+  float v = reduce_scatter(b, lane);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  hi = v + __shfl_xor_sync(0xffffffffu, v, 16);
+}
+
+// Sum and max over the 8 lanes of a quarter warp.
+__device__ __forceinline__ float quarter_sum(float v) {
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float quarter_max(float v) {
+  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// sum over b < n of a[b * sa] * b_[b * sb] (b_ = nullptr: of a alone), in
+// four interleaved partial sums so that the loads overlap, combined as
+// (s0 + s1) + (s2 + s3).
+__device__ __forceinline__ float dot4(const float* a, int sa, const float* b_, int sb, int n) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  int k = 0;
+  for (; k + 4 <= n; k += 4) {
+    s0 += a[k * sa] * (b_ ? b_[k * sb] : 1.f);
+    s1 += a[(k + 1) * sa] * (b_ ? b_[(k + 1) * sb] : 1.f);
+    s2 += a[(k + 2) * sa] * (b_ ? b_[(k + 2) * sb] : 1.f);
+    s3 += a[(k + 3) * sa] * (b_ ? b_[(k + 3) * sb] : 1.f);
+  }
+  for (; k < n; ++k) s0 += a[k * sa] * (b_ ? b_[k * sb] : 1.f);
+  return (s0 + s1) + (s2 + s3);
+}
+
+// Warp-wide: the mask count of the batch at sample row row0, summed in
+// batch-row order.
+__device__ __forceinline__ float batch_count(const float* mask, long long row0, int B,
+                                             int lane) {
+  float cnt = 0.f;
+  for (int b0 = 0; b0 < B; b0 += 32) {
+    const float v = b0 + lane < B ? mask[row0 + b0 + lane] : 0.f;
+    const int n = B - b0 < 32 ? B - b0 : 32;
+    for (int j = 0; j < n; ++j) cnt += __shfl_sync(0xffffffffu, v, j);
+  }
+  return cnt;
+}
+
+// Warp-wide: the first step t' >= t (t' < total) whose batch has a mask
+// count > 0, else total; one epoch of candidates is enough to know.  Stages
+// that batch's mask row, labels and count into ms / ys / cnt.
+__device__ int stage_next_live(const float* mask, const int* y, long long first, int nb,
+                               int B, int t, int total, float* ms, int* ys, float* cnt,
+                               int lane) {
+  for (int k = 0; k < nb && t < total; ++k, ++t) {
+    const long long row0 = first + (long long)(t % nb) * B;
+    const float c = batch_count(mask, row0, B, lane);
+    if (c > 0.f) {
+      for (int b = lane; b < B; b += 32) {
+        ms[b] = mask[row0 + b];
+        ys[b] = y[row0 + b];
+      }
+      if (lane == 0) *cnt = c;
+      return t;
+    }
+  }
+  return total;
+}
+
+// A CTA's partial v for element j goes into slot `rank` of buffer `buf`
+// (K slots of RB floats) in every CTA of the cluster: remote stores, posted,
+// made visible by the next cluster barrier.
+__device__ __forceinline__ void push(cg::cluster_group& cluster, float* buf, int RB, int rank,
+                                     int K, int j, float v) {
+  for (int rk = 0; rk < K; ++rk) cluster.map_shared_rank(buf, rk)[rank * RB + j] = v;
+}
+
+// After the barrier: the K slots of element j summed in rank order.
+__device__ __forceinline__ float gather_sum(const float* buf, int RB, int K, int j) {
+  float s = buf[j];
+  for (int rk = 1; rk < K; ++rk) s += buf[rk * RB + j];
+  return s;
+}
+
+// The wide instance's w1 column of one thread: rows 4 * q0 .. 4 * q0 + 15
+// of the column at w (row stride H) into v, rows at or past 4 * qb as 0.
+__device__ __forceinline__ void load_rows(float (&v)[16], const float* w, long long H, int q0,
+                                          int qb) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    v[j] = q0 + j / 4 < qb ? __ldcg(w + (long long)(4 * q0 + j) * H) : 0.f;
+}
+
+// One pass of a thread over its run of rows 4*qa .. 4*qb - 1 of w1's
+// column at w (row stride H), 16 rows a chunk, the next chunk's loads in
+// flight during this one's FMAs.  With `upd`, the update w1[i][col] -= lr *
+// sum_b xu[b][i] * d[b], each element read once and written once; with
+// `fwd`, the forward acc[b] += xf[b][i] * w1[i][col] on the element as it
+// leaves the pass (the updated one), in row order, so a step's update and
+// the next step's forward share one read and one write of the column.
+// Rows of xu / xf at or past B are zero and d[b] = 0 there.
+__device__ __forceinline__ void wide_pass(const float* xu, const float* xf, int I, float* w,
+                                          long long H, int qa, int qb, const float (&d)[kBT],
+                                          float lr, float (&acc)[kBT], bool upd, bool fwd) {
+  float nx[16];
+  load_rows(nx, w, H, qa, qb);
+  for (int q0 = qa; q0 < qb; q0 += 4) {
+    float wc[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) wc[j] = nx[j];
+    if (q0 + 4 < qb) load_rows(nx, w, H, q0 + 4, qb);
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int q = q0 + qq;
+      if (q >= qb) break;
+      float nw0 = wc[4 * qq], nw1 = wc[4 * qq + 1], nw2 = wc[4 * qq + 2], nw3 = wc[4 * qq + 3];
+      if (upd) {
+        float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBT; ++j) {
+          const float4 xv = ld4(xu + j * I + 4 * q);
+          g0 = fmaf(xv.x, d[j], g0);
+          g1 = fmaf(xv.y, d[j], g1);
+          g2 = fmaf(xv.z, d[j], g2);
+          g3 = fmaf(xv.w, d[j], g3);
+        }
+        nw0 -= lr * g0;
+        nw1 -= lr * g1;
+        nw2 -= lr * g2;
+        nw3 -= lr * g3;
+        float* wr = w + (long long)(4 * q) * H;
+        __stcg(wr, nw0);
+        __stcg(wr + H, nw1);
+        __stcg(wr + 2 * H, nw2);
+        __stcg(wr + 3 * H, nw3);
+      }
+      if (fwd) {
+#pragma unroll
+        for (int j = 0; j < kBT; ++j) {
+          const float4 xv = ld4(xf + j * I + 4 * q);
+          float a = acc[j];
+          a = fmaf(xv.x, nw0, a);
+          a = fmaf(xv.y, nw1, a);
+          a = fmaf(xv.z, nw2, a);
+          acc[j] = fmaf(xv.w, nw3, a);
+        }
+      }
+    }
+  }
+}
+
+template <bool kRagged, int kHS>
+__global__ void __launch_bounds__(kThreads, 1)
+local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                 const int* __restrict__ y, const int* __restrict__ act,
+                 const float* __restrict__ mask, const int* __restrict__ nbs,
+                 const int* __restrict__ offs, const int* __restrict__ order,
+                 float* __restrict__ out, int npad, int I, int H, int C, int B,
+                 int epochs, float lr, Plan p) {
+  constexpr bool kWide = kHS == 0;  // w1 streamed from L2, HS from the plan
+  static_assert(kWide || kHS == 8 || kHS == 16, "a slice is one or two 8-column groups");
+  const int HS = kWide ? p.HS : kHS;
+  constexpr int colg = kWide ? 1 : kHS / kCols;  // 8-column groups (narrow)
+  extern __shared__ __align__(128) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = p.K, Bp = p.Bp, W = p.W, RB = p.RB;
+  const int rank = (int)cluster.block_rank();
+  const int r = order[blockIdx.x / K];
+  const int tid = threadIdx.x;
+  constexpr int nthr = kThreads;
+  constexpr int nwarps = kWarps;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int half = lane >> 4, l16 = lane & 15;
+  const int h0 = rank * HS;
+  const int nreal = H - h0 < HS ? H - h0 : HS;  // the slice's model columns
+  const int quads = I / 4;
+  const int npairs = (quads + 1) / 2;
+  const int ftiles = kWide ? 0 : Bp / kRows * colg;  // forward warp tiles
+  const int utiles = kWide ? 0 : npairs * colg;      // w1-update thread tiles
+  const long long D = (long long)H + C + (long long)I * H + (long long)H * C;
+
+  float* xs = smem + p.o_x;       // 2 slots of Bp x I (rows >= B stay zero)
+  float* w1s = smem + p.o_w1;     // w1s[hl * W + i] = w1[i][h0 + hl]
+  float* hpre = smem + p.o_hpre;  // B x HS
+  float* hact = smem + p.o_hact;  // B x HS
+  float* dh = smem + p.o_dh;      // B x HS (softmax-hidden clients)
+  float* dhp = smem + p.o_dhp;    // B x HS, d hpre
+  float* w2b = smem + p.o_w2;     // 2 x HS x C, rows h0.. of w2, by step parity
+  float* b1s = smem + p.o_b1;     // HS
+  float* b2s = smem + p.o_b2;     // C
+  float* lg = smem + p.o_lg;      // B x C, logits then d logits
+  float* red = smem + p.o_red;    // 2 x K x RB cluster partials, a slot a rank
+  float* ms = smem + p.o_ms;      // 2 x Bp staged mask rows
+  int* ys = reinterpret_cast<int*>(smem + p.o_ys);        // 2 x Bp labels
+  int* s_next = reinterpret_cast<int*>(smem + p.o_misc);  // next live step
+  float* cnts = smem + p.o_misc + 4;                      // 2 staged mask counts
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
+
+  const float* gb1 = g;
+  const float* gb2 = g + H;
+  const float* gw1 = g + H + C;
+  const float* gw2 = gw1 + (long long)I * H;
+  // the wide instance's owner of a w1 column: a group of 32 columns, run
+  // `run` of I (quads q_lo .. q_hi - 1), lane = column wcol of the slice;
+  // w1g is that column in this client's output row
+  const int ncg = (HS + 31) / 32, nruns = nwarps / ncg;
+  const int run = warp / ncg, wcol = warp % ncg * 32 + lane;
+  const int qper = (quads + nruns - 1) / nruns;
+  const int q_lo = run * qper < quads ? run * qper : quads;
+  const int q_hi = q_lo + qper < quads ? q_lo + qper : quads;
+  const bool owner = kWide && wcol < nreal;
+  float* w1g = out + (long long)r * D + H + C + h0 + wcol;
+  float* runs = smem + p.o_part;  // nruns x Bp x HS forward partials
+  if constexpr (kWide) {
+    if (owner)
+      for (int i = 4 * q_lo; i < 4 * q_hi; ++i)
+        __stcg(w1g + (long long)i * H, gw1[(long long)i * H + h0 + wcol]);
+  } else {
+    for (int k = tid; k < I * HS; k += nthr) {
+      const int i = k / HS, hl = k % HS;
+      w1s[hl * W + i] = hl < nreal ? gw1[(long long)i * H + h0 + hl] : 0.f;
+    }
+  }
+  for (int k = tid; k < HS * C; k += nthr)
+    w2b[k] = k < nreal * C ? gw2[(long long)h0 * C + k] : 0.f;
+  for (int k = tid; k < HS; k += nthr) b1s[k] = k < nreal ? gb1[h0 + k] : 0.f;
+  for (int k = tid; k < C; k += nthr) b2s[k] = gb2[k];
+  for (int k = B * I + tid; k < Bp * I; k += nthr) {
+    xs[k] = 0.f;
+    xs[Bp * I + k] = 0.f;
+  }
+  const bool soft = act[r] == 1;
+  // the client's batch count and the sample row its batch 0 starts at
+  const int nb = kRagged ? nbs[r] : npad / B;
+  const long long first = kRagged ? (long long)offs[r] * B : (long long)r * npad;
+  const int total = epochs * nb;
+  const uint32_t tile_bytes = (uint32_t)B * I * 4;
+  const bool stager = warp == 0;  // the forward's fastest warp (measured)
+  if (tid == 0) {
+    mbar_init(smem_addr(&bars[0]), 1);
+    mbar_init(smem_addr(&bars[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (stager) {
+    const int t0 = stage_next_live(mask, y, first, nb, B, 0, total, ms, ys, &cnts[0], lane);
+    if (lane == 0) s_next[2] = t0;
+  }
+  cluster.sync();  // every barrier of the cluster initialised, params staged
+  int t = s_next[2];
+  if (tid == 0 && t < total)
+    issue_tile(x + (first + (long long)(t % nb) * B) * I, xs, &bars[0], tile_bytes, rank, K);
+
+  int use = 0, nred = 0;
+  bool ready = false;  // the wide instance: this step's forward partials are in `runs`
+  while (t < total) {
+    const int cur = use & 1, nxt = cur ^ 1;
+    const float* xt = xs + cur * Bp * I;
+    // --- the next live batch's mask row and labels, read ahead by the
+    // stager warp: the first candidate's loads are issued before the forward
+    // product and consumed after it
+    float mv = 0.f;
+    int yv = 0;
+    if (stager && t + 1 < total && B <= 32) {
+      const long long rowc = first + (long long)((t + 1) % nb) * B;
+      if (lane < B) {
+        mv = mask[rowc + lane];
+        yv = y[rowc + lane];
+      }
+    }
+    mbar_wait(smem_addr(&bars[cur]), (use >> 1) & 1);
+    // --- wide forward of the chain's first live step, each owner's run of
+    // x @ w1[:, col] into the partials (0 in a pad column), summed after the
+    // barrier below; a later step's partials come with the previous update
+    if constexpr (kWide) {
+      if (!ready) {
+        float acc[kBT], d[kBT];
+#pragma unroll
+        for (int j = 0; j < kBT; ++j) acc[j] = d[j] = 0.f;
+        if (owner) wide_pass(xt, xt, I, w1g, H, q_lo, q_hi, d, lr, acc, false, true);
+        if (wcol < HS)
+#pragma unroll
+          for (int j = 0; j < kBT; ++j)
+            if (j < B) runs[(run * Bp + j) * HS + wcol] = acc[j];
+      }
+    }
+    // --- forward: a warp's tile is kRows batch rows x kCols hidden columns;
+    // lane l sums the 4-row groups q = l, l + 32, ... of I, then the warp
+    // reduce-scatters the 40 sums
+    for (int tile = warp; tile < ftiles; tile += nwarps) {
+      const int r0 = tile / colg * kRows, c0 = tile % colg * kCols;
+      float acc[kRows * kCols];
+#pragma unroll
+      for (int j = 0; j < kRows * kCols; ++j) acc[j] = 0.f;
+      for (int q = lane; q < quads; q += 32) {
+        float4 xv[kRows];
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) xv[j] = ld4(xt + (r0 + j) * I + 4 * q);
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+          const float4 w = ld4(w1s + (c0 + k) * W + 4 * q);
+#pragma unroll
+          for (int j = 0; j < kRows; ++j) {
+            float a = acc[j * kCols + k];
+            a = fmaf(xv[j].x, w.x, a);
+            a = fmaf(xv[j].y, w.y, a);
+            a = fmaf(xv[j].z, w.z, a);
+            acc[j * kCols + k] = fmaf(xv[j].w, w.w, a);
+          }
+        }
+      }
+      float lo, hi;
+      reduce_tile(acc, lane, lo, hi);
+      const int h = c0 + lane % kCols;
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+        const int b = r0 + (part ? kRows - 1 : lane / kCols);
+        if (b < B && (part == 0 || lane < kCols)) {
+          const float hp = (part ? hi : lo) + b1s[h];
+          hpre[b * HS + h] = hp;
+          if (!soft) hact[b * HS + h] = fmaxf(hp, 0.f);
+        }
+      }
+    }
+    if (stager) {
+      int tn = total;
+      if (t + 1 < total) {
+        if (B <= 32) {
+          float cnt = 0.f;
+          for (int j = 0; j < B; ++j) cnt += __shfl_sync(0xffffffffu, mv, j);
+          if (cnt > 0.f) {
+            tn = t + 1;
+            if (lane < B) {
+              ms[nxt * Bp + lane] = mv;
+              ys[nxt * Bp + lane] = yv;
+            }
+            if (lane == 0) cnts[nxt] = cnt;
+          } else {
+            tn = stage_next_live(mask, y, first, nb, B, t + 2, total, ms + nxt * Bp,
+                                 ys + nxt * Bp, &cnts[nxt], lane);
+          }
+        } else {
+          tn = stage_next_live(mask, y, first, nb, B, t + 1, total, ms + nxt * Bp,
+                               ys + nxt * Bp, &cnts[nxt], lane);
+        }
+      }
+      if (lane == 0) s_next[cur] = tn;
+    }
+    __syncthreads();
+    if constexpr (kWide) {
+      // the runs' partials in run order, plus b1
+      for (int k = tid; k < B * HS; k += nthr) {
+        const int b = k / HS, h = k % HS;
+        float s = runs[b * HS + h];
+        for (int rn = 1; rn < nruns; ++rn) s += runs[(rn * Bp + b) * HS + h];
+        const float hp = s + b1s[h];
+        hpre[k] = hp;
+        if (!soft) hact[k] = fmaxf(hp, 0.f);
+      }
+      __syncthreads();
+    }
+    const int tn = s_next[cur];
+    const float* w2s = w2b + cur * HS * C;  // this step's w2 rows
+    float* w2n = w2b + nxt * HS * C;        // the next step's
+    // --- softmax hidden layer: each CTA's row max and exp-sum over its
+    // slice's model columns; one barrier; then a half warp per row takes the
+    // global max and sum over the K slices (rank order) and the row's h (0
+    // in a pad column)
+    if (soft) {
+      float* buf = red + (nred & 1) * K * RB;
+      for (int b = tid; b < B; b += nthr) {
+        const float* hp = hpre + b * HS;
+        float m = -INFINITY;
+#pragma unroll
+        for (int hl = 0; hl < HS; ++hl)
+          if (hl < nreal) m = fmaxf(m, hp[hl]);
+        float sum = 0.f;
+#pragma unroll
+        for (int hl = 0; hl < HS; ++hl)
+          if (hl < nreal) sum += expf(hp[hl] - m);
+        push(cluster, buf, RB, rank, K, 2 * b, m);
+        push(cluster, buf, RB, rank, K, 2 * b + 1, sum);
+      }
+      cluster.sync();
+      for (int b = 2 * warp + half; b < B; b += 2 * nwarps) {
+        float m = -INFINITY;
+        for (int rk = 0; rk < K; ++rk) m = fmaxf(m, buf[rk * RB + 2 * b]);
+        float sum = 0.f;
+        for (int rk = 0; rk < K; ++rk)
+          sum += buf[rk * RB + 2 * b + 1] * expf(buf[rk * RB + 2 * b] - m);
+        for (int hl = l16; hl < HS; hl += 16) {  // a lane a column
+          const int k = b * HS + hl;
+          hact[k] = hl < nreal ? expf(hpre[k] - m) / sum : 0.f;
+        }
+      }
+      ++nred;
+      __syncthreads();
+    }
+    // --- logits: each CTA's h_slice @ w2[slice] to every CTA, one barrier,
+    // then a quarter warp per batch row sums the K slices in rank order,
+    // adds b2 and turns the row into d logits = (softmax - onehot) * m /
+    // max(cnt, 1), lane l holding classes l and l + 8 (C <= 16)
+    {
+      float* buf = red + (nred & 1) * K * RB;
+      for (int k = tid; k < B * C; k += nthr) {
+        const int b = k / C, c = k % C;
+        push(cluster, buf, RB, rank, K, k, dot4(hact + b * HS, 1, w2s + c, C, HS));
+      }
+      cluster.sync();
+      // every CTA of the cluster has finished the previous step: the other
+      // slot is free everywhere, so the next live batch's tile goes out now
+      if (tid == nthr - 1 && tn < total)
+        issue_tile(x + (first + (long long)(tn % nb) * B) * I, xs + nxt * Bp * I, &bars[nxt],
+                   tile_bytes, rank, K);
+      const float* mrow = ms + cur * Bp;
+      const int* yrow = ys + cur * Bp;
+      const float cnt = fmaxf(cnts[cur], 1.f);
+      for (int b0 = 4 * warp; b0 < B; b0 += 4 * nwarps) {
+        const int b = b0 + (lane >> 3), l8 = lane & 7;
+        float lv[2], e[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = l8 + 8 * j;
+          lv[j] = b < B && c < C ? gather_sum(buf, RB, K, b * C + c) + b2s[c] : -INFINITY;
+        }
+        const float mx = quarter_max(fmaxf(lv[0], lv[1]));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) e[j] = b < B && l8 + 8 * j < C ? expf(lv[j] - mx) : 0.f;
+        const float sum = quarter_sum(e[0] + e[1]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = l8 + 8 * j;
+          if (b < B && c < C)
+            lg[b * C + c] = (e[j] / sum - (c == yrow[b] ? 1.f : 0.f)) * (mrow[b] / cnt);
+        }
+      }
+      ++nred;
+    }
+    __syncthreads();
+    // --- dh[:, slice] = d logits @ w2[slice]^T, two columns a thread (a ReLU
+    // hidden layer passes it where hpre > 0); beside it, on the threads
+    // past those, the next step's w2[slice] = w2 - lr * h^T @ d logits and
+    // b2 -= lr * sum_b d logits (b2 identical in every CTA)
+    {
+      const int ndh = B * HS / 2;
+      const int spare0 = ndh < nthr ? ndh : 0;
+      for (int k = tid; k < ndh; k += nthr) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 2 * k + e;
+          const float acc = dot4(lg + j / HS * C, 1, w2s + j % HS * C, 1, C);
+          if (soft) dh[j] = acc;
+          else dhp[j] = hpre[j] > 0.f ? acc : 0.f;
+        }
+      }
+      if (tid >= spare0) {
+        for (int k = tid - spare0; k < HS * C + C; k += nthr - spare0) {
+          if (k < HS * C) {
+            const int hl = k / C, c = k % C;
+            w2n[k] = w2s[k] - lr * dot4(hact + hl, HS, lg + c, C, B);
+          } else {
+            const int c = k - HS * C;
+            b2s[c] -= lr * dot4(lg + c, C, nullptr, 0, B);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (soft) {
+      // softmax backward: the row dot sum(dh * h) over all H (the slices'
+      // partials in rank order), then d hpre = h * (dh - dot)
+      float* buf = red + (nred & 1) * K * RB;
+      for (int b = tid; b < B; b += nthr)
+        push(cluster, buf, RB, rank, K, b, dot4(dh + b * HS, 1, hact + b * HS, 1, HS));
+      cluster.sync();
+      for (int b = 2 * warp + half; b < B; b += 2 * nwarps) {
+        const float dot = gather_sum(buf, RB, K, b);
+        for (int hl = l16; hl < HS; hl += 16) {
+          const int k = b * HS + hl;
+          dhp[k] = hact[k] * (dh[k] - dot);
+        }
+      }
+      ++nred;
+      __syncthreads();
+    }
+    // --- w1[:, slice] -= lr * x^T @ d hpre and b1[slice] -= lr * sum_b d hpre
+    if constexpr (kWide) {
+      // each owner's column over its run, d hpre of its column in
+      // registers; with a next live step, that step's forward partials on
+      // the updated column (its tile, issued after the logits barrier,
+      // lands during the backward); b1 after it
+      const bool fwd = tn < total;
+      if (fwd) mbar_wait(smem_addr(&bars[nxt]), ((use + 1) >> 1) & 1);
+      float acc[kBT], d[kBT];
+#pragma unroll
+      for (int j = 0; j < kBT; ++j) {
+        acc[j] = 0.f;
+        d[j] = owner && j < B ? dhp[j * HS + wcol] : 0.f;
+      }
+      if (owner)
+        wide_pass(xt, xs + nxt * Bp * I, I, w1g, H, q_lo, q_hi, d, lr, acc, true, fwd);
+      if (fwd && wcol < HS)
+#pragma unroll
+        for (int j = 0; j < kBT; ++j)
+          if (j < B) runs[(run * Bp + j) * HS + wcol] = acc[j];
+      ready = fwd;
+      for (int k = tid; k < HS; k += nthr) b1s[k] -= lr * dot4(dhp + k, HS, nullptr, 0, B);
+    } else {
+      // a thread's tile is kCols columns x the 4-row groups q and q + npairs
+      // of I; b1 on the whole warps past those tiles (no warp runs both)
+      int spare0 = (utiles + 31) / 32 * 32;
+      if (spare0 >= nthr) spare0 = 0;
+      if (tid >= spare0)
+        for (int k = tid - spare0; k < HS; k += nthr - spare0)
+          b1s[k] -= lr * dot4(dhp + k, HS, nullptr, 0, B);
+      for (int u = tid; u < utiles; u += nthr) {
+        const int c0 = u / npairs * kCols, qa = u % npairs, qb = qa + npairs;
+        const bool hasb = qb < quads;
+        float ga[kCols][4], gb[kCols][4];
+#pragma unroll
+        for (int k = 0; k < kCols; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ga[k][e] = gb[k][e] = 0.f;
+        for (int b = 0; b < B; ++b) {
+          const float4 xa = ld4(xt + b * I + 4 * qa);
+          const float4 xb = hasb ? ld4(xt + b * I + 4 * qb) : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 d0 = ld4(dhp + b * HS + c0), d1 = ld4(dhp + b * HS + c0 + 4);
+          const float d[kCols] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+          for (int k = 0; k < kCols; ++k) {
+            ga[k][0] = fmaf(xa.x, d[k], ga[k][0]);
+            ga[k][1] = fmaf(xa.y, d[k], ga[k][1]);
+            ga[k][2] = fmaf(xa.z, d[k], ga[k][2]);
+            ga[k][3] = fmaf(xa.w, d[k], ga[k][3]);
+            gb[k][0] = fmaf(xb.x, d[k], gb[k][0]);
+            gb[k][1] = fmaf(xb.y, d[k], gb[k][1]);
+            gb[k][2] = fmaf(xb.z, d[k], gb[k][2]);
+            gb[k][3] = fmaf(xb.w, d[k], gb[k][3]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) {
+          float4* wa = reinterpret_cast<float4*>(w1s + (c0 + k) * W + 4 * qa);
+          float4 w = *wa;
+          w.x -= lr * ga[k][0];
+          w.y -= lr * ga[k][1];
+          w.z -= lr * ga[k][2];
+          w.w -= lr * ga[k][3];
+          *wa = w;
+          if (hasb) {
+            float4* wb = reinterpret_cast<float4*>(w1s + (c0 + k) * W + 4 * qb);
+            w = *wb;
+            w.x -= lr * gb[k][0];
+            w.y -= lr * gb[k][1];
+            w.z -= lr * gb[k][2];
+            w.w -= lr * gb[k][3];
+            *wb = w;
+          }
+        }
+      }
+    }
+    // the next step's forward reads w1 and b1 (written here by other
+    // threads) only after the block barrier that follows it
+    __syncthreads();
+    ++use;
+    t = tn;
+  }
+  __syncthreads();
+  float* orow = out + (long long)r * D;
+  for (int k = tid; k < nreal; k += nthr) orow[h0 + k] = b1s[k];
+  if (rank == 0)
+    for (int k = tid; k < C; k += nthr) orow[H + k] = b2s[k];
+  float* ow1 = orow + H + C;
+  if constexpr (!kWide) {  // the wide instance's w1 is already in place
+    for (int k = tid; k < I * HS; k += nthr) {
+      const int i = k / HS, hl = k % HS;
+      if (hl < nreal) ow1[(long long)i * H + h0 + hl] = w1s[hl * W + i];
+    }
+  }
+  float* ow2 = ow1 + (long long)I * H;
+  const float* w2s = w2b + (use & 1) * HS * C;
+  for (int k = tid; k < nreal * C; k += nthr) ow2[(long long)h0 * C + k] = w2s[k];
+  cluster.sync();  // no CTA leaves while a peer may still read its partials
+}
+
+// The plan's dynamic shared bytes and, for a cluster of more than 8 CTAs,
+// permission to launch a non-portable cluster size.
+template <typename Kernel>
+cudaError_t set_attributes(Kernel kernel, const Plan& p) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  if (err == cudaSuccess && p.K > kMaxPortable)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+template <bool kRagged, int kHS>
+int launch(const Plan& p, const float* g, const float* x, const int* y, const int* act,
+           const float* mask, const int* nb, const int* off, const int* order, float* out,
+           int R, int npad, int I, int H, int C, int B, int epochs, float lr, void* stream) {
+  cudaError_t err = set_attributes(local_sgd_kernel<kRagged, kHS>, p);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(R * p.K));
+  cfg.blockDim = dim3((unsigned)kThreads);
+  cfg.dynamicSmemBytes = (size_t)p.bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, local_sgd_kernel<kRagged, kHS>, g, x, y, act, mask, nb, off,
+                           order, out, npad, I, H, C, B, epochs, lr, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Registers and spilled bytes a thread of the dense instance, and how many
+// clusters of the plan's K CTAs fit on the card at once.
+template <int kHS>
+int attrs(const Plan& p, int* regs, int* local_bytes, int* max_clusters) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, local_sgd_kernel<false, kHS>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  err = set_attributes(local_sgd_kernel<false, kHS>, p);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)p.K);
+  cfg.blockDim = dim3((unsigned)kThreads);
+  cfg.dynamicSmemBytes = (size_t)p.bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(max_clusters, local_sgd_kernel<false, kHS>, &cfg);
+}
+
+}  // namespace
+
+// The wide instance (kHS = 0), built in local_sgd_wide.cu: launch it for
+// the plan of (I, H, C, B), or report its resources, as launch<> / attrs<>.
+int local_sgd_wide_launch(bool ragged, const float* g, const float* x, const int* y,
+                          const int* act, const float* mask, const int* nb, const int* off,
+                          const int* order, float* out, int R, int npad, int I, int H, int C,
+                          int B, int epochs, float lr, void* stream);
+int local_sgd_wide_attrs(int I, int H, int C, int B, int* regs, int* local_bytes,
+                         int* max_clusters);

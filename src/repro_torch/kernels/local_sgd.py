@@ -2,11 +2,16 @@
 
 ClientUpdate (Algorithm 2 lines 16-21) is the round's FLOP-dominant op:
 every client runs E epochs of batch SGD on its local shard.  The CUDA
-kernel (``csrc/local_sgd.cu``) runs each client's whole epochs x batches
-chain in one launch on a thread-block cluster of K CTAs, each CTA holding
-an HS-column slice of w1 in shared memory (K and HS from ``plan``; a
-width that no portable split of 8- or 16-column slices covers is padded
-up to K x 16 columns, K <= 16, so H runs up to ``MAX_HIDDEN``).  ``local_sgd``
+kernel (``csrc/local_sgd.cuh``; the narrow plan's instances are built in
+``local_sgd.cu``, the wide one in ``local_sgd_wide.cu``) runs each
+client's whole epochs x batches chain in one launch on a thread-block
+cluster of K CTAs, each CTA owning
+an HS-column slice of w1 (K and HS from ``plan``).  Up to H = 256 the slice
+lives in shared memory: a width that no portable split of 8- or 16-column
+slices covers is padded up to K x 16 columns, K <= 16.  Past 256 the wide
+instance streams the slice from L2 (``plan`` reports it as ``streamed``):
+HS is ceil(H / 16) rounded up to a multiple of 8, at most 64, so H runs up
+to ``MAX_HIDDEN``, at batches of at most ``WIDE_MAX_BATCH``.  ``local_sgd``
 takes the dense (R, n) sample rectangle and replaces the Pallas TPU kernel
 ``repro/kernels/local_sgd.py::local_sgd_fused``; ``local_sgd_ragged`` takes
 the packed layout's batch-tile buffer, each client reading its own tiles,
@@ -102,45 +107,49 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
 local_sgd.launches = 0
 
 # The widest hidden layer the kernel takes: 16 CTAs (Hopper's non-portable
-# cluster limit) of 16 columns.  Wider slices outgrow a CTA's shared memory
-# (see csrc/local_sgd.cu), so wider H needs w1 streamed from L2: another
-# design.
-MAX_HIDDEN = 256
+# cluster limit) of 64 columns, each column's w1 streamed from L2 by one
+# lane of a 32-column group, two groups a CTA (see csrc/local_sgd.cuh).  The
+# wide instance holds a batch's rows of a column in registers, at most
+# WIDE_MAX_BATCH of them.
+MAX_HIDDEN = 1024
+WIDE_MAX_BATCH = 20
 
 
-def plan(I: int, H: int, C: int, B: int) -> tuple[int, int, int, int]:
+def plan(I: int, H: int, C: int, B: int) -> tuple[int, int, int, int, bool]:
     """The kernel's cluster size K, slice width HS (H padded to K * HS
-    columns), threads a CTA and one CTA's dynamic shared bytes for (I, H,
-    C, B); raises for a shape that fits no plan."""
-    K, HS, threads, smem = (ctypes.c_int() for _ in range(4))
+    columns), threads a CTA, one CTA's dynamic shared bytes and whether w1
+    streams from L2 (the wide instance, H > 256) for (I, H, C, B); raises
+    for a shape that fits no plan."""
+    K, HS, threads, smem, streamed = (ctypes.c_int() for _ in range(5))
     if ops.library().fedar_local_sgd_plan(I, H, C, B, ctypes.byref(K), ctypes.byref(HS),
-                                          ctypes.byref(threads),
-                                          ctypes.byref(smem)) != 0:
+                                          ctypes.byref(threads), ctypes.byref(smem),
+                                          ctypes.byref(streamed)) != 0:
         raise ValueError(
             f"local_sgd kernel cannot take I={I}, H={H}, C={C}, B={B}: I must be "
             f"a multiple of 4 (16-byte rows for the bulk copy), H at most "
-            f"{MAX_HIDDEN} (16 slices of 16 columns; wider slices of w1 outgrow "
-            "a CTA's shared memory), C at most 16")
+            f"{MAX_HIDDEN} (16 slices of at most 64 columns; past H = 256 w1 "
+            f"streams from L2 and B is at most {WIDE_MAX_BATCH}), C at most 16")
     if smem.value > ops.MAX_SMEM_BYTES:
         raise ValueError(
             f"local_sgd kernel needs {smem.value} bytes of shared memory a CTA "
             f"for I={I}, H={H}, C={C}, B={B} (cluster of {K.value}); a block may "
             f"use {ops.MAX_SMEM_BYTES}")
-    return K.value, HS.value, threads.value, smem.value
+    return K.value, HS.value, threads.value, smem.value, bool(streamed.value)
 
 
 def kernel_attrs(I: int, H: int, C: int, B: int) -> dict:
     """The dense instance's resources at (I, H, C, B): cluster size, slice
-    width, threads and dynamic shared bytes a CTA, registers and spilled
-    (local) bytes a thread as ``cudaFuncGetAttributes`` reports them, and
-    the clusters that fit on the card at once
-    (``cudaOccupancyMaxActiveClusters``).  Raises if no cluster fits: the
-    kernel could not launch at this plan."""
-    K, HS, threads, smem = plan(I, H, C, B)
+    width, threads and dynamic shared bytes a CTA, whether w1 streams from
+    L2, registers and spilled (local) bytes a thread as
+    ``cudaFuncGetAttributes`` reports them, and the clusters that fit on
+    the card at once (``cudaOccupancyMaxActiveClusters``).  Raises if no
+    cluster fits: the kernel could not launch at this plan."""
+    K, HS, threads, smem, streamed = plan(I, H, C, B)
     vals = [ctypes.c_int() for _ in range(3)]
     ops.check_launch(ops.library().fedar_local_sgd_attrs(
         I, H, C, B, *(ctypes.byref(v) for v in vals)), "local_sgd_attrs")
     attrs = dict(cluster=K, slice=HS, threads=threads, dynamic_smem=smem,
+                 streamed=streamed,
                  **dict(zip(("registers", "local_bytes", "max_clusters"),
                             (v.value for v in vals))))
     if attrs["max_clusters"] < 1:

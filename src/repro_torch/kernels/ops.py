@@ -42,8 +42,9 @@ from repro_torch.kernels import ref
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("local_sgd.cu", "fedavg_agg.cu", "defense_sim.cu", "compress.cu",
-           "flash_attention.cu", "ssm_scan.cu", "count_sketch.cu")
+SOURCES = ("local_sgd.cu", "local_sgd_wide.cu", "fedavg_agg.cu", "defense_sim.cu",
+           "compress.cu", "flash_attention.cu", "ssm_scan.cu", "count_sketch.cu")
+HEADERS = ("local_sgd.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -124,7 +125,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_local_sgd_ragged.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                            F, P]
     lib.fedar_local_sgd_ragged.restype = I
-    lib.fedar_local_sgd_plan.argtypes = [I, I, I, I, PI, PI, PI, PI]
+    lib.fedar_local_sgd_plan.argtypes = [I, I, I, I, PI, PI, PI, PI, PI]
     lib.fedar_local_sgd_plan.restype = I
     lib.fedar_local_sgd_attrs.argtypes = [I, I, I, I, PI, PI, PI]
     lib.fedar_local_sgd_attrs.restype = I
@@ -161,7 +162,7 @@ def library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels' shared library."""
     nvcc = _nvcc()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         digest.update((CSRC / src).read_bytes())
     lib_path = BUILD_DIR / f"libfedar_kernels_{digest.hexdigest()[:16]}.so"
     log = ""

@@ -98,7 +98,7 @@ def test_local_sgd_kernel_long_chain(cuda_device):
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("I,H", [(16, 8), (784, 128)])
+@pytest.mark.parametrize("I,H", [(16, 8), (784, 128), (784, 512)])
 def test_local_sgd_rows_do_not_depend_on_client_order(cuda_device, I, H):
     """The clients' rows given in reverse, so that the stable longest-first
     sort hands tied clients to other clusters, give bit-equal rows, in
@@ -140,17 +140,17 @@ def test_local_sgd_shape_that_fits_no_cluster_raises(cuda_device):
                   epochs=1)
 
 
-@pytest.mark.parametrize("hidden", [257, 512])
+@pytest.mark.parametrize("hidden", [1025, 1536])
 def test_engine_rejects_a_width_the_kernel_cannot_take(cuda_device, hidden):
-    """A hidden width past the kernel's ceiling (more than 16 slices of 16
+    """A hidden width past the kernel's ceiling (more than 16 slices of 64
     columns) raises, naming the ceiling, when the server is built on the
     kernel route, before any round; nothing falls back to the plain route,
     which takes it only when asked for."""
-    with pytest.raises(ValueError, match="at most 256"):
+    with pytest.raises(ValueError, match="at most 1024"):
         FedARServer(small_model(hidden), fleet_fed(12), TaskRequirement())
     g, x, y, act, mask = _sgd_inputs(cuda_device, I=16, H=hidden)
     n0 = local_sgd.launches
-    with pytest.raises(ValueError, match="at most 256"):
+    with pytest.raises(ValueError, match="at most 1024"):
         local_sgd(g, x, y, act, mask, hidden=hidden, classes=10, lr=0.1, batch_size=20,
                   epochs=1)
     assert local_sgd.launches == n0
@@ -167,6 +167,14 @@ UNPADDED_PLAN_DIGESTS = {8: "5d1e3ad28c80c62a", 16: "09c3518f4284ecf5", 32: "bf8
                      64: "fb9b4cdb12359b0f", 128: "7172f3ee2a6f51d1"}
 
 
+# The same digests at the widths the narrow plan pads (H = 100 to 7 x 16,
+# 200 to 13 x 16, 256 as 16 x 16), as the kernel wrote them before H could
+# pass 256, on an NVIDIA H100 80GB HBM3 (CUDA 12.8, torch 2.11): the wide
+# instance leaves the narrow plan bit for bit as it was.
+PADDED_PLAN_DIGESTS = {100: "edfe7272867f1fa2", 200: "149278d0755be822",
+                       256: "6b4422a4ca450622"}
+
+
 def _widths_script():
     import importlib.util
 
@@ -177,33 +185,51 @@ def _widths_script():
     return mod
 
 
+def _width_digests(dev, H):
+    """The digests of both forms' output bits on the widths script's inputs
+    (I = 784, R = 12, n = 200, E = 5)."""
+    w = _widths_script()
+    g, x, y, act, mask = (torch.as_tensor(a, device=dev) for a in w.inputs(H, 12, 200))
+    kw = dict(hidden=H, classes=10, lr=0.1, epochs=5)
+    dense = local_sgd(g, x, y, act, mask, batch_size=20, **kw)
+    xt, yt, mt, nb, off = (torch.as_tensor(a, device=dev) for a in
+                           w.ragged(x.cpu().numpy(), y.cpu().numpy(), mask.cpu().numpy(), 20))
+    rag = local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw)
+    return w.digest(dense), w.digest(rag)
+
+
 @pytest.mark.parametrize("H", sorted(UNPADDED_PLAN_DIGESTS))
 def test_local_sgd_bit_equal_to_the_unpadded_plan(cuda_device, H):
     from repro_torch.kernels.local_sgd import plan
 
-    w = _widths_script()
-    g, x, y, act, mask = (torch.as_tensor(a, device=cuda_device)
-                          for a in w.inputs(H, 12, 200))
-    kw = dict(hidden=H, classes=10, lr=0.1, epochs=5)
-    dense = local_sgd(g, x, y, act, mask, batch_size=20, **kw)
-    xt, yt, mt, nb, off = (torch.as_tensor(a, device=cuda_device) for a in
-                           w.ragged(x.cpu().numpy(), y.cpu().numpy(), mask.cpu().numpy(), 20))
-    rag = local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw)
-    assert w.digest(dense) == w.digest(rag) == UNPADDED_PLAN_DIGESTS[H]
+    assert _width_digests(cuda_device, H) == (UNPADDED_PLAN_DIGESTS[H],) * 2
     K, HS = plan(784, H, 10, 20)[:2]
     assert K * HS == H and K <= 8
 
 
-@pytest.mark.parametrize("H,K", [(100, 7), (200, 13), (256, 16)])
-def test_local_sgd_kernel_at_wide_hidden_matches_plain(cuda_device, H, K):
-    """H padded to K slices of 16 columns (K > 8: a non-portable cluster):
-    both activations, a ragged tail, an all-masked batch and an all-False
-    client against the plain version; the ragged form bit-equal to the
-    dense; at least one cluster resident."""
+@pytest.mark.parametrize("H", sorted(PADDED_PLAN_DIGESTS))
+def test_local_sgd_bit_equal_to_the_padded_plan(cuda_device, H):
+    from repro_torch.kernels.local_sgd import plan
+
+    assert _width_digests(cuda_device, H) == (PADDED_PLAN_DIGESTS[H],) * 2
+    K, HS, _, _, streamed = plan(784, H, 10, 20)
+    assert HS == 16 and K * HS >= H and not streamed
+
+
+@pytest.mark.parametrize("H,K,HS", [(100, 7, 16), (200, 13, 16), (256, 16, 16),
+                                    (257, 11, 24), (512, 16, 32), (813, 15, 56),
+                                    (1024, 16, 64)])
+def test_local_sgd_kernel_at_wide_hidden_matches_plain(cuda_device, H, K, HS):
+    """H padded to K slices of HS columns (K > 8: a non-portable cluster;
+    past H = 256 w1 streamed from L2): both activations, a ragged tail, an
+    all-masked batch and an all-False client against the plain version; the
+    ragged form bit-equal to the dense; at least one cluster resident, no
+    spills."""
     from repro_torch.kernels.local_sgd import kernel_attrs
 
     a = kernel_attrs(784, H, 10, 20)
-    assert (a["cluster"], a["slice"]) == (K, 16) and a["max_clusters"] >= 1
+    assert (a["cluster"], a["slice"], a["streamed"]) == (K, HS, H > 256)
+    assert a["max_clusters"] >= 1
     assert a["dynamic_smem"] <= ops.MAX_SMEM_BYTES and a["local_bytes"] == 0
     g, x, y, act, mask = _sgd_inputs(cuda_device, I=784, H=H, R=6, n=57)
     g = g / 6
@@ -216,19 +242,23 @@ def test_local_sgd_kernel_at_wide_hidden_matches_plain(cuda_device, H, K):
     assert torch.equal(local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw), got)
 
 
-@pytest.mark.parametrize("layout", ["dense", "packed"])
-@pytest.mark.parametrize("hidden", [100, 256])
+@pytest.mark.parametrize("layout", ["dense", "packed", "gated"])
+@pytest.mark.parametrize("hidden", [100, 256, 257, 512, 813, 879, 1024])
 def test_wide_hidden_rounds_on_the_kernel_route_match_einsum(cuda_device, hidden, layout):
-    """``small_model(100)`` and ``small_model(256)`` through the engine on
-    the kernel route (``sgd_impl="auto"``), dense and packed, against
-    ``sgd_impl="einsum"``: trust and masks identical, params within 2e-4."""
+    """``small_model(hidden)`` through the engine on the default route
+    (``sgd_impl="auto"``, which resolves to the kernel on the card), dense,
+    packed and gated packed (half the fleet selected), against
+    ``sgd_impl="einsum"``: one launch a round, trust and masks identical,
+    params within 2e-4."""
     ds = make_federated("digits", 16, scenario="quantity_skew", samples_per_client=60,
                         seed=7)
-    fed = fleet_fed(16, defense="foolsgold_sketch")
+    fed = fleet_fed(16, defense="foolsgold_sketch",
+                    **(dict(select_frac=0.5) if layout == "gated" else {}))
     kern = local_sgd if layout == "dense" else local_sgd_ragged
     n0 = kern.launches
     server = FedARServer(small_model(hidden), fed, TaskRequirement())
-    data = server.engine.prepare_data(ds, layout=layout)
+    assert server.engine.sgd_route == "kernel"
+    data = server.engine.prepare_data(ds, layout="dense" if layout == "dense" else "packed")
     server.run(data, rounds=3)
     assert kern.launches == n0 + 3
     plain = FedARServer(small_model(hidden), dataclasses.replace(fed, sgd_impl="einsum"),

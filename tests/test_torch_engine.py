@@ -108,6 +108,21 @@ def test_dense_foolsgold_trajectory_matches_live_reference(aggregation):
     np.testing.assert_allclose(hist["acc"], np.asarray(jouts.acc), atol=2e-4)
 
 
+def test_wide_hidden_round_matches_live_reference():
+    """``small_model(320)``, a width past 256 (on the card the local-SGD
+    kernel's wide instance, w1 streamed from L2), through both engines on
+    the CPU: the 12-robot fleet with 60 samples, 2 rounds of fedar +
+    foolsgold_sketch, replayed draws.  Trust, selection and masks exactly;
+    params and the defense history within atol = rtol = 2e-4."""
+    jstate, jouts, server, hist = run_both(2, hidden=320, defense="foolsgold_sketch")
+    assert server.engine.model.cfg.hidden == 320
+    assert_bookkeeping_equal(jstate, jouts, server, hist)
+    np.testing.assert_allclose(server.state.params.numpy(),
+                               np.asarray(jstate.params), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(server.fg_history.numpy(),
+                               np.asarray(jstate.fg_history), rtol=2e-4, atol=2e-4)
+
+
 def test_imports_leave_out_jax_and_reference():
     """Importing every module of the port, the LM trunk's and its two
     kernels', the fault schedule's, the cohort engine's, the checkpoints',

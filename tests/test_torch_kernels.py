@@ -151,10 +151,12 @@ def test_model_local_sgd_matches_reference(masked):
                                        rtol=1e-5, atol=1e-5)
 
 
-# Kernels 1 and 4 take any hidden width up to 256 on the card, padding H
-# to K slices of 16 columns where no portable split fits (H = 100, 200);
+# Kernels 1 and 4 take any hidden width up to 1,024 on the card: up to 256
+# padding H to K slices of 16 columns where no portable split fits (H =
+# 100, 200), past it the wide instance, w1 streamed from L2 (H = 512, and
+# 879, the widest the reference's kernel takes at I = 784 and one sample);
 # their plain versions are the CPU route and the card's yardstick.
-WIDE = (100, 200, 256)
+WIDE = (100, 200, 256, 512, 879)
 
 
 def _wide_inputs(Hw, R=4, n=30, seed=5):
@@ -181,7 +183,7 @@ def _split(g, Hw):
 @pytest.mark.parametrize("Hw", WIDE)
 def test_local_sgd_plain_matches_pallas_interpret_at_wide_hidden(Hw):
     """``local_sgd`` (on CPU tensors, its plain version) against the Pallas
-    ``local_sgd_fused`` in interpret mode at H = 100, 200, 256, B = 10,
+    ``local_sgd_fused`` in interpret mode at H = 100 ... 879, B = 10,
     2 epochs: atol = rtol = 1e-5 (fp32 reassociation)."""
     g, x, y, act, mask = _wide_inputs(Hw)
     p = _split(g, Hw)
@@ -198,7 +200,7 @@ def test_local_sgd_plain_matches_pallas_interpret_at_wide_hidden(Hw):
 @pytest.mark.parametrize("Hw", WIDE)
 def test_local_sgd_ragged_plain_matches_pallas_interpret_at_wide_hidden(Hw):
     """``local_sgd_ragged`` (plain on the CPU) against the Pallas
-    ``local_sgd_fused_ragged`` in interpret mode at H = 100, 200, 256: the
+    ``local_sgd_fused_ragged`` in interpret mode at H = 100 ... 879: the
     dense inputs cut into tiles of 10, client 1 with one tile fewer."""
     from repro.kernels.local_sgd import local_sgd_fused_ragged
     from repro_torch.kernels.local_sgd import local_sgd_ragged
