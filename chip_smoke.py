@@ -238,7 +238,12 @@ Phases (any failure raises and the script exits non-zero):
    two gated packed rounds (128 quantity-skewed clients, ``select_frac``
    0.5) at ``small_model(512)`` on ``local_sgd_ragged``, each held against
    the einsum route.  Past H = 256 the round timeout comes from the fleet's
-   latencies (``wide_fed``).
+   latencies (``wide_fed``).  Then the kernels' general instance
+   (``fedar_general``): the paper's Fig. 6 grid, (B, E) = (10, 20), (20,
+   5), (40, 5), on the 12 robots at 784 -> 128 -> 10 (200 samples a robot,
+   a 30 virtual s timeout), 3 rounds each; 512 clients at B = 50 and B =
+   200, 2 rounds each; two gated packed rounds with tiles of B = 40; every
+   round held against the einsum route as above.
 
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
@@ -249,7 +254,10 @@ plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
 cluster of 16), H = 100 (padded to 7 x 16 columns) and, w1 streamed from
 L2, H = 512 (16 x 32) and 813 (15 x 56), dense at 512 clients with both
 activations and a partial last batch and ragged on phase 7's tiles, a row
-past the tight bound arbitrated by the plain version in float64; and ``flash_attention`` and ``ssm_scan`` against
+past the tight bound arbitrated by the plain version in float64; both on
+the general instance at ``GENERAL_SHAPES`` (batches past 20, class counts
+past 16, I not a multiple of 4, H past 1,024, B = 40 past H = 256), the
+ragged form bit-equal to the dense on the same batches; and ``flash_attention`` and ``ssm_scan`` against
 their plain versions at phases 9's and 12's shapes, in bf16 and fp32 (the
 1 x 8,192 prompt in bf16; gemma3-1b's head_dim 256 with and without its
 512 window, a ragged S; yi-9b's 32 heads over 4; phase 15's qwen2-moe-a2.7b
@@ -889,6 +897,102 @@ def wide_sgd_phase(ref, local_sgd, local_sgd_ragged, packed) -> dict:
         out[H] = dict(dense=dense, ragged=dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                                bound_ms=b_ms, bound_by=b_by,
                                                chain_floor_ms=floor))
+    return out
+
+
+def dense_tiles(x, y, mask, B):
+    """The (T, B, I) tile buffer of a dense (R, n) rectangle, client after
+    client, every client ``ceil(n / B)`` tiles (the tail zero-padded and
+    masked), with its nb and off: kernel 4's view of the same batches."""
+    R, n, I = x.shape
+    nb = -(-n // B)
+    pad = nb * B - n
+    xt = torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(R * nb, B, I)
+    yt = torch.nn.functional.pad(y, (0, pad)).reshape(R * nb, B)
+    mt = torch.nn.functional.pad(mask, (0, pad)).reshape(R * nb, B)
+    counts = torch.full((R,), nb, dtype=torch.int32, device=x.device)
+    off = (torch.arange(R, device=x.device, dtype=torch.int32) * nb)
+    return xt, yt, mt, counts, off
+
+
+# Phase 2's shapes for the general instance of kernels 1 and 4: (label,
+# I, H, C, B); the fleet's pixels cut to I columns where I < 784, its
+# labels drawn anew over C classes where C > 10
+GENERAL_SHAPES = [
+    ("B = 40", 784, 128, 10, 40), ("B = 50", 784, 128, 10, 50),
+    ("B = 200", 784, 128, 10, 200), ("C = 47", 784, 128, 47, 20),
+    ("C = 100", 784, 128, 100, 20), ("I = 13", 13, 128, 10, 20),
+    ("I = 30", 30, 128, 10, 20), ("I = 16, H = 4096", 16, 4096, 10, 20),
+    ("H = 512, B = 40", 784, 512, 10, 40),
+]
+
+
+def general_sgd_phase(ref, local_sgd, local_sgd_ragged) -> dict:
+    """Phase 2, kernels 1 and 4 on the general instance, at the shapes no
+    other instance takes (``GENERAL_SHAPES``: batches past 20 at MNIST
+    width, class counts past 16, I not a multiple of 4, H past 1,024, B = 40
+    past H = 256), on phase 4's fleet (R = 512, n = 200, E = 5, clients
+    alternating ReLU and softmax, the last 7 samples masked), each against
+    its plain version by phase 4's per-row rule with the float64 arbiter
+    (``compare_rows``' ``f64_rows``), the ragged form on the same batches
+    bit-equal to the dense, with ms, bound, plain ms and the plan's
+    resources.  Returns {label: entry} for the JSON line."""
+    from repro_torch.data.federated import scaled_fleet
+    from repro_torch.kernels.local_sgd import kernel_attrs
+
+    E, lr = 5, 0.1
+    gen = torch.Generator().manual_seed(30)
+    fleet = scaled_fleet(512, samples_per_client=200)
+    x784 = torch.as_tensor(fleet["x"], device=DEV)
+    y10 = torch.as_tensor(fleet["y"], device=DEV)
+    R, n = y10.shape
+    act = (torch.arange(R) % 2).to(torch.int32).to(DEV)
+    mask = torch.ones(R, n, dtype=torch.bool, device=DEV)
+    mask[:, n - 7:] = False
+    cols = torch.randperm(784, generator=gen)
+    out = {}
+    for label, I, H, C, B in GENERAL_SHAPES:
+        x = x784 if I == 784 else x784[:, :, cols[:I].to(DEV)].contiguous()
+        y = (y10 if C == 10 else
+             torch.randint(0, C, (R, n), generator=gen, dtype=torch.int32).to(DEV))
+        D = H + C + I * H + H * C
+        g = (torch.randn(D, generator=gen) * 0.05).to(DEV)
+        a = kernel_attrs(I, H, C, B)
+        if a["instance"] != "general":
+            raise AssertionError(f"{label}: the plan chose the {a['instance']} instance")
+        print(f"local_sgd / local_sgd_ragged at I = {I}, H = {H}, C = {C}, B = {B}: "
+              f"{a['instance']} instance, {a['cluster']} x {a['slice']} columns, "
+              f"{a['rows']} batch rows a sub-tile, {a['workspace'] * 4} workspace bytes a "
+              f"cluster, {a['dynamic_smem']} dynamic shared bytes a CTA, {a['registers']} "
+              f"registers and {a['local_bytes']} spilled bytes a thread, "
+              f"{a['max_clusters']} clusters of {a['cluster']} on the card at once")
+        kw = dict(hidden=H, classes=C, lr=lr, epochs=E)
+        got = local_sgd(g, x, y, act, mask, batch_size=B, **kw)
+        want = ref.local_sgd_ref(g, x, y, act, mask, batch_size=B, **kw)
+        torch.cuda.synchronize()
+
+        def dense_f64(rows):
+            return ref.local_sgd_ref(g.double(), x[rows].double(), y[rows], act[rows],
+                                     mask[rows], batch_size=B, dtype=torch.float64, **kw)
+
+        err = compare_rows(f"dense, R={R}, n={n}, mixed activations, partial last batch",
+                           got, want, atol=1e-4, rtol=1e-4, kink_atol=2e-3,
+                           f64_rows=dense_f64)
+        tiles = dense_tiles(x, y, mask, B)
+        compare_exact("local_sgd_ragged on the same batches vs local_sgd",
+                      local_sgd_ragged(g, *tiles[:3], act, *tiles[3:], **kw), got)
+        k_ms = time_ms(lambda: local_sgd(g, x, y, act, mask, batch_size=B, **kw), reps=3)
+        r_ms = time_ms(lambda: local_sgd_ragged(g, *tiles[:3], act, *tiles[3:], **kw),
+                       reps=3)
+        p_ms = time_ms(lambda: ref.local_sgd_ref(g, x, y, act, mask, batch_size=B, **kw),
+                       reps=1, warmup=0)
+        b_ms, b_by = bound_ms(4 * (x.numel() + y.numel() + mask.numel() + D + R * D + R),
+                              sgd_flops(mask, B, I, H, C, E))
+        print(f"    kernel 1 {k_ms:.3f} ms, kernel 4 {r_ms:.3f} ms, plain {p_ms:.3f} ms, "
+              f"bound {b_ms:.3g} ms ({b_by})")
+        out[label] = dict(I=I, H=H, C=C, B=B, max_abs_err=err, ms=k_ms, ragged_ms=r_ms,
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **a)
+        del tiles, got, want
     return out
 
 
@@ -3745,6 +3849,79 @@ def fedar_wide(req, eval_set, sketched, every, entries) -> None:
         check_packed_wide_round(r, server, plain.engine, data, start, end, 512)
 
 
+# The paper's Fig. 6 grid of (B, E) (``benchmarks/fedar_figs.py``
+# ``fig6_batch_epoch``: 200 samples a robot, a 30 virtual s timeout)
+FIG6_GRID = [(10, 20), (20, 5), (40, 5)]
+
+
+def fedar_general(req, eval_set, sketched, every, entries) -> None:
+    """17c on the general instance: the 12-robot Table II fleet at 784 ->
+    128 -> 10 (fedar + foolsgold_sketch) at the paper's Fig. 6 points
+    ``FIG6_GRID``, 3 rounds each (B = 10 and 20 on the narrow plan, B = 40
+    on the general instance); ``scaled_fleet(512, 200)`` at B = 50 and at B
+    = 200 (a full batch), 2 rounds each; every round held against
+    ``sgd_impl="einsum"`` from the same state with float64 as the arbiter
+    (``check_wide_round``).  Then two gated packed rounds with the layout
+    tiled at B = 40 (kernel 4 on the general instance), each against the
+    einsum route (``check_packed_wide_round``)."""
+    from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
+    from repro_torch.core.engine import PackedLayout
+    from repro_torch.core.fedar import FedARServer
+    from repro_torch.data.datasets import make_federated
+    from repro_torch.data.federated import scaled_fleet, table2_fleet
+    from repro_torch.kernels.local_sgd import local_sgd_ragged, plan
+
+    cfg = MnistConfig()
+    H = cfg.hidden
+    fleet = table2_fleet(samples_per_client=200)
+    big = scaled_fleet(512, samples_per_client=200)
+    runs = [(fleet, B, E, 3, dict(timeout=30.0)) for B, E in FIG6_GRID]
+    runs += [(big, B, 5, 2, {}) for B in (50, 200)]
+    out = entries["local_sgd"]["phase17"]
+    for data_np, B, E, rounds, extra in runs:
+        N = data_np["x"].shape[0]
+        inst = plan(cfg.input_dim, H, cfg.num_classes, B).instance
+        print(f"  {N} clients x {data_np['x'].shape[1]} samples, 784 -> {H} -> 10, "
+              f"B = {B}, E = {E} ({inst} instance), {rounds} rounds")
+        fed = fleet_fed(N, defense="foolsgold_sketch", local_batch_size=B, local_epochs=E,
+                        **extra)
+        server = FedARServer(cfg, fed, req, device=DEV)
+        if server.engine.sgd_route != "kernel":
+            raise AssertionError(f"sgd_impl='auto' at B = {B} did not resolve to the kernel")
+        data = server.engine.device_data(data_np)
+        times, launches, starts = timed_rounds(server, data, eval_set, rounds, sketched, every)
+        if launches["local_sgd"] != rounds:
+            raise AssertionError(f"local_sgd launched {launches['local_sgd']} times in "
+                                 f"{rounds} rounds, not once a round")
+        plain = FedARServer(cfg, dataclasses.replace(fed, sgd_impl="einsum"), req, device=DEV)
+        for r, (start, end) in enumerate(zip(starts, starts[1:] + [server.state])):
+            check_wide_round(r, server, plain.engine, data, start, end, H)
+        print(f"  acc {[round(a, 4) for a in server.history['acc']]}; on time "
+              f"{[int(m.sum()) for m in server.history['on_time']]}")
+        out[f"N={N}, B={B}, E={E}"] = dict(
+            instance=inst, launches=launches["local_sgd"],
+            steady_rounds_per_s=(rounds - 1) / sum(times[1:]))
+        del server, plain, data
+    skew = make_federated("digits", 128, scenario="quantity_skew", samples_per_client=200,
+                          seed=7)
+    print(f"  gated packed: 128 quantity-skewed clients, select_frac 0.5, 784 -> {H} -> 10, "
+          f"tiles of B = 40 ({plan(784, H, 10, 40).instance} instance), 2 rounds")
+    fed = fleet_fed(len(skew.sizes), defense="foolsgold_sketch", select_frac=0.5,
+                    local_batch_size=40)
+    server = FedARServer(cfg, fed, req, device=DEV)
+    data = server.engine.prepare_data(skew, layout="packed")
+    if not isinstance(data["packed"], PackedLayout) or data["packed"].tiles["x"].shape[1] != 40:
+        raise AssertionError("prepare_data did not build the packed layout at B = 40")
+    _, launches, starts = timed_rounds(server, data, eval_set, 2,
+                                       (local_sgd_ragged,) + sketched[1:], every)
+    if launches["local_sgd_ragged"] != 2:
+        raise AssertionError("the gated packed rounds did not launch local_sgd_ragged once a "
+                             "round")
+    plain = FedARServer(cfg, dataclasses.replace(fed, sgd_impl="einsum"), req, device=DEV)
+    for r, (start, end) in enumerate(zip(starts, starts[1:] + [server.state])):
+        check_packed_wide_round(r, server, plain.engine, data, start, end, H)
+
+
 def trainer_phase(req, eval_set, sketched, every, entries, smi: str, profile_dir) -> None:
     """Phase 17: the trainer at full width (17a), held card vs CPU (17b),
     and FedAR at the kernels' new widths (17c)."""
@@ -3760,6 +3937,7 @@ def trainer_phase(req, eval_set, sketched, every, entries, smi: str, profile_dir
     t1 = time.perf_counter()
     print("\n[17c FedAR at the kernels' new widths]")
     fedar_wide(req, eval_set, sketched, every, entries)
+    fedar_general(req, eval_set, sketched, every, entries)
     t2 = time.perf_counter()
     print(f"[phase 17] {t2 - t_phase:.1f} s (17a {t0 - t_phase:.1f}, 17b {t1 - t0:.1f}, "
           f"17c {t2 - t1:.1f})")
@@ -3863,6 +4041,8 @@ def main() -> int:
     for H, cases in wide.items():
         entries["local_sgd"].setdefault("wide", {})[H] = cases["dense"]
         entries["local_sgd_ragged"].setdefault("wide", {})[H] = cases["ragged"]
+    entries["local_sgd"]["general"] = general_sgd_phase(ref, local_sgd, local_sgd_ragged)
+    progress(t_start, "phase 2, the local-SGD kernels' general instance")
     del skew_packed, skew_dense, lay
     # phase 9's shapes: zamba2-7b's shared block (32 heads of 112, no kv
     # grouping) over 4 x 2,048 tokens and over one 8,192-token prompt (bf16

@@ -10,8 +10,8 @@ an all-False client) and prints one JSON line: the SHA-256 digest of each
 form's output bits, the largest error against the plain version
 (``kernels/ref.py``), the kernel's median device ms (CUDA events) and, where
 the copy has it, the plan's cluster size, slice width, resources, the
-clusters resident at once and whether w1 streams from L2 (``streamed``:
-the wide instance, H > 256).  A width the copy's kernel refuses prints
+clusters resident at once, whether w1 streams from L2 (``streamed``) and,
+in a copy with the three instances, which one runs (``instance``).  A width the copy's kernel refuses prints
 ``refused`` with its message.  Two copies whose digests agree at a width run
 that width bit for bit alike.  ``--f64`` also holds the kernel and the fp32
 plain version against the plain version in float64, row by row: where the
@@ -137,7 +137,8 @@ def main() -> int:
                        widest_part=dict(row=worst, act=int(act[worst]),
                                         kernel_vs_f64=k_rows[worst].item(),
                                         plain_vs_f64=p_rows[worst].item()))
-        if hasattr(mod, "MAX_HIDDEN"):  # a copy with the padded plan
+        # a copy with the padded plan or with the three instances
+        if hasattr(mod, "MAX_HIDDEN") or hasattr(mod, "INSTANCES"):
             rec.update(mod.kernel_attrs(784, H, C, B))
         print(json.dumps(rec))
     return 0

@@ -4,11 +4,26 @@
 
 namespace {
 
+constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may opt into
+
+// Whether the narrow plan or the wide instance takes (I, H, C, B), as they
+// did before the general instance: rows of whole 16-byte units, C at most
+// 16, a plan with a cluster, and its shared bytes within a block's.
+bool fixed_plan(int I, int H, int C, int B, Plan* p) {
+  if (I < 4 || I % 4 != 0 || H < 1 || C < 1 || C > 16 || B < 1) return false;
+  *p = make_plan(I, H, C, B);
+  return p->K != 0 && p->bytes <= kMaxSmemBytes;
+}
+
 template <bool kRagged>
 int dispatch(const float* g, const float* x, const int* y, const int* act, const float* mask,
-             const int* nb, const int* off, const int* order, float* out, int R, int npad,
-             int I, int H, int C, int B, int epochs, float lr, void* stream) {
-  const Plan p = make_plan(I, H, C, B);
+             const int* nb, const int* off, const int* order, float* out, float* ws,
+             int nclusters, int R, int npad, int I, int H, int C, int B, int epochs, float lr,
+             void* stream) {
+  Plan p;
+  if (!fixed_plan(I, H, C, B, &p))
+    return local_sgd_general_launch(kRagged, g, x, y, act, mask, nb, off, order, out, ws,
+                                    nclusters, R, npad, I, H, C, B, epochs, lr, stream);
   if (p.wide)
     return local_sgd_wide_launch(kRagged, g, x, y, act, mask, nb, off, order, out, R, npad, I,
                                  H, C, B, epochs, lr, stream);
@@ -26,26 +41,44 @@ int dispatch(const float* g, const float* x, const int* y, const int* act, const
 
 }  // namespace
 
-// The cluster size K, the slice width HS, one CTA's threads, its dynamic
-// shared bytes and whether w1 streams from L2 (the wide instance) for (I,
-// H, C, B); -1 for a shape the kernel cannot take (I not a multiple of 4, H
-// over 1,024, B over 20 past H = 256, C over 16).
-extern "C" int fedar_local_sgd_plan(int I, int H, int C, int B, int* K, int* HS,
-                                    int* threads, int* smem_bytes, int* streamed) {
-  if (I < 4 || I % 4 != 0 || H < 1 || C < 1 || C > 16 || B < 1) return -1;
-  const Plan p = make_plan(I, H, C, B);
-  if (p.K == 0) return -1;
-  *K = p.K;
-  *HS = p.HS;
+// The plan of (I, H, C, B): its instance (0 the narrow plan, 1 the wide
+// instance, 2 the general instance), cluster size K, slice width HS, one
+// CTA's threads and dynamic shared bytes, whether w1 streams from L2, the
+// batch rows a sub-tile and the floats of one cluster's workspace slot (the
+// general instance; B and 0 for the others); -1 for a shape no instance
+// takes (a dimension under 1, or a slot or an output row past 2^31 floats).
+extern "C" int fedar_local_sgd_plan(int I, int H, int C, int B, int* instance, int* K,
+                                    int* HS, int* threads, int* smem_bytes, int* streamed,
+                                    int* rows, long long* ws_floats) {
+  Plan p;
+  if (fixed_plan(I, H, C, B, &p)) {
+    *instance = p.wide;
+    *K = p.K;
+    *HS = p.HS;
+    *smem_bytes = p.bytes;
+    *streamed = p.wide;
+    *rows = B;
+    *ws_floats = 0;
+  } else {
+    const GPlan q = make_general_plan(I, H, C, B);
+    if (q.K == 0) return -1;
+    *instance = 2;
+    *K = q.K;
+    *HS = q.HS;
+    *smem_bytes = q.bytes;
+    *streamed = 1;
+    *rows = q.BT;
+    *ws_floats = q.slot;
+  }
   *threads = kThreads;
-  *smem_bytes = p.bytes;
-  *streamed = p.wide;
   return 0;
 }
 
 extern "C" int fedar_local_sgd_attrs(int I, int H, int C, int B, int* regs,
                                      int* local_bytes, int* max_clusters) {
-  const Plan p = make_plan(I, H, C, B);
+  Plan p;
+  if (!fixed_plan(I, H, C, B, &p))
+    return local_sgd_general_attrs(I, H, C, B, regs, local_bytes, max_clusters);
   if (p.wide) return local_sgd_wide_attrs(I, H, C, B, regs, local_bytes, max_clusters);
   switch (p.HS) {
     case 8:
@@ -57,19 +90,21 @@ extern "C" int fedar_local_sgd_attrs(int I, int H, int C, int B, int* regs,
   }
 }
 
+// ws / nclusters: the general instance's workspace (nclusters slots of the
+// plan's ws_floats) and its grid in clusters; unused by the other two.
 extern "C" int fedar_local_sgd(const float* g, const float* x, const int* y,
                                const int* act, const float* mask, const int* order,
-                               float* out, int R, int npad, int I, int H, int C, int B,
-                               int epochs, float lr, void* stream) {
-  return dispatch<false>(g, x, y, act, mask, nullptr, nullptr, order, out, R, npad, I, H, C,
-                         B, epochs, lr, stream);
+                               float* out, float* ws, int nclusters, int R, int npad, int I,
+                               int H, int C, int B, int epochs, float lr, void* stream) {
+  return dispatch<false>(g, x, y, act, mask, nullptr, nullptr, order, out, ws, nclusters, R,
+                         npad, I, H, C, B, epochs, lr, stream);
 }
 
 extern "C" int fedar_local_sgd_ragged(const float* g, const float* xt, const int* yt,
                                       const int* act, const float* mt, const int* nb,
-                                      const int* off, const int* order, float* out, int R,
-                                      int I, int H, int C, int B, int epochs, float lr,
-                                      void* stream) {
-  return dispatch<true>(g, xt, yt, act, mt, nb, off, order, out, R, 0, I, H, C, B, epochs,
-                        lr, stream);
+                                      const int* off, const int* order, float* out,
+                                      float* ws, int nclusters, int R, int I, int H, int C,
+                                      int B, int epochs, float lr, void* stream) {
+  return dispatch<true>(g, xt, yt, act, mt, nb, off, order, out, ws, nclusters, R, 0, I, H, C,
+                        B, epochs, lr, stream);
 }

@@ -1,8 +1,9 @@
 // Fused masked local SGD for the FedAR client MLP (784 -> H -> 10), one
 // thread-block cluster per client, in two forms built from one template.
 // This header holds the template; local_sgd.cu instantiates the narrow plan
-// (H <= 256) and the C interface, local_sgd_wide.cu the wide instance (two
-// translation units, so that nvcc builds them side by side):
+// (H <= 256) and the C interface, local_sgd_wide.cu the wide instance,
+// local_sgd_general.cu the general instance (three translation units, so
+// that nvcc builds them side by side):
 //
 //   local_sgd_kernel<false>  the dense (R, npad) sample rectangle
 //   local_sgd_kernel<true>   the ragged batch-tile buffer of the packed
@@ -77,9 +78,10 @@
 //   act    (R,)          int32, 1 = softmax hidden, else ReLU
 //   order  (R,)          int32, cluster c trains client order[c]
 //   out    (R, D)        post-SGD params, same flat order as g
-// I must be a multiple of 4 (16-byte rows for the bulk copy and float4
-// reads), H at most 1,024 (past 256, B at most 20) and C at most 16; the
-// wrapper checks them.
+// The narrow plan and the wide instance need I a multiple of 4 (16-byte
+// rows for the bulk copy and float4 reads), C at most 16, H at most 1,024
+// (past 256, B at most 20) and a plan within a block's shared memory;
+// every other shape goes to the general instance (below the template).
 //
 // Hidden widths.  Where H splits into at most 8 slices of 8 or 16 columns
 // (H one of 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128) the plan is
@@ -967,6 +969,570 @@ int attrs(const Plan& p, int* regs, int* local_bytes, int* max_clusters) {
   return (int)cudaOccupancyMaxActiveClusters(max_clusters, local_sgd_kernel<false, kHS>, &cfg);
 }
 
+
+// ------------------------------------------------------------------------
+// The general instance: every shape the narrow plan and the wide instance
+// refuse -- batches whose two x tiles do not fit shared memory (B > 20 at
+// I = 784), any class count, any input width, H past 1,024 -- so every
+// shape of the reference's envelope (repro/kernels/local_sgd.py:57
+// fused_fits_vmem).  Simple before fast: one cluster of K <= 8 CTAs a
+// client (K = ceil(H / 64) up to H = 512, else 8), CTA `rank` owning the
+// model columns [h0, h0 + nreal) of the hidden layer, with no pad column.
+// A step is five block-wide products (x w1, h w2, dl w2^T, h^T dl, x^T
+// dhp), each a tiled loop over global memory (`block_gemm`); the batch goes
+// through in sub-tiles of BT <= 64 rows, their w1, w2, b1, b2 gradients
+// summed before one update, so x is never held whole.  The client's output
+// row is the parameters' working copy, read and written in place as in the
+// wide instance.  Per-row temporaries (hpre, h, dh: BT x HS a CTA; the
+// logits' K shares and d logits: BT x C) and the summed gradients live in
+// the cluster's slot of a workspace in global memory, one slot for each
+// cluster of the grid; the grid is as many clusters as fit on the card at
+// once, each walking clients order[c], order[c + G], ....  What crosses the
+// slices (a row's logits, the softmax hidden layer's row max and sum and
+// its backward dot) goes through the slot, the cluster barrier between
+// writer and reader.  Every sum runs in an order fixed by the shapes, so
+// rows do not depend on the client order and the ragged form's rows are
+// the dense form's.  What bounds it: a product's 32-term chunk loop, at 8
+// warps an SM, waits on shared-memory reads, and each phase on an L2 round
+// trip or a cluster barrier (PERF.md section 6 has its times).
+
+constexpr int kTM = 64, kTN = 64, kTK = 32;  // a product's output tile, k chunk
+constexpr int kLoads = kTM * kTK / kThreads;  // elements of a chunk a thread loads
+constexpr int kLD = kTM + 4;                 // smem row pitch (16-byte rows)
+constexpr int kGemmFloats = 2 * kTK * kLD;   // a chunk of A and of B
+constexpr int kGeneralSlice = 64;            // columns a CTA up to H = 512
+constexpr int kMaxRows = 64;                 // batch rows of a sub-tile
+constexpr long long kRowFloats = 1 << 17;    // K x rows x max(C, HS) at most
+constexpr long long kMaxSlotFloats = (1ll << 31) - 1;
+
+// The general instance's plan: cluster size, slice width, batch rows a
+// sub-tile (BT) and sub-tiles a batch, and the layout of one cluster's
+// workspace slot in floats (offsets multiples of 4).  A function of the
+// shapes only.
+struct GPlan {
+  int K, HS, BT, nsub;
+  long long o_lpart, o_dl, o_stat, o_dot, o_gb2, o_cta, cta;  // a slot
+  long long c_hpre, c_hact, c_dh, c_gw1, c_gw2, c_gb1;        // a CTA's region
+  long long slot;                                              // 0: refused
+  int bytes;                                                   // dynamic smem
+};
+
+inline long long up4ll(long long v) { return (v + 3) & ~3ll; }
+
+GPlan make_general_plan(int I, int H, int C, int B) {
+  GPlan p{};
+  if (I < 1 || H < 1 || C < 1 || B < 1) return p;
+  if (H <= kMaxPortable * kGeneralSlice) {
+    p.HS = H < kGeneralSlice ? H : kGeneralSlice;
+  } else {
+    p.HS = (H + kMaxPortable - 1) / kMaxPortable;
+  }
+  p.K = (H + p.HS - 1) / p.HS;
+  const long long wide = (long long)p.K * (C > p.HS ? C : p.HS);
+  long long bt = kRowFloats / wide;
+  if (bt < 1) bt = 1;
+  if (bt > kMaxRows) bt = kMaxRows;
+  if (bt > B) bt = B;
+  p.BT = (int)bt;
+  p.nsub = (B + p.BT - 1) / p.BT;
+  const bool acc = p.nsub > 1;  // gradients summed over sub-tiles
+  long long off = 0;
+  auto take = [&off](long long n) {
+    const long long o = off;
+    off += up4ll(n);
+    return o;
+  };
+  p.o_lpart = take((long long)p.K * p.BT * C);
+  p.o_dl = take((long long)p.BT * C);
+  p.o_stat = take(2ll * p.K * p.BT);
+  p.o_dot = take((long long)p.K * p.BT);
+  p.o_gb2 = take(acc ? C : 0);
+  p.o_cta = off;
+  long long c = 0;
+  auto tk = [&c](long long n) {
+    const long long o = c;
+    c += up4ll(n);
+    return o;
+  };
+  p.c_hpre = tk((long long)p.BT * p.HS);
+  p.c_hact = tk((long long)p.BT * p.HS);
+  p.c_dh = tk((long long)p.BT * p.HS);
+  p.c_gw1 = tk(acc ? (long long)I * p.HS : 0);
+  p.c_gw2 = tk(acc ? (long long)p.HS * C : 0);
+  p.c_gb1 = tk(acc ? p.HS : 0);
+  p.cta = c;
+  p.slot = off + p.K * c;
+  const long long D = (long long)H + C + (long long)I * H + (long long)H * C;
+  if (p.slot > kMaxSlotFloats || D > kMaxSlotFloats) {
+    p.K = 0;
+    p.slot = 0;
+  }
+  p.bytes = (kGemmFloats + 4) * 4;  // the ring of chunks, the mask counts
+  return p;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// A butterfly: every lane ends with the same sum (each pair adds the same
+// two values).
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The general instance's loads and stores of the workspace and the output
+// row: L2 only (ld / st.global.cg), since other CTAs of the cluster read
+// and write them; volatile, so they keep their order among themselves and
+// around the barriers, but no "memory" clobber (unlike __stcg), so a store
+// does not hold back the loads that follow it.
+__device__ __forceinline__ float ld_l2(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_l2(float* p, float v) {
+  asm volatile("st.global.cg.f32 [%0], %1;" ::"l"(p), "f"(v));
+}
+
+// One thread's share of a product's next chunk: elements e = tid + 256 j
+// (j < 8) of the 64 x 32 A chunk and the 32 x 64 B chunk at (m0, n0, k0),
+// 0 past the edges, into registers.  A chunk's threads walk the operand's
+// contiguous axis, so neighbouring lanes read neighbouring addresses.
+template <bool kAk, bool kBk>
+__device__ __forceinline__ void gemm_load(const float* A, long long sa, const float* Bm,
+                                          long long sb, int M, int N, int Kd, int m0, int n0,
+                                          int k0, float (&ra)[kLoads], float (&rb)[kLoads]) {
+  constexpr int dm = kThreads / kTK, dk = kThreads / kTM;  // rows, terms a j
+  const int tid = threadIdx.x;
+  // A(m, k): kAk: m = tid / 32 + 8 j, k = tid % 32; else m = tid % 64,
+  // k = tid / 64 + 4 j
+  const int am = m0 + (kAk ? tid / kTK : tid % kTM), ak = k0 + (kAk ? tid % kTK : tid / kTM);
+  const int bn = n0 + (kBk ? tid / kTK : tid % kTN), bk = k0 + (kBk ? tid % kTK : tid / kTN);
+#pragma unroll
+  for (int j = 0; j < kLoads; ++j) {
+    const int m = kAk ? am + dm * j : am, k = kAk ? ak : ak + dk * j;
+    ra[j] = m < M && k < Kd ? ld_l2(A + (kAk ? (long long)m * sa + k : (long long)k * sa + m))
+                            : 0.f;
+    const int n = kBk ? bn + dm * j : bn, kb = kBk ? bk : bk + dk * j;
+    rb[j] = n < N && kb < Kd ? ld_l2(Bm + (kBk ? (long long)n * sb + kb : (long long)kb * sb + n))
+                             : 0.f;
+  }
+}
+
+// One block's C = A @ B over M x N outputs and Kd terms.  A(m, k) = A[m *
+// sa + k] when kAk (rows along k), else A[k * sa + m]; B(k, n) = B[n * sb +
+// k] when kBk, else B[k * sb + n].  Operands are read from L2, in 64 x 64
+// output tiles and 32-term chunks through shared memory, the next chunk's
+// loads in flight during this one's FMAs; a thread owns 4 x 4 outputs and
+// sums its terms in k order, so every output's rounding depends on the
+// shapes alone.  Each output is finished in two passes over the thread's
+// 16: pre(m, n) loads what the output needs (a float2), then post(m, n,
+// sum, pre) stores it, so the loads of a read-modify-write overlap.  Ends
+// on a block barrier.
+template <bool kAk, bool kBk, typename Pre, typename Post>
+__device__ __forceinline__ void block_gemm(const float* A, long long sa, const float* Bm,
+                                           long long sb, int M, int N, int Kd, float* sm,
+                                           Pre pre, Post post) {
+  // opaque to the compiler: the address arithmetic stays in each product
+  // instead of being hoisted out of the chain's loop for all five at once
+  asm volatile("" : "+l"(A), "+l"(Bm));
+  float* As = sm;              // As[k * kLD + m]
+  float* Bs = sm + kTK * kLD;  // Bs[k * kLD + n]
+  constexpr int dm = kThreads / kTK, dk = kThreads / kTM;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  // where this thread's loaded elements go in the chunk
+  const int sam = kAk ? tid / kTK : tid % kTM, sak = kAk ? tid % kTK : tid / kTM;
+  const int sbn = kBk ? tid / kTK : tid % kTN, sbk = kBk ? tid % kTK : tid / kTN;
+  for (int tm = 0; tm < M; tm += kTM)
+    for (int tn = 0; tn < N; tn += kTN) {
+      int m0 = tm, n0 = tn;
+      asm volatile("" : "+r"(m0), "+r"(n0));  // nothing of a tile is hoisted
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      float ra[kLoads], rb[kLoads];
+      gemm_load<kAk, kBk>(A, sa, Bm, sb, M, N, Kd, m0, n0, 0, ra, rb);
+      for (int k0 = 0; k0 < Kd; k0 += kTK) {
+        __syncthreads();  // the previous chunk's readers are done
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          As[(kAk ? sak : sak + dk * j) * kLD + (kAk ? sam + dm * j : sam)] = ra[j];
+          Bs[(kBk ? sbk : sbk + dk * j) * kLD + (kBk ? sbn + dm * j : sbn)] = rb[j];
+        }
+        __syncthreads();
+        if (k0 + kTK < Kd) gemm_load<kAk, kBk>(A, sa, Bm, sb, M, N, Kd, m0, n0, k0 + kTK, ra, rb);
+#pragma unroll
+        for (int k = 0; k < kTK; ++k) {
+          const float4 a = ld4(As + k * kLD + 4 * ty);
+          const float4 b = ld4(Bs + k * kLD + 4 * tx);
+          const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+      }
+      float2 pv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int m = m0 + 4 * ty + i, n = n0 + 4 * tx + j;
+          pv[i][j] = m < M && n < N ? pre(m, n) : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int m = m0 + 4 * ty + i, n = n0 + 4 * tx + j;
+          if (m < M && n < N) post(m, n, acc[i][j], pv[i][j]);
+        }
+    }
+  __syncthreads();
+}
+
+// Nothing to load before an output's store.
+struct NoPre {
+  __device__ float2 operator()(int, int) const { return make_float2(0.f, 0.f); }
+};
+
+// The row helpers below take a row's n values at lane, lane + 32, ... in
+// groups of four loads in flight, since an L2 round trip, not the
+// arithmetic, is what a warp waits for.
+
+// out[h] = f(h, a[h], b[h]) (b = nullptr: 0), every load of a group before
+// its stores (out may be a or b).
+template <typename F>
+__device__ __forceinline__ void map_row(const float* a, const float* b, float* out, int n,
+                                        int lane, F f) {
+  for (int h0 = lane; h0 < n; h0 += 128) {
+    float va[4], vb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = h0 + 32 * q;
+      va[q] = h < n ? ld_l2(a + h) : 0.f;
+      vb[q] = h < n && b ? ld_l2(b + h) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (h0 + 32 * q < n) st_l2(out + h0 + 32 * q, f(h0 + 32 * q, va[q], vb[q]));
+  }
+}
+
+// acc = f(acc, a[h], b[h]) over the lane's h in order (b = nullptr: 0).
+template <typename F>
+__device__ __forceinline__ float fold_row(const float* a, const float* b, int n, int lane,
+                                          float acc, F f) {
+  for (int h0 = lane; h0 < n; h0 += 128) {
+    float va[4], vb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = h0 + 32 * q;
+      va[q] = h < n ? ld_l2(a + h) : 0.f;
+      vb[q] = h < n && b ? ld_l2(b + h) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (h0 + 32 * q < n) acc = f(acc, va[q], vb[q]);
+  }
+  return acc;
+}
+
+// sum over m < n of p[m * stride], in m order, eight loads in flight.
+__device__ __forceinline__ float sum_col(const float* p, long long stride, int n) {
+  float s = 0.f;
+  for (int m0 = 0; m0 < n; m0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v[q] = m0 + q < n ? ld_l2(p + (m0 + q) * stride) : 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (m0 + q < n) s += v[q];
+  }
+  return s;
+}
+
+// The K (<= 8) ranks' values p[k * stride], all loads in flight at once.
+__device__ __forceinline__ void load_ranks(const float* p, long long stride, int K,
+                                           float (&v)[kMaxPortable]) {
+#pragma unroll
+  for (int k = 0; k < kMaxPortable; ++k) v[k] = k < K ? ld_l2(p + k * stride) : 0.f;
+}
+
+// A sum over a batch's sub-tiles: the first sub-tile starts it from 0.
+__device__ __forceinline__ float carried(const float* acc, long long k, bool first) {
+  return first ? 0.f : ld_l2(acc + k);
+}
+
+template <bool kRagged>
+__global__ void __launch_bounds__(kThreads, 1)
+local_sgd_general_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                         const int* __restrict__ y, const int* __restrict__ act,
+                         const float* __restrict__ mask, const int* __restrict__ nbs,
+                         const int* __restrict__ offs, const int* __restrict__ order,
+                         float* __restrict__ out, float* __restrict__ ws, int R, int npad,
+                         int I, int H, int C, int B, int epochs, float lr, GPlan p) {
+  extern __shared__ __align__(128) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = p.K, HS = p.HS, BT = p.BT;
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h0 = rank * HS;
+  const int nreal = H - h0 < HS ? H - h0 : HS;
+  const long long D = (long long)H + C + (long long)I * H + (long long)H * C;
+  const int nclusters = gridDim.x / K;
+  float* const slot0 = ws + (long long)(blockIdx.x / K) * p.slot;
+  float* gsm = smem;
+  float* s_cnt = smem + kGemmFloats;  // the batch's mask count, by step parity
+
+  for (int cl = blockIdx.x / K; cl < R; cl += nclusters) {
+    const int r = order[cl];
+    float* const orow0 = out + (long long)r * D;
+    // the client's parameters start as the global row (b2's classes on
+    // their owner ranks)
+    {
+      float* ob1 = orow0 + h0;
+      float* ob2 = orow0 + H;
+      float* ow1 = orow0 + H + C + h0;
+      float* ow2 = orow0 + H + C + (long long)I * H + (long long)h0 * C;
+      const float* src1 = g + H + C + h0;
+      const float* src2 = g + H + C + (long long)I * H + (long long)h0 * C;
+      for (long long k = tid; k < (long long)I * nreal; k += kThreads) {
+        const long long i = k / nreal, hl = k % nreal;
+        ow1[i * H + hl] = src1[i * H + hl];
+      }
+      for (long long k = tid; k < (long long)nreal * C; k += kThreads) ow2[k] = src2[k];
+      for (int k = tid; k < nreal; k += kThreads) ob1[k] = g[h0 + k];
+      for (int c = rank + K * tid; c < C; c += K * kThreads) ob2[c] = g[H + c];
+    }
+    const bool soft = act[r] == 1;
+    const int nb = kRagged ? nbs[r] : npad / B;
+    const long long first = kRagged ? (long long)offs[r] * B : (long long)r * npad;
+    const int total = epochs * nb;
+    cluster.sync();  // b2 in place before any rank reads it
+
+    for (int t = 0; t < total; ++t) {
+      const long long row0 = first + (long long)(t % nb) * B;
+      if (warp == 0) {
+        const float c = batch_count(mask, row0, B, lane);
+        if (lane == 0) s_cnt[t & 1] = c;
+      }
+      __syncthreads();
+      const float cnt = s_cnt[t & 1];
+      if (!(cnt > 0.f)) continue;  // every rank skips the same batches
+      const float cntc = fmaxf(cnt, 1.f);
+      for (int s = 0; s < p.nsub; ++s) {
+        const int b0 = s * BT, bt = B - b0 < BT ? B - b0 : BT;
+        const bool sfirst = s == 0, slast = s == p.nsub - 1;
+        const float* xs = x + (row0 + b0) * I;
+        // the slot's and the output row's pointers, made anew each sub-tile
+        // (opaque to the compiler: not hoisted out of the chain's loop, where
+        // they would hold registers the products need)
+        float* slot = slot0;
+        float* orow = orow0;
+        asm volatile("" : "+l"(slot), "+l"(orow));
+        float* lpart = slot + p.o_lpart;  // K x BT x C logits' shares, a slice each
+        float* dl = slot + p.o_dl;        // BT x C: logits, then d logits
+        float* stat = slot + p.o_stat;    // K x BT x 2: a slice's row max and exp-sum
+        float* dotp = slot + p.o_dot;     // K x BT: a slice's row sum(dh * h)
+        float* gb2 = slot + p.o_gb2;      // C: b2's gradient, class c summed by rank c % K
+        float* mine = slot + p.o_cta + rank * p.cta;
+        float* hpre = mine + p.c_hpre;  // BT x HS
+        float* hact = mine + p.c_hact;  // BT x HS
+        float* dh = mine + p.c_dh;      // BT x HS: dh, then d hpre
+        float* gw1 = mine + p.c_gw1;    // I x HS, the sub-tiles' w1 gradient
+        float* gw2 = mine + p.c_gw2;    // HS x C
+        float* gb1 = mine + p.c_gb1;    // HS
+        float* ob1 = orow + h0;
+        float* ob2 = orow + H;
+        float* ow1 = orow + H + C + h0;  // w1[i][h0 + h] at ow1[i * H + h]
+        float* ow2 = orow + H + C + (long long)I * H + (long long)h0 * C;
+        // --- hpre = x @ w1[:, slice] + b1 (ReLU: h beside it)
+        block_gemm<true, false>(
+            xs, I, ow1, H, bt, nreal, I, gsm,
+            [&](int, int n) { return make_float2(ld_l2(ob1 + n), 0.f); },
+            [&](int m, int n, float a, float2 v) {
+              const float hp = a + v.x;
+              st_l2(hpre + m * HS + n, hp);
+              if (!soft) st_l2(hact + m * HS + n, fmaxf(hp, 0.f));
+            });
+        // --- softmax hidden layer: each slice's row max and exp-sum, one
+        // barrier, then every rank combines the K slices in rank order
+        if (soft) {
+          for (int m = warp; m < bt; m += kWarps) {
+            const float* hp = hpre + m * HS;
+            const float mx = warp_max(fold_row(hp, nullptr, nreal, lane, -INFINITY,
+                                               [](float a, float v, float) { return fmaxf(a, v); }));
+            const float sum = warp_sum(fold_row(hp, nullptr, nreal, lane, 0.f,
+                                                [&](float a, float v, float) {
+                                                  return a + expf(v - mx);
+                                                }));
+            if (lane == 0) {
+              st_l2(stat + 2 * ((long long)rank * BT + m), mx);
+              st_l2(stat + 2 * ((long long)rank * BT + m) + 1, sum);
+            }
+          }
+          cluster.sync();
+          for (int m = warp; m < bt; m += kWarps) {
+            float ms[kMaxPortable], ss[kMaxPortable];
+            load_ranks(stat + 2 * m, 2ll * BT, K, ms);
+            load_ranks(stat + 2 * m + 1, 2ll * BT, K, ss);
+            float mx = -INFINITY;
+#pragma unroll
+            for (int k = 0; k < kMaxPortable; ++k)
+              if (k < K) mx = fmaxf(mx, ms[k]);
+            float sum = 0.f;
+#pragma unroll
+            for (int k = 0; k < kMaxPortable; ++k)
+              if (k < K) sum += ss[k] * expf(ms[k] - mx);
+            map_row(hpre + m * HS, nullptr, hact + m * HS, nreal, lane,
+                    [&](int, float v, float) { return expf(v - mx) / sum; });
+          }
+          __syncthreads();
+        }
+        // --- this slice's share of the logits, h @ w2[slice], to the slot;
+        // one barrier; then each rank's rows (m = rank mod K, a warp a row)
+        // sum the K shares in rank order, add b2 and become d logits =
+        // (softmax - onehot) * m / max(cnt, 1)
+        block_gemm<true, false>(hact, HS, ow2, C, bt, C, nreal, gsm, NoPre(),
+                                [&](int m, int n, float a, float2) {
+                                  st_l2(lpart + ((long long)rank * BT + m) * C + n, a);
+                                });
+        cluster.sync();
+        for (int m = rank + K * warp; m < bt; m += K * kWarps) {
+          const long long row = row0 + b0 + m;
+          const float sc = mask[row] / cntc;
+          const int yb = y[row];
+          float* lrow = dl + (long long)m * C;
+          float mx = -INFINITY;
+          for (int c = lane; c < C; c += 32) {
+            float v[kMaxPortable];
+            load_ranks(lpart + (long long)m * C + c, (long long)BT * C, K, v);
+            float l = v[0];
+#pragma unroll
+            for (int k = 1; k < kMaxPortable; ++k)
+              if (k < K) l += v[k];
+            l += ld_l2(ob2 + c);
+            st_l2(lrow + c, l);
+            mx = fmaxf(mx, l);
+          }
+          mx = warp_max(mx);
+          const float sum = warp_sum(fold_row(lrow, nullptr, C, lane, 0.f,
+                                              [&](float a, float l, float) {
+                                                return a + expf(l - mx);
+                                              }));
+          map_row(lrow, nullptr, lrow, C, lane, [&](int c, float l, float) {
+            return (expf(l - mx) / sum - (c == yb ? 1.f : 0.f)) * sc;
+          });
+        }
+        cluster.sync();
+        // --- dh[:, slice] = d logits @ w2[slice]^T (ReLU: d hpre, 0 where
+        // hpre <= 0)
+        block_gemm<true, true>(
+            dl, C, ow2, C, bt, nreal, C, gsm,
+            [&](int m, int n) {
+              return make_float2(soft ? 1.f : ld_l2(hpre + m * HS + n), 0.f);
+            },
+            [&](int m, int n, float a, float2 v) {
+              st_l2(dh + m * HS + n, v.x > 0.f ? a : 0.f);
+            });
+        // --- w2[slice] -= lr * h^T @ d logits, summed over the sub-tiles
+        block_gemm<false, false>(
+            hact, HS, dl, C, nreal, C, bt, gsm,
+            [&](int m, int n) {
+              const long long k = (long long)m * C + n;
+              return make_float2(carried(gw2, k, sfirst), slast ? ld_l2(ow2 + k) : 0.f);
+            },
+            [&](int m, int n, float a, float2 v) {
+              const long long k = (long long)m * C + n;
+              if (slast) st_l2(ow2 + k, v.y - lr * (v.x + a));
+              else st_l2(gw2 + k, v.x + a);
+            });
+        // b2 -= lr * sum_b d logits, class c on rank c % K
+        for (int c = rank + K * tid; c < C; c += K * kThreads) {
+          const float gsum = carried(gb2, c, sfirst) + sum_col(dl + c, C, bt);
+          if (slast) st_l2(ob2 + c, ld_l2(ob2 + c) - lr * gsum);
+          else st_l2(gb2 + c, gsum);
+        }
+        // --- softmax backward: the row sum(dh * h) over all H (the slices'
+        // shares in rank order), then d hpre = h * (dh - dot)
+        if (soft) {
+          for (int m = warp; m < bt; m += kWarps) {
+            const float d = warp_sum(fold_row(dh + m * HS, hact + m * HS, nreal, lane, 0.f,
+                                              [](float a, float u, float v) { return a + u * v; }));
+            if (lane == 0) st_l2(dotp + (long long)rank * BT + m, d);
+          }
+          cluster.sync();
+          for (int m = warp; m < bt; m += kWarps) {
+            float v[kMaxPortable];
+            load_ranks(dotp + m, BT, K, v);
+            float dot = 0.f;
+#pragma unroll
+            for (int k = 0; k < kMaxPortable; ++k)
+              if (k < K) dot += v[k];
+            map_row(dh + m * HS, hact + m * HS, dh + m * HS, nreal, lane,
+                    [&](int, float u, float h) { return h * (u - dot); });
+          }
+          __syncthreads();
+        }
+        // --- w1[:, slice] -= lr * x^T @ d hpre and b1 -= lr * sum_b d hpre,
+        // summed over the sub-tiles
+        block_gemm<false, false>(
+            xs, I, dh, HS, I, nreal, bt, gsm,
+            [&](int m, int n) {
+              return make_float2(carried(gw1, (long long)m * HS + n, sfirst),
+                                 slast ? ld_l2(ow1 + (long long)m * H + n) : 0.f);
+            },
+            [&](int m, int n, float a, float2 v) {
+              if (slast) st_l2(ow1 + (long long)m * H + n, v.y - lr * (v.x + a));
+              else st_l2(gw1 + (long long)m * HS + n, v.x + a);
+            });
+        for (int h = tid; h < nreal; h += kThreads) {
+          const float gsum = carried(gb1, h, sfirst) + sum_col(dh + h, HS, bt);
+          if (slast) st_l2(ob1 + h, ld_l2(ob1 + h) - lr * gsum);
+          else st_l2(gb1 + h, gsum);
+        }
+        __syncthreads();  // the next sub-tile overwrites hpre, hact, dh
+      }
+    }
+    // the next client's first writes to the slot follow its first barrier,
+    // which every rank reaches only after this client's last reads
+  }
+}
+
+template <bool kRagged>
+int launch_general(const GPlan& p, const float* g, const float* x, const int* y,
+                   const int* act, const float* mask, const int* nb, const int* off,
+                   const int* order, float* out, float* ws, int nclusters, int R, int npad,
+                   int I, int H, int C, int B, int epochs, float lr, void* stream) {
+  auto kernel = local_sgd_general_kernel<kRagged>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nclusters * p.K));
+  cfg.blockDim = dim3((unsigned)kThreads);
+  cfg.dynamicSmemBytes = (size_t)p.bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, g, x, y, act, mask, nb, off, order, out, ws, R, npad,
+                           I, H, C, B, epochs, lr, p);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The wide instance (kHS = 0), built in local_sgd_wide.cu: launch it for
@@ -977,3 +1543,14 @@ int local_sgd_wide_launch(bool ragged, const float* g, const float* x, const int
                           int B, int epochs, float lr, void* stream);
 int local_sgd_wide_attrs(int I, int H, int C, int B, int* regs, int* local_bytes,
                          int* max_clusters);
+
+// The general instance, built in local_sgd_general.cu: launch it on
+// `nclusters` clusters (each walks clients cl, cl + nclusters, ... of
+// `order`, on its own slot of `ws`), or report its resources.
+int local_sgd_general_launch(bool ragged, const float* g, const float* x, const int* y,
+                             const int* act, const float* mask, const int* nb, const int* off,
+                             const int* order, float* out, float* ws, int nclusters, int R,
+                             int npad, int I, int H, int C, int B, int epochs, float lr,
+                             void* stream);
+int local_sgd_general_attrs(int I, int H, int C, int B, int* regs, int* local_bytes,
+                            int* max_clusters);

@@ -2,28 +2,40 @@
 
 ClientUpdate (Algorithm 2 lines 16-21) is the round's FLOP-dominant op:
 every client runs E epochs of batch SGD on its local shard.  The CUDA
-kernel (``csrc/local_sgd.cuh``; the narrow plan's instances are built in
-``local_sgd.cu``, the wide one in ``local_sgd_wide.cu``) runs each
-client's whole epochs x batches chain in one launch on a thread-block
-cluster of K CTAs, each CTA owning
-an HS-column slice of w1 (K and HS from ``plan``).  Up to H = 256 the slice
-lives in shared memory: a width that no portable split of 8- or 16-column
-slices covers is padded up to K x 16 columns, K <= 16.  Past 256 the wide
-instance streams the slice from L2 (``plan`` reports it as ``streamed``):
-HS is ceil(H / 16) rounded up to a multiple of 8, at most 64, so H runs up
-to ``MAX_HIDDEN``, at batches of at most ``WIDE_MAX_BATCH``.  ``local_sgd``
-takes the dense (R, n) sample rectangle and replaces the Pallas TPU kernel
+kernel (``csrc/local_sgd.cuh``; built as ``local_sgd.cu``,
+``local_sgd_wide.cu`` and ``local_sgd_general.cu``, one file an instance)
+runs each client's whole epochs x batches chain in one launch on a
+thread-block cluster of K CTAs, each CTA owning an HS-column slice of the
+hidden layer (K and HS from ``plan``).  ``plan`` picks the instance from the
+shapes alone:
+
+  narrow   H <= 256 at I a multiple of 4, C <= 16 and a batch whose two x
+           tiles fit a CTA's shared memory: the w1 slice in shared memory,
+           H padded up to K x 16 columns, K <= 16 where no split of 8 or 16
+           columns covers it;
+  wide     257 <= H <= 1,024 at the same I and C, B <= 20: the w1 slice
+           streamed from L2, in place in the client's output row;
+  general  every other shape: x read in sub-tiles of batch rows, the
+           per-row temporaries in a workspace in global memory, one slot for
+           each resident cluster (``torch.empty`` on the call's device).
+
+Together they take every shape of the reference's envelope,
+``fused_fits_vmem``, and more; ``plan`` raises only for a dimension under 1
+or a workspace slot or output row past 2^31 floats.  ``local_sgd`` takes the
+dense (R, n) sample rectangle and replaces the Pallas TPU kernel
 ``repro/kernels/local_sgd.py::local_sgd_fused``; ``local_sgd_ragged`` takes
 the packed layout's batch-tile buffer, each client reading its own tiles,
-and replaces ``local_sgd_fused_ragged``.  Both are one CUDA template, so a
-client's row is bit-equal between the two.  Clusters take the clients
-longest chain first (``longest_first``); the rows do not depend on that
-order.  Their plain PyTorch versions are ``ref.local_sgd_ref`` and
-``ref.local_sgd_ragged_ref``.
+and replaces ``local_sgd_fused_ragged``.  Both are one CUDA template in
+each instance, so a client's row is bit-equal between the two.  Clusters
+take the clients longest chain first (``longest_first``); the rows do not
+depend on that order.  Their plain PyTorch versions are
+``ref.local_sgd_ref`` and ``ref.local_sgd_ragged_ref``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -88,16 +100,18 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
         y = torch.nn.functional.pad(y, (0, pad))
         m = torch.nn.functional.pad(m, (0, pad))
     lib = ops.library()
-    plan(I, H, C, B)
-    _require_aligned(x, "x")
+    p = plan(I, H, C, B)
+    if p.instance != "general":
+        _require_aligned(x, "x")
     out = torch.empty((R, D), dtype=torch.float32, device=dev)
     if R == 0:
         return out
     order = longest_first(live_batches(m, B))
+    ws, nclusters = _workspace(p, I, H, C, B, R, dev)
     err = lib.fedar_local_sgd(
         g_flat.data_ptr(), x.data_ptr(), y.data_ptr(), act.data_ptr(),
-        m.data_ptr(), order.data_ptr(), out.data_ptr(), R, nb * B, I, H, C, B,
-        epochs, lr, ops.stream_ptr(x),
+        m.data_ptr(), order.data_ptr(), out.data_ptr(), _ptr(ws), nclusters, R,
+        nb * B, I, H, C, B, epochs, lr, ops.stream_ptr(x),
     )
     ops.check_launch(err, "local_sgd")
     local_sgd.launches += 1
@@ -106,56 +120,99 @@ def local_sgd(g_flat, x, y, act, mask, *, hidden: int, classes: int,
 
 local_sgd.launches = 0
 
-# The widest hidden layer the kernel takes: 16 CTAs (Hopper's non-portable
-# cluster limit) of 64 columns, each column's w1 streamed from L2 by one
-# lane of a 32-column group, two groups a CTA (see csrc/local_sgd.cuh).  The
-# wide instance holds a batch's rows of a column in registers, at most
-# WIDE_MAX_BATCH of them.
-MAX_HIDDEN = 1024
-WIDE_MAX_BATCH = 20
+# The reference's per-client VMEM budget (``repro/kernels/local_sgd.py``):
+# its fused route takes a shape whose working set fits it.  Nothing here
+# routes on it; it names the envelope in errors and tests.
+VMEM_BUDGET_BYTES = 8 * 1024 * 1024
+
+INSTANCES = ("narrow", "wide", "general")
 
 
-def plan(I: int, H: int, C: int, B: int) -> tuple[int, int, int, int, bool]:
-    """The kernel's cluster size K, slice width HS (H padded to K * HS
-    columns), threads a CTA, one CTA's dynamic shared bytes and whether w1
-    streams from L2 (the wide instance, H > 256) for (I, H, C, B); raises
-    for a shape that fits no plan."""
-    K, HS, threads, smem, streamed = (ctypes.c_int() for _ in range(5))
-    if ops.library().fedar_local_sgd_plan(I, H, C, B, ctypes.byref(K), ctypes.byref(HS),
-                                          ctypes.byref(threads), ctypes.byref(smem),
-                                          ctypes.byref(streamed)) != 0:
+def fused_fits_vmem(n: int, input_dim: int, hidden: int, classes: int,
+                    budget: int = VMEM_BUDGET_BYTES) -> bool:
+    """Whether one client's working set -- the (n, input_dim) sample slab,
+    the in/out parameter tiles and the per-batch temporaries -- fits the
+    reference kernel's per-grid-step VMEM budget (its envelope; the port's
+    plan takes every shape inside it)."""
+    slab = n * input_dim + 2 * n
+    params = 2 * (input_dim * hidden + hidden + hidden * classes + classes)
+    grads = input_dim * hidden + hidden * classes
+    return 4 * (slab + params + grads) <= budget
+
+
+class Plan(NamedTuple):
+    """The kernel's plan for one shape: cluster size K, slice width HS (H
+    padded to K * HS columns), threads and dynamic shared bytes a CTA,
+    whether w1 streams from L2, the instance (``INSTANCES``), the batch rows
+    a sub-tile and the floats of one cluster's workspace slot (the general
+    instance; B and 0 for the others)."""
+    cluster: int
+    slice: int
+    threads: int
+    smem_bytes: int
+    streamed: bool
+    instance: str
+    rows: int
+    workspace: int
+
+
+def plan(I: int, H: int, C: int, B: int) -> Plan:
+    """The kernel's plan for (I, H, C, B), chosen from the shapes alone;
+    raises for a shape no instance takes."""
+    ints = [ctypes.c_int() for _ in range(7)]
+    ws = ctypes.c_longlong()
+    if ops.library().fedar_local_sgd_plan(I, H, C, B, *(ctypes.byref(v) for v in ints),
+                                          ctypes.byref(ws)) != 0:
+        inside = fused_fits_vmem(B, I, H, C)
         raise ValueError(
-            f"local_sgd kernel cannot take I={I}, H={H}, C={C}, B={B}: I must be "
-            f"a multiple of 4 (16-byte rows for the bulk copy), H at most "
-            f"{MAX_HIDDEN} (16 slices of at most 64 columns; past H = 256 w1 "
-            f"streams from L2 and B is at most {WIDE_MAX_BATCH}), C at most 16")
-    if smem.value > ops.MAX_SMEM_BYTES:
-        raise ValueError(
-            f"local_sgd kernel needs {smem.value} bytes of shared memory a CTA "
-            f"for I={I}, H={H}, C={C}, B={B} (cluster of {K.value}); a block may "
-            f"use {ops.MAX_SMEM_BYTES}")
-    return K.value, HS.value, threads.value, smem.value, bool(streamed.value)
+            f"local_sgd kernel cannot take I={I}, H={H}, C={C}, B={B}: a "
+            f"dimension is under 1, or one cluster's workspace slot or one "
+            f"output row would pass 2^31 floats (the reference's envelope, "
+            f"fused_fits_vmem, {'holds' if inside else 'does not hold'} it)")
+    inst, K, HS, threads, smem, streamed, rows = (v.value for v in ints)
+    return Plan(K, HS, threads, smem, bool(streamed), INSTANCES[inst], rows, ws.value)
+
+
+@functools.lru_cache(maxsize=None)
+def _attrs(I: int, H: int, C: int, B: int, device: int) -> tuple:
+    vals = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(device):
+        ops.check_launch(ops.library().fedar_local_sgd_attrs(
+            I, H, C, B, *(ctypes.byref(v) for v in vals)), "local_sgd_attrs")
+    return tuple(v.value for v in vals)
 
 
 def kernel_attrs(I: int, H: int, C: int, B: int) -> dict:
-    """The dense instance's resources at (I, H, C, B): cluster size, slice
-    width, threads and dynamic shared bytes a CTA, whether w1 streams from
-    L2, registers and spilled (local) bytes a thread as
+    """The dense form's resources at (I, H, C, B): ``plan``'s fields,
+    registers and spilled (local) bytes a thread as
     ``cudaFuncGetAttributes`` reports them, and the clusters that fit on
     the card at once (``cudaOccupancyMaxActiveClusters``).  Raises if no
     cluster fits: the kernel could not launch at this plan."""
-    K, HS, threads, smem, streamed = plan(I, H, C, B)
-    vals = [ctypes.c_int() for _ in range(3)]
-    ops.check_launch(ops.library().fedar_local_sgd_attrs(
-        I, H, C, B, *(ctypes.byref(v) for v in vals)), "local_sgd_attrs")
-    attrs = dict(cluster=K, slice=HS, threads=threads, dynamic_smem=smem,
-                 streamed=streamed,
-                 **dict(zip(("registers", "local_bytes", "max_clusters"),
-                            (v.value for v in vals))))
-    if attrs["max_clusters"] < 1:
-        raise ValueError(f"local_sgd kernel: no cluster of {K} CTAs with {smem} shared "
-                         f"bytes each fits this card at H={H}")
+    p = plan(I, H, C, B)
+    regs, local, clusters = _attrs(I, H, C, B, torch.cuda.current_device())
+    attrs = dict(cluster=p.cluster, slice=p.slice, threads=p.threads,
+                 dynamic_smem=p.smem_bytes, streamed=p.streamed, instance=p.instance,
+                 rows=p.rows, workspace=p.workspace, registers=regs, local_bytes=local,
+                 max_clusters=clusters)
+    if clusters < 1:
+        raise ValueError(f"local_sgd kernel: no cluster of {p.cluster} CTAs with "
+                         f"{p.smem_bytes} shared bytes each fits this card at H={H}")
     return attrs
+
+
+def _workspace(p: Plan, I: int, H: int, C: int, B: int, R: int, dev):
+    """The general instance's workspace, one slot for each cluster of its
+    grid (as many as fit on the card at once, at most R), and the grid in
+    clusters; (None, 0) for the other instances.  The caller holds the
+    tensor until the launch is queued."""
+    if p.instance != "general":
+        return None, 0
+    nclusters = min(R, kernel_attrs(I, H, C, B)["max_clusters"])
+    return torch.empty(nclusters * p.workspace, dtype=torch.float32, device=dev), nclusters
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _require_aligned(t, name):
@@ -200,18 +257,21 @@ def local_sgd_ragged(g_flat, xt, yt, mt, act, nb, off, *, hidden: int,
     if B < 1 or epochs < 0:
         raise ValueError(f"batch_size={B}, epochs={epochs}")
     lib = ops.library()
-    plan(I, H, C, B)
-    _require_aligned(xt, "xt")
+    p = plan(I, H, C, B)
+    if p.instance != "general":
+        _require_aligned(xt, "xt")
     out = torch.empty((R, D), dtype=torch.float32, device=dev)
     if R == 0:
         return out
     if bool(((nb < 0) | (off < 0) | (off.to(torch.int64) + nb > T)).any()):
         raise ValueError(f"nb / off address tiles outside the {T}-tile buffer")
     order = longest_first(nb)
+    ws, nclusters = _workspace(p, I, H, C, B, R, dev)
     err = lib.fedar_local_sgd_ragged(
         g_flat.data_ptr(), xt.data_ptr(), yt.data_ptr(), act.data_ptr(),
         m.data_ptr(), nb.data_ptr(), off.data_ptr(), order.data_ptr(),
-        out.data_ptr(), R, I, H, C, B, epochs, lr, ops.stream_ptr(xt),
+        out.data_ptr(), _ptr(ws), nclusters, R, I, H, C, B, epochs, lr,
+        ops.stream_ptr(xt),
     )
     ops.check_launch(err, "local_sgd_ragged")
     local_sgd_ragged.launches += 1

@@ -42,8 +42,9 @@ from repro_torch.kernels import ref
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("local_sgd.cu", "local_sgd_wide.cu", "fedavg_agg.cu", "defense_sim.cu",
-           "compress.cu", "flash_attention.cu", "ssm_scan.cu", "count_sketch.cu")
+SOURCES = ("local_sgd.cu", "local_sgd_wide.cu", "local_sgd_general.cu", "fedavg_agg.cu",
+           "defense_sim.cu", "compress.cu", "flash_attention.cu", "ssm_scan.cu",
+           "count_sketch.cu")
 HEADERS = ("local_sgd.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -120,12 +121,13 @@ def _build(lib_path: Path, nvcc: str) -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     PI = ctypes.POINTER(I)
-    lib.fedar_local_sgd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
+    lib.fedar_local_sgd.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]
     lib.fedar_local_sgd.restype = I
-    lib.fedar_local_sgd_ragged.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
-                                           F, P]
+    lib.fedar_local_sgd_ragged.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                           I, F, P]
     lib.fedar_local_sgd_ragged.restype = I
-    lib.fedar_local_sgd_plan.argtypes = [I, I, I, I, PI, PI, PI, PI, PI]
+    lib.fedar_local_sgd_plan.argtypes = [I, I, I, I, PI, PI, PI, PI, PI, PI, PI,
+                                         ctypes.POINTER(L)]
     lib.fedar_local_sgd_plan.restype = I
     lib.fedar_local_sgd_attrs.argtypes = [I, I, I, I, PI, PI, PI]
     lib.fedar_local_sgd_attrs.restype = I

@@ -98,7 +98,7 @@ def test_local_sgd_kernel_long_chain(cuda_device):
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("I,H", [(16, 8), (784, 128), (784, 512)])
+@pytest.mark.parametrize("I,H", [(16, 8), (784, 128), (784, 512), (13, 128)])
 def test_local_sgd_rows_do_not_depend_on_client_order(cuda_device, I, H):
     """The clients' rows given in reverse, so that the stable longest-first
     sort hands tied clients to other clusters, give bit-equal rows, in
@@ -125,36 +125,135 @@ def test_local_sgd_rows_do_not_depend_on_client_order(cuda_device, I, H):
 
 
 def test_local_sgd_shape_that_fits_no_cluster_raises(cuda_device):
-    """A batch of 80 rows of 784 (two x tiles of 251 KB) fits no cluster
-    size; I = 18 is no whole number of 16-byte rows."""
+    """The two shapes that once fit no cluster -- a batch of 80 rows of 784
+    (two x tiles of 251 KB) and I = 18 (no whole number of 16-byte rows) --
+    now run on the general instance and match the plain version, the
+    ragged form bit-equal to the dense; and the server builds on the kernel
+    route at the paper's B = 40 (the third point of its Fig. 6 grid)."""
+    from repro_torch.common.config import FedConfig
+    from repro_torch.configs.fedar_mnist import MnistConfig
     from repro_torch.kernels.local_sgd import plan
 
     assert plan(784, 128, 10, 20)[:2] == (8, 16)
-    g, x, y, act, mask = _sgd_inputs(cuda_device, I=784, H=128)
-    with pytest.raises(ValueError, match="shared memory"):
-        local_sgd(g, x, y, act, mask, hidden=128, classes=10, lr=0.1, batch_size=80,
-                  epochs=1)
-    g, x, y, act, mask = _sgd_inputs(cuda_device, I=18, H=8)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        local_sgd(g, x, y, act, mask, hidden=8, classes=10, lr=0.1, batch_size=20,
-                  epochs=1)
+    for I, H, B in ((784, 128, 80), (18, 8, 20)):
+        p = plan(I, H, 10, B)
+        assert p.instance == "general" and p.streamed
+        g, x, y, act, mask = _sgd_inputs(cuda_device, I=I, H=H, n=97)
+        g = g / 6
+        kw = dict(hidden=H, classes=10, lr=0.1, epochs=2)
+        n0 = local_sgd.launches
+        got = local_sgd(g, x, y, act, mask, batch_size=B, **kw)
+        assert local_sgd.launches == n0 + 1
+        torch.testing.assert_close(got, ref.local_sgd_ref(g, x, y, act, mask, batch_size=B,
+                                                          **kw), rtol=1e-5, atol=1e-5)
+        assert torch.equal(got[2], g)
+        xt, yt, mt, nb, off = _ragged_from_dense(x, y, mask, B)
+        assert torch.equal(local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw), got)
+    server = FedARServer(MnistConfig(), FedConfig(local_batch_size=40), TaskRequirement())
+    assert server.engine.sgd_route == "kernel"
 
 
 @pytest.mark.parametrize("hidden", [1025, 1536])
 def test_engine_rejects_a_width_the_kernel_cannot_take(cuda_device, hidden):
-    """A hidden width past the kernel's ceiling (more than 16 slices of 64
-    columns) raises, naming the ceiling, when the server is built on the
-    kernel route, before any round; nothing falls back to the plain route,
-    which takes it only when asked for."""
-    with pytest.raises(ValueError, match="at most 1024"):
-        FedARServer(small_model(hidden), fleet_fed(12), TaskRequirement())
+    """Hidden widths past the wide instance's 1,024: at I = 16 (inside the
+    reference's envelope) the direct call runs on the general instance and
+    matches the plain version; the server at I = 784 (past the envelope,
+    which ends at H = 873 for B = 20: the reference falls back to XLA there)
+    builds on the kernel route too, since the general plan takes it."""
+    from repro_torch.kernels.local_sgd import fused_fits_vmem, plan
+
+    assert fused_fits_vmem(20, 16, hidden, 10) and not fused_fits_vmem(20, 784, hidden, 10)
+    assert plan(784, hidden, 10, 20).instance == "general"
+    server = FedARServer(small_model(hidden), fleet_fed(12), TaskRequirement())
+    assert server.engine.sgd_route == "kernel"
     g, x, y, act, mask = _sgd_inputs(cuda_device, I=16, H=hidden)
+    kw = dict(hidden=hidden, classes=10, lr=0.1, batch_size=20, epochs=2)
     n0 = local_sgd.launches
-    with pytest.raises(ValueError, match="at most 1024"):
-        local_sgd(g, x, y, act, mask, hidden=hidden, classes=10, lr=0.1, batch_size=20,
-                  epochs=1)
-    assert local_sgd.launches == n0
+    got = local_sgd(g, x, y, act, mask, **kw)
+    assert local_sgd.launches == n0 + 1
+    torch.testing.assert_close(got, ref.local_sgd_ref(g, x, y, act, mask, **kw),
+                               rtol=1e-5, atol=1e-5)
     FedARServer(small_model(hidden), fleet_fed(12, sgd_impl="einsum"), TaskRequirement())
+
+
+# The reference's envelope's corners (fused_fits_vmem(B, I, H, C) at its
+# largest B, C and H): the batch at 784 / 128 / 10, the class count at 784 /
+# 128 with B = 20, the hidden width at I = 16, B = 20.
+ENVELOPE_CORNERS = [(784, 128, 10, 2279), (784, 128, 4611, 20), (16, 26209, 10, 20)]
+
+
+def test_plan_takes_every_shape_of_the_reference_envelope(cuda_device):
+    """A seeded grid of (I, H, C, B) inside ``fused_fits_vmem`` (4,000
+    log-uniform draws of I 1-1,024, H 1-30,000, C 1-1,000, B 1-600, of which
+    3,286 lie inside, and the corners): ``plan`` takes every
+    one, from the shapes alone (plan only, no launch), and the narrow and
+    wide plans keep every shape they took before the general instance."""
+    from repro_torch.kernels.local_sgd import fused_fits_vmem, plan
+
+    rng = np.random.default_rng(30)
+
+    def draw(hi):  # log-uniform on [1, hi]: small and large widths alike
+        return np.exp(rng.uniform(0.0, np.log(hi), 4000)).astype(np.int64).clip(1, hi)
+
+    draws = zip(draw(1024), draw(30000), draw(1000), draw(600))
+    shapes = [tuple(int(v) for v in d) for d in draws if fused_fits_vmem(d[3], d[0], d[1], d[2])]
+    assert len(shapes) > 3000
+    for I, H, C, B in ENVELOPE_CORNERS:
+        assert fused_fits_vmem(B, I, H, C)
+    assert not fused_fits_vmem(2280, 784, 128, 10)
+    assert not fused_fits_vmem(20, 784, 128, 4612) and not fused_fits_vmem(20, 16, 26210, 10)
+    seen = set()
+    for I, H, C, B in shapes + ENVELOPE_CORNERS:
+        p = plan(I, H, C, B)
+        assert p.cluster >= 1 and p.cluster * p.slice >= H, (I, H, C, B)
+        seen.add(p.instance)
+        if p.instance == "general":
+            assert 1 <= p.rows <= min(B, 64) and p.workspace > 0
+    assert seen == {"narrow", "wide", "general"}
+    assert plan(784, 128, 10, 20).instance == "narrow"
+    assert plan(784, 512, 10, 20).instance == "wide"
+
+
+def test_shape_past_the_plan_raises_before_any_launch(cuda_device):
+    """What no instance takes: a dimension under 1, or a workspace slot past
+    2^31 floats (I = H = 50,000, far past the envelope); the direct call
+    raises before any launch."""
+    from repro_torch.kernels.local_sgd import plan
+
+    with pytest.raises(ValueError, match="cannot take I=50000"):
+        plan(50000, 50000, 10, 20)
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=16, H=8)
+    n0 = local_sgd.launches
+    with pytest.raises(ValueError, match="dimension is under 1"):
+        local_sgd(g[:8 + 16 * 8], x, y, act, mask, hidden=8, classes=0, lr=0.1,
+                  batch_size=20, epochs=1)
+    assert local_sgd.launches == n0
+
+
+@pytest.mark.parametrize("I,H,C,B", [(784, 128, 10, 40), (784, 128, 10, 50),
+                                     (784, 128, 47, 20), (784, 128, 100, 20),
+                                     (13, 128, 10, 20), (30, 128, 10, 20),
+                                     (16, 4096, 10, 20), (784, 512, 10, 40),
+                                     (784, 128, 10, 200)])
+def test_local_sgd_general_instance_matches_plain(cuda_device, I, H, C, B):
+    """The general instance at phase 2's shapes (batches past 20 at MNIST
+    width, class counts past 16, I not a multiple of 4, H past 1,024, B =
+    40 past H = 256): both activations, a ragged tail, an all-False client,
+    labels over all C classes, against the plain version; the ragged form
+    bit-equal to the dense; at least one cluster resident, no spills."""
+    from repro_torch.kernels.local_sgd import kernel_attrs
+
+    a = kernel_attrs(I, H, C, B)
+    assert a["instance"] == "general" and a["max_clusters"] >= 1 and a["local_bytes"] == 0
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=I, H=H, C=C, R=6, n=2 * B + 17)
+    g = g / 6
+    kw = dict(hidden=H, classes=C, lr=0.1, epochs=2)
+    got = local_sgd(g, x, y, act, mask, batch_size=B, **kw)
+    torch.testing.assert_close(got, ref.local_sgd_ref(g, x, y, act, mask, batch_size=B, **kw),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[2], g)
+    xt, yt, mt, nb, off = _ragged_from_dense(x, y, mask, B)
+    assert torch.equal(local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw), got)
 
 
 # Digests of kernel 1's and 4's output bits (the first 16 hex digits of
@@ -212,8 +311,9 @@ def test_local_sgd_bit_equal_to_the_padded_plan(cuda_device, H):
     from repro_torch.kernels.local_sgd import plan
 
     assert _width_digests(cuda_device, H) == (PADDED_PLAN_DIGESTS[H],) * 2
-    K, HS, _, _, streamed = plan(784, H, 10, 20)
-    assert HS == 16 and K * HS >= H and not streamed
+    p = plan(784, H, 10, 20)
+    assert p.slice == 16 and p.cluster * p.slice >= H and not p.streamed
+    assert p.instance == "narrow"
 
 
 @pytest.mark.parametrize("H,K,HS", [(100, 7, 16), (200, 13, 16), (256, 16, 16),
@@ -262,6 +362,38 @@ def test_wide_hidden_rounds_on_the_kernel_route_match_einsum(cuda_device, hidden
     server.run(data, rounds=3)
     assert kern.launches == n0 + 3
     plain = FedARServer(small_model(hidden), dataclasses.replace(fed, sgd_impl="einsum"),
+                        TaskRequirement())
+    plain.run(data, rounds=3)
+    for key in ("trust", "selected", "on_time"):
+        np.testing.assert_array_equal(np.stack(server.history[key]),
+                                      np.stack(plain.history[key]))
+    torch.testing.assert_close(server.state.params, plain.state.params,
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("layout", ["dense", "packed", "gated"])
+@pytest.mark.parametrize("B", [40, 60])
+def test_general_instance_rounds_on_the_kernel_route_match_einsum(cuda_device, B, layout):
+    """The paper's MLP (784 -> 128 -> 10) at batches no other instance
+    takes, through the engine on the default route, dense, packed and gated
+    packed (half the fleet selected), against ``sgd_impl="einsum"``: one
+    launch a round, trust and masks identical, params within 2e-4."""
+    from repro_torch.configs.fedar_mnist import MnistConfig
+    from repro_torch.kernels.local_sgd import plan
+
+    assert plan(784, 128, 10, B).instance == "general"
+    ds = make_federated("digits", 16, scenario="quantity_skew", samples_per_client=3 * B,
+                        seed=7)
+    fed = fleet_fed(16, defense="foolsgold_sketch", local_batch_size=B,
+                    **(dict(select_frac=0.5) if layout == "gated" else {}))
+    kern = local_sgd if layout == "dense" else local_sgd_ragged
+    n0 = kern.launches
+    server = FedARServer(MnistConfig(), fed, TaskRequirement())
+    assert server.engine.sgd_route == "kernel"
+    data = server.engine.prepare_data(ds, layout="dense" if layout == "dense" else "packed")
+    server.run(data, rounds=3)
+    assert kern.launches == n0 + 3
+    plain = FedARServer(MnistConfig(), dataclasses.replace(fed, sgd_impl="einsum"),
                         TaskRequirement())
     plain.run(data, rounds=3)
     for key in ("trust", "selected", "on_time"):

@@ -222,6 +222,83 @@ def test_local_sgd_ragged_plain_matches_pallas_interpret_at_wide_hidden(Hw):
     np.testing.assert_allclose(got.numpy(), _jax_flat(pallas), rtol=1e-5, atol=1e-5)
 
 
+# Past the narrow and wide plans the card runs the general instance: any
+# batch, class count and input width of the reference's envelope
+# (``fused_fits_vmem``), of which the port keeps its own copy.
+def test_fused_fits_vmem_copy_equals_reference():
+    """The port's ``fused_fits_vmem`` (no JAX in the port) gives the
+    reference's answer on a seeded grid of shapes around the envelope's
+    edge, its corners among them, and takes the same budget."""
+    from repro.kernels import local_sgd as jls
+    from repro_torch.kernels import local_sgd as tls
+
+    assert tls.VMEM_BUDGET_BYTES == jls.VMEM_BUDGET_BYTES
+    rng = np.random.default_rng(30)
+    shapes = list(zip(rng.integers(1, 3000, 3000), rng.integers(1, 1025, 3000),
+                      rng.integers(1, 30001, 3000), rng.integers(1, 5000, 3000)))
+    shapes += [(2279, 784, 128, 10), (2280, 784, 128, 10), (20, 784, 128, 4611),
+               (20, 784, 128, 4612), (20, 16, 26209, 10), (20, 16, 26210, 10),
+               (20, 784, 873, 10), (20, 784, 874, 10)]
+    got = [tls.fused_fits_vmem(*map(int, s)) for s in shapes]
+    assert got == [jls.fused_fits_vmem(*map(int, s)) for s in shapes]
+    assert 0 < sum(got) < len(got)
+    assert tls.fused_fits_vmem(1000, 784, 128, 10, budget=1 << 20) is False
+
+
+# (batch, classes, input width) past what the narrow and wide plans take
+GENERAL = [(40, C, I), (B, 47, I), (B, C, 13)]
+
+
+def _general_inputs(Bg, Cg, Ig, R=4, seed=7):
+    rng = np.random.default_rng(seed)
+    n = 2 * Bg + 9
+    D = H + Cg + Ig * H + H * Cg
+    g = (rng.standard_normal(D) * 0.3).astype(np.float32)
+    x = rng.random((R, n, Ig), dtype=np.float32)
+    y = rng.integers(0, Cg, (R, n)).astype(np.int32)
+    act = (np.arange(R) % 2).astype(np.int32)
+    mask = np.ones((R, n), bool)
+    mask[1, n - 5:] = False
+    mask[2, :] = False
+    mask[3, :Bg] = False
+    return g, x, y, act, mask
+
+
+@pytest.mark.parametrize("Bg,Cg,Ig", GENERAL)
+def test_local_sgd_plain_matches_reference_oracle_past_the_fixed_plans(Bg, Cg, Ig):
+    """``ref.local_sgd_ref`` and ``ref.local_sgd_ragged_ref`` against the
+    reference's oracle (``repro.kernels.ref.local_sgd_ref``, jax.grad),
+    client by client, at B = 40, C = 47 and I = 13 (H = 8): both
+    activations, a partial last batch, an all-False client and an
+    all-padding batch.  fp32, a few steps: atol = rtol = 1e-5."""
+    g, x, y, act, mask = _general_inputs(Bg, Cg, Ig)
+    R, n, _ = x.shape
+    kw = dict(hidden=H, classes=Cg, lr=0.1, epochs=2)
+    dense = ref.local_sgd_ref(*(torch.as_tensor(a) for a in (g, x, y, act, mask)),
+                              batch_size=Bg, **kw).numpy()
+    nbk = -(-n // Bg)
+    pad = nbk * Bg - n
+    xt = np.pad(x, ((0, 0), (0, pad), (0, 0))).reshape(-1, Bg, Ig)
+    yt = np.pad(y, ((0, 0), (0, pad))).reshape(-1, Bg)
+    mt = np.pad(mask, ((0, 0), (0, pad))).reshape(-1, Bg)
+    nb = np.full(R, nbk, np.int32)
+    off = (np.arange(R) * nbk).astype(np.int32)
+    ragged = ref.local_sgd_ragged_ref(
+        torch.as_tensor(g), *(torch.as_tensor(a) for a in (xt, yt, mt, act, nb, off)),
+        **kw).numpy()
+    p = ref.split_flat(torch.as_tensor(g), Ig, H, Cg)
+    p = {k: jnp.asarray(v.numpy()) for k, v in p.items()}
+    for r in range(R):
+        new = jref.local_sgd_ref(p["w1"], p["b1"], p["w2"], p["b2"], jnp.asarray(x[r]),
+                                 jnp.asarray(y[r]), jnp.asarray(act[r]),
+                                 jnp.asarray(mask[r]), lr=0.1, batch_size=Bg, epochs=2)
+        want = _jax_flat({k: np.asarray(v)[None] for k, v in new.items()})[0]
+        np.testing.assert_allclose(dense[r], want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(ragged[r], want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(dense[2], g)
+    np.testing.assert_array_equal(ragged[2], g)
+
+
 # ------------------------------------------------------- sketch_similarity
 def test_sketch_similarity_plain_matches_reference():
     """M != N and K = 300, not a multiple of 128: fp32 dot products,
