@@ -238,12 +238,12 @@ Phases (any failure raises and the script exits non-zero):
    two gated packed rounds (128 quantity-skewed clients, ``select_frac``
    0.5) at ``small_model(512)`` on ``local_sgd_ragged``, each held against
    the einsum route.  Past H = 256 the round timeout comes from the fleet's
-   latencies (``wide_fed``).  Then the kernels' general instance
-   (``fedar_general``): the paper's Fig. 6 grid, (B, E) = (10, 20), (20,
-   5), (40, 5), on the 12 robots at 784 -> 128 -> 10 (200 samples a robot,
-   a 30 virtual s timeout), 3 rounds each; 512 clients at B = 50 and B =
-   200, 2 rounds each; two gated packed rounds with tiles of B = 40; every
-   round held against the einsum route as above.
+   latencies (``wide_fed``).  Then the batches past 20 (``fedar_general``,
+   the kernels' tiled plan): the paper's Fig. 6 grid, (B, E) = (10, 20),
+   (20, 5), (40, 5), on the 12 robots at 784 -> 128 -> 10 (200 samples a
+   robot, a 30 virtual s timeout), 3 rounds each; 512 clients at B = 50 and
+   B = 200, 2 rounds each; two gated packed rounds with tiles of B = 40;
+   every round held against the einsum route as above.
 
 Phase 2 also prints the local-SGD kernel's cluster size, shared bytes and
 registers, and each local-SGD case's chain floor beside its bound (the
@@ -255,9 +255,11 @@ cluster of 16), H = 100 (padded to 7 x 16 columns) and, w1 streamed from
 L2, H = 512 (16 x 32) and 813 (15 x 56), dense at 512 clients with both
 activations and a partial last batch and ragged on phase 7's tiles, a row
 past the tight bound arbitrated by the plain version in float64; both on
-the general instance at ``GENERAL_SHAPES`` (batches past 20, class counts
-past 16, I not a multiple of 4, H past 1,024, B = 40 past H = 256), the
-ragged form bit-equal to the dense on the same batches; and ``flash_attention`` and ``ssm_scan`` against
+``GENERAL_SHAPES``, the tiled plan at batches past 20 (B = 21, 40, 50,
+200 at H = 128, B = 40 at H = 256; the time of one sub-tile printed) and
+the general instance at class counts past 16, I not a multiple of 4, H
+past 1,024 and B = 40 past H = 256, the ragged form bit-equal to the dense
+on the same batches; and ``flash_attention`` and ``ssm_scan`` against
 their plain versions at phases 9's and 12's shapes, in bf16 and fp32 (the
 1 x 8,192 prompt in bf16; gemma3-1b's head_dim 256 with and without its
 512 window, a ragged S; yi-9b's 32 heads over 4; phase 15's qwen2-moe-a2.7b
@@ -915,28 +917,37 @@ def dense_tiles(x, y, mask, B):
     return xt, yt, mt, counts, off
 
 
-# Phase 2's shapes for the general instance of kernels 1 and 4: (label,
-# I, H, C, B); the fleet's pixels cut to I columns where I < 784, its
-# labels drawn anew over C classes where C > 10
+# Phase 2's shapes past the narrow plan and the wide instance for kernels 1
+# and 4: (label, I, H, C, B, the instance plan must choose); the fleet's
+# pixels cut to I columns where I < 784, its labels drawn anew over C
+# classes where C > 10
 GENERAL_SHAPES = [
-    ("B = 40", 784, 128, 10, 40), ("B = 50", 784, 128, 10, 50),
-    ("B = 200", 784, 128, 10, 200), ("C = 47", 784, 128, 47, 20),
-    ("C = 100", 784, 128, 100, 20), ("I = 13", 13, 128, 10, 20),
-    ("I = 30", 30, 128, 10, 20), ("I = 16, H = 4096", 16, 4096, 10, 20),
-    ("H = 512, B = 40", 784, 512, 10, 40),
+    ("B = 21", 784, 128, 10, 21, "tiled"), ("B = 40", 784, 128, 10, 40, "tiled"),
+    ("B = 50", 784, 128, 10, 50, "tiled"), ("B = 200", 784, 128, 10, 200, "tiled"),
+    ("H = 256, B = 40", 784, 256, 10, 40, "tiled"),
+    ("C = 47", 784, 128, 47, 20, "general"), ("C = 100", 784, 128, 100, 20, "general"),
+    ("I = 13", 13, 128, 10, 20, "general"), ("I = 30", 30, 128, 10, 20, "general"),
+    ("I = 16, H = 4096", 16, 4096, 10, 20, "general"),
+    ("H = 512, B = 40", 784, 512, 10, 40, "general"),
 ]
+# kernel 1's ms at these rows on the general instance, before the tiled
+# plan took them (PERF.md section 6; an H100 80GB HBM3 at 700 W)
+GENERAL_INSTANCE_MS = {"B = 40": 33.910, "B = 50": 28.469, "B = 200": 28.561}
 
 
 def general_sgd_phase(ref, local_sgd, local_sgd_ragged) -> dict:
-    """Phase 2, kernels 1 and 4 on the general instance, at the shapes no
-    other instance takes (``GENERAL_SHAPES``: batches past 20 at MNIST
-    width, class counts past 16, I not a multiple of 4, H past 1,024, B = 40
-    past H = 256), on phase 4's fleet (R = 512, n = 200, E = 5, clients
-    alternating ReLU and softmax, the last 7 samples masked), each against
-    its plain version by phase 4's per-row rule with the float64 arbiter
-    (``compare_rows``' ``f64_rows``), the ragged form on the same batches
-    bit-equal to the dense, with ms, bound, plain ms and the plan's
-    resources.  Returns {label: entry} for the JSON line."""
+    """Phase 2, kernels 1 and 4 at the shapes the narrow plan and the wide
+    instance do not take (``GENERAL_SHAPES``: on the tiled plan, batches
+    past 20 at H = 128 and 256; on the general instance, class counts past
+    16, I not a multiple of 4, H past 1,024, B = 40 past H = 256), on phase
+    4's fleet (R = 512, n = 200, E = 5, clients alternating ReLU and
+    softmax, the last 7 samples masked), each against its plain version by
+    phase 4's per-row rule with the float64 arbiter (``compare_rows``'
+    ``f64_rows``), the ragged form on the same batches bit-equal to the
+    dense, with ms, bound, plain ms, the plan's resources and the time of
+    one unit of a chain (a sub-tile of the plan's rows: kernel 1's ms over
+    the waves of resident clusters times a client's sub-tiles).  Returns
+    {label: entry} for the JSON line."""
     from repro_torch.data.federated import scaled_fleet
     from repro_torch.kernels.local_sgd import kernel_attrs
 
@@ -951,15 +962,16 @@ def general_sgd_phase(ref, local_sgd, local_sgd_ragged) -> dict:
     mask[:, n - 7:] = False
     cols = torch.randperm(784, generator=gen)
     out = {}
-    for label, I, H, C, B in GENERAL_SHAPES:
+    for label, I, H, C, B, inst in GENERAL_SHAPES:
         x = x784 if I == 784 else x784[:, :, cols[:I].to(DEV)].contiguous()
         y = (y10 if C == 10 else
              torch.randint(0, C, (R, n), generator=gen, dtype=torch.int32).to(DEV))
         D = H + C + I * H + H * C
         g = (torch.randn(D, generator=gen) * 0.05).to(DEV)
         a = kernel_attrs(I, H, C, B)
-        if a["instance"] != "general":
-            raise AssertionError(f"{label}: the plan chose the {a['instance']} instance")
+        if a["instance"] != inst:
+            raise AssertionError(f"{label}: the plan chose the {a['instance']} instance, "
+                                 f"not the {inst}")
         print(f"local_sgd / local_sgd_ragged at I = {I}, H = {H}, C = {C}, B = {B}: "
               f"{a['instance']} instance, {a['cluster']} x {a['slice']} columns, "
               f"{a['rows']} batch rows a sub-tile, {a['workspace'] * 4} workspace bytes a "
@@ -988,10 +1000,17 @@ def general_sgd_phase(ref, local_sgd, local_sgd_ragged) -> dict:
                        reps=1, warmup=0)
         b_ms, b_by = bound_ms(4 * (x.numel() + y.numel() + mask.numel() + D + R * D + R),
                               sgd_flops(mask, B, I, H, C, E))
-        print(f"    kernel 1 {k_ms:.3f} ms, kernel 4 {r_ms:.3f} ms, plain {p_ms:.3f} ms, "
-              f"bound {b_ms:.3g} ms ({b_by})")
+        # every client runs the same chain: E x its batches x the sub-tiles
+        # of a batch, in waves of the clusters resident at once
+        units = E * -(-n // B) * -(-B // a["rows"])
+        unit_us = k_ms * 1e3 / (-(-R // a["max_clusters"]) * units)
+        before = (f" (on the general instance {GENERAL_INSTANCE_MS[label]:.3f} ms)"
+                  if label in GENERAL_INSTANCE_MS else "")
+        print(f"    kernel 1 {k_ms:.3f} ms{before}, kernel 4 {r_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.3g} ms ({b_by}); {units} sub-tiles of up to "
+              f"{a['rows']} rows a client, ~{unit_us:.2f} us each")
         out[label] = dict(I=I, H=H, C=C, B=B, max_abs_err=err, ms=k_ms, ragged_ms=r_ms,
-                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **a)
+                          plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, unit_us=unit_us, **a)
         del tiles, got, want
     return out
 
@@ -3855,15 +3874,15 @@ FIG6_GRID = [(10, 20), (20, 5), (40, 5)]
 
 
 def fedar_general(req, eval_set, sketched, every, entries) -> None:
-    """17c on the general instance: the 12-robot Table II fleet at 784 ->
-    128 -> 10 (fedar + foolsgold_sketch) at the paper's Fig. 6 points
+    """17c at batches past 20: the 12-robot Table II fleet at 784 -> 128 ->
+    10 (fedar + foolsgold_sketch) at the paper's Fig. 6 points
     ``FIG6_GRID``, 3 rounds each (B = 10 and 20 on the narrow plan, B = 40
-    on the general instance); ``scaled_fleet(512, 200)`` at B = 50 and at B
-    = 200 (a full batch), 2 rounds each; every round held against
+    on the tiled plan); ``scaled_fleet(512, 200)`` at B = 50 and at B = 200
+    (a full batch), 2 rounds each; every round held against
     ``sgd_impl="einsum"`` from the same state with float64 as the arbiter
     (``check_wide_round``).  Then two gated packed rounds with the layout
-    tiled at B = 40 (kernel 4 on the general instance), each against the
-    einsum route (``check_packed_wide_round``)."""
+    tiled at B = 40 (kernel 4 on the tiled plan), each against the einsum
+    route (``check_packed_wide_round``)."""
     from repro_torch.configs.fedar_mnist import MnistConfig, fleet_fed
     from repro_torch.core.engine import PackedLayout
     from repro_torch.core.fedar import FedARServer
@@ -4042,7 +4061,7 @@ def main() -> int:
         entries["local_sgd"].setdefault("wide", {})[H] = cases["dense"]
         entries["local_sgd_ragged"].setdefault("wide", {})[H] = cases["ragged"]
     entries["local_sgd"]["general"] = general_sgd_phase(ref, local_sgd, local_sgd_ragged)
-    progress(t_start, "phase 2, the local-SGD kernels' general instance")
+    progress(t_start, "phase 2, the local-SGD kernels' tiled plan and general instance")
     del skew_packed, skew_dense, lay
     # phase 9's shapes: zamba2-7b's shared block (32 heads of 112, no kv
     # grouping) over 4 x 2,048 tokens and over one 8,192-token prompt (bf16

@@ -1,12 +1,13 @@
 """Kernels 1 and 4 (the fused local-SGD kernel, dense and ragged) at several
-hidden widths, for one copy of the port, on one card.
+hidden widths and batch sizes, for one copy of the port, on one card.
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is imported, so
 that a commit and its parent (each unpacked with ``git archive``) can be run
-on the same card in one session.  For every width in ``--widths`` the script
-runs both forms on the same numpy-seeded inputs (I = 784, C = 10, B = 20,
-E = 5, mixed ReLU / softmax clients, a ragged tail, an all-masked batch and
-an all-False client) and prints one JSON line: the SHA-256 digest of each
+on the same card in one session.  For every width in ``--widths`` and batch
+size in ``--batches`` (default 20) the script runs both forms on the same
+numpy-seeded inputs (I = 784, C = 10, E = 5, mixed ReLU / softmax clients,
+a ragged tail, an all-masked batch and an all-False client) and prints one
+JSON line: the SHA-256 digest of each
 form's output bits, the largest error against the plain version
 (``kernels/ref.py``), the kernel's median device ms (CUDA events) and, where
 the copy has it, the plan's cluster size, slice width, resources, the
@@ -18,6 +19,8 @@ plain version against the plain version in float64, row by row: where the
 two fp32 versions part, it shows which one left the float64 rows.
 
 Run:  python scripts/local_sgd_widths.py --src src --label change
+      python scripts/local_sgd_widths.py --src src --widths 128 --batches 40,50,200 \
+          --clients 512
 """
 import argparse
 import hashlib
@@ -82,6 +85,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent.parent / "src"))
     ap.add_argument("--label", default="")
     ap.add_argument("--widths", default="8,16,32,64,128")
+    ap.add_argument("--batches", default="20")
     ap.add_argument("--clients", type=int, default=12)
     ap.add_argument("--samples", type=int, default=200)
     ap.add_argument("--f64", action="store_true",
@@ -103,15 +107,17 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"{smi}; repro_torch from {Path(repro_torch.__file__).parent}")
     dev = torch.device("cuda")
-    B, E, lr, C = 20, 5, 0.1, 10
-    for H in (int(h) for h in args.widths.split(",")):
+    E, lr, C = 5, 0.1, 10
+    shapes = [(int(h), int(b)) for h in args.widths.split(",")
+              for b in args.batches.split(",")]
+    for H, B in shapes:
         g, x, y, act, mask = (torch.as_tensor(a, device=dev)
                               for a in inputs(H, args.clients, args.samples))
         kw = dict(hidden=H, classes=C, lr=lr, epochs=E)
         try:
             dense = mod.local_sgd(g, x, y, act, mask, batch_size=B, **kw)
         except ValueError as err:
-            print(json.dumps(dict(label=args.label, H=H, refused=str(err))))
+            print(json.dumps(dict(label=args.label, H=H, B=B, refused=str(err))))
             continue
         rag_args = [torch.as_tensor(a, device=dev) for a in
                     ragged(x.cpu().numpy(), y.cpu().numpy(), mask.cpu().numpy(), B)]
@@ -119,7 +125,7 @@ def main() -> int:
         rag = mod.local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw)
         plain = ref.local_sgd_ref(g, x, y, act, mask, batch_size=B, **kw)
         torch.cuda.synchronize()
-        rec = dict(label=args.label, H=H, R=args.clients, n=args.samples,
+        rec = dict(label=args.label, H=H, B=B, R=args.clients, n=args.samples,
                    dense=digest(dense), ragged=digest(rag),
                    dense_equals_ragged=bool(torch.equal(dense, rag)),
                    max_abs_err=(dense - plain).abs().max().item(),

@@ -1,16 +1,16 @@
 // Kernels 1 and 4 (local_sgd.cuh holds the design): the narrow plan's
-// instances (H <= 256) and the C interface the wrapper loads.
+// instances (H <= 256) and the C interface the wrapper loads, which routes
+// a shape to the narrow plan, the wide instance, the tiled plan or the
+// general instance, in that order.
 #include "local_sgd.cuh"
 
 namespace {
-
-constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may opt into
 
 // Whether the narrow plan or the wide instance takes (I, H, C, B), as they
 // did before the general instance: rows of whole 16-byte units, C at most
 // 16, a plan with a cluster, and its shared bytes within a block's.
 bool fixed_plan(int I, int H, int C, int B, Plan* p) {
-  if (I < 4 || I % 4 != 0 || H < 1 || C < 1 || C > 16 || B < 1) return false;
+  if (!bulk_shapes(I, H, C, B)) return false;
   *p = make_plan(I, H, C, B);
   return p->K != 0 && p->bytes <= kMaxSmemBytes;
 }
@@ -21,9 +21,13 @@ int dispatch(const float* g, const float* x, const int* y, const int* act, const
              int nclusters, int R, int npad, int I, int H, int C, int B, int epochs, float lr,
              void* stream) {
   Plan p;
-  if (!fixed_plan(I, H, C, B, &p))
+  if (!fixed_plan(I, H, C, B, &p)) {
+    if (tiled_plan(I, H, C, B).K)
+      return local_sgd_tiled_launch(kRagged, g, x, y, act, mask, nb, off, order, out, R, npad,
+                                    I, H, C, B, epochs, lr, stream);
     return local_sgd_general_launch(kRagged, g, x, y, act, mask, nb, off, order, out, ws,
                                     nclusters, R, npad, I, H, C, B, epochs, lr, stream);
+  }
   if (p.wide)
     return local_sgd_wide_launch(kRagged, g, x, y, act, mask, nb, off, order, out, R, npad, I,
                                  H, C, B, epochs, lr, stream);
@@ -42,22 +46,25 @@ int dispatch(const float* g, const float* x, const int* y, const int* act, const
 }  // namespace
 
 // The plan of (I, H, C, B): its instance (0 the narrow plan, 1 the wide
-// instance, 2 the general instance), cluster size K, slice width HS, one
-// CTA's threads and dynamic shared bytes, whether w1 streams from L2, the
-// batch rows a sub-tile and the floats of one cluster's workspace slot (the
-// general instance; B and 0 for the others); -1 for a shape no instance
-// takes (a dimension under 1, or a slot or an output row past 2^31 floats).
+// instance, 2 the general instance, 3 the tiled plan), cluster size K,
+// slice width HS, one CTA's threads and dynamic shared bytes, whether w1
+// streams from L2, the batch rows a sub-tile (B for the narrow plan and the
+// wide instance) and the floats of one cluster's workspace slot (the
+// general instance; 0 for the others); -1 for a shape no instance takes (a
+// dimension under 1, or a slot or an output row past 2^31 floats).
 extern "C" int fedar_local_sgd_plan(int I, int H, int C, int B, int* instance, int* K,
                                     int* HS, int* threads, int* smem_bytes, int* streamed,
                                     int* rows, long long* ws_floats) {
   Plan p;
-  if (fixed_plan(I, H, C, B, &p)) {
-    *instance = p.wide;
+  const bool fixed = fixed_plan(I, H, C, B, &p);
+  if (!fixed) p = tiled_plan(I, H, C, B);
+  if (p.K) {
+    *instance = fixed ? p.wide : 3;
     *K = p.K;
     *HS = p.HS;
     *smem_bytes = p.bytes;
     *streamed = p.wide;
-    *rows = B;
+    *rows = fixed ? B : p.Bp;
     *ws_floats = 0;
   } else {
     const GPlan q = make_general_plan(I, H, C, B);
@@ -77,8 +84,11 @@ extern "C" int fedar_local_sgd_plan(int I, int H, int C, int B, int* instance, i
 extern "C" int fedar_local_sgd_attrs(int I, int H, int C, int B, int* regs,
                                      int* local_bytes, int* max_clusters) {
   Plan p;
-  if (!fixed_plan(I, H, C, B, &p))
+  if (!fixed_plan(I, H, C, B, &p)) {
+    if (tiled_plan(I, H, C, B).K)
+      return local_sgd_tiled_attrs(I, H, C, B, regs, local_bytes, max_clusters);
     return local_sgd_general_attrs(I, H, C, B, regs, local_bytes, max_clusters);
+  }
   if (p.wide) return local_sgd_wide_attrs(I, H, C, B, regs, local_bytes, max_clusters);
   switch (p.HS) {
     case 8:
@@ -91,7 +101,7 @@ extern "C" int fedar_local_sgd_attrs(int I, int H, int C, int B, int* regs,
 }
 
 // ws / nclusters: the general instance's workspace (nclusters slots of the
-// plan's ws_floats) and its grid in clusters; unused by the other two.
+// plan's ws_floats) and its grid in clusters; unused by the other three.
 extern "C" int fedar_local_sgd(const float* g, const float* x, const int* y,
                                const int* act, const float* mask, const int* order,
                                float* out, float* ws, int nclusters, int R, int npad, int I,

@@ -2,8 +2,20 @@
 // thread-block cluster per client, in two forms built from one template.
 // This header holds the template; local_sgd.cu instantiates the narrow plan
 // (H <= 256) and the C interface, local_sgd_wide.cu the wide instance,
-// local_sgd_general.cu the general instance (three translation units, so
-// that nvcc builds them side by side):
+// local_sgd_tiled.cu the tiled plan, local_sgd_general.cu the general
+// instance (four translation units, so that nvcc builds them side by side).
+// The C interface takes the first of them that takes the shape:
+//
+//   narrow   H <= 256, I a multiple of 4, C <= 16, two x tiles of the whole
+//            batch within a CTA's shared memory (B <= 20 at I = 784)
+//   wide     256 < H <= 1,024 at the same I and C, B <= 20
+//   tiled    H <= 256 at the same I and C, a batch the narrow plan cannot
+//            hold (every B > 20 at I = 784), where its plan fits a CTA and
+//            I <= 1,024 (2,048 at 8-column slices)
+//   general  every other shape (C > 16, I not a multiple of 4, H > 1,024,
+//            H > 256 at B > 20, what the tiled plan cannot fit)
+//
+// The forms:
 //
 //   local_sgd_kernel<false>  the dense (R, npad) sample rectangle
 //   local_sgd_kernel<true>   the ragged batch-tile buffer of the packed
@@ -78,10 +90,11 @@
 //   act    (R,)          int32, 1 = softmax hidden, else ReLU
 //   order  (R,)          int32, cluster c trains client order[c]
 //   out    (R, D)        post-SGD params, same flat order as g
-// The narrow plan and the wide instance need I a multiple of 4 (16-byte
-// rows for the bulk copy and float4 reads), C at most 16, H at most 1,024
-// (past 256, B at most 20) and a plan within a block's shared memory;
-// every other shape goes to the general instance (below the template).
+// The narrow plan, the wide instance and the tiled plan need I a multiple
+// of 4 (16-byte rows for the bulk copy and float4 reads), C at most 16, H
+// at most 1,024 (past 256, B at most 20) and a plan within a block's shared
+// memory; every other shape goes to the general instance (below the
+// template).
 //
 // Hidden widths.  Where H splits into at most 8 slices of 8 or 16 columns
 // (H one of 8, 16, 24, 32, 40, 48, 56, 64, 80, 96, 112, 128) the plan is
@@ -125,6 +138,39 @@
 // the B x HS activations and the cluster's partial buffers stay in shared
 // memory as in the narrow plan, which is unchanged for H <= 256.
 //
+// The tiled plan (kTiled; H <= 256 and a batch whose two x tiles do not
+// fit, so B > 20 at I = 784).  What bounds it is what bounds the narrow
+// plan: the chain's step latency, not the 16-column slice's FMA work (a
+// 20-row sub-tile is ~1.0 MFLOP a CTA at I = 784, H = 128, ~2 us at an SM's
+// share of the fp32 peak, against the ~12 us a narrow step at B = 20 takes
+// on the card: PERF.md section 6).  A step of B rows on the narrow plan's 8
+// CTAs would need ~2 x B x 784 x 4 bytes of x slots; the general instance,
+// which stood in for it, streamed every product through L2 on 2 CTAs a
+// client.  The tiled plan keeps the narrow plan's whole layout -- its K and
+// HS, the w1 slice, b1 and the w2 rows in shared memory for the whole
+// chain, the distributed-shared-memory reductions, the multicast bulk
+// copies -- and takes the batch through in sub-tiles of Bp = 20 rows (fewer
+// where shared memory is short), x slots of Bp rows.  Each sub-tile runs
+// the narrow step's forward, softmax hidden layer, logits and d logits (the
+// batch's mask count, staged with its mask and labels before the first
+// sub-tile, scales them), dh and the softmax backward on its own rows: a
+// row's backward needs only its own logits, so the cluster's buffers stay
+// sub-tile-sized.  Its x tile, still in shared memory, feeds its share of
+// the w1 gradient, so x is read once a step.  The gradients are summed over
+// the sub-tiles in sub-tile order: w1's in the update threads' registers
+// (each thread owns one tile of 8 columns x 8 rows of I for the whole
+// chain, utiles <= 256, so the sum over b runs as the narrow plan's does,
+// one fmaf chain in row order), w2's, b2's and b1's in shared memory, each
+// sub-tile's share summed as the narrow plan sums a step's; the last
+// sub-tile applies them.  w1, b1, b2 and the w2 parity change only then, so
+// every sub-tile of a step reads the step's parameters.  The next
+// sub-tile's tile (or the next live batch's first) is issued after each
+// sub-tile's logits barrier, as the narrow plan issues the next batch's;
+// the rows past a partial last sub-tile are a previous sub-tile's, summed
+// in the forward and dropped.  A step of B rows costs ceil(B / Bp) narrow
+// steps' latency, so on a fleet of n samples a client the kernel takes
+// about what the narrow plan takes at B = 20.
+//
 // Pad columns (h >= H, only in the last CTA's slice) are not the model's:
 // their w1 columns, b1 entries and w2 rows start at zero in shared memory
 // (in the wide instance their w1 is never read, an exact 0, since in out
@@ -155,6 +201,8 @@ constexpr int kMaxPortable = 8;  // the portable cluster size
 constexpr int kMaxCluster = 16;  // the non-portable limit on Hopper
 constexpr int kMaxWideSlice = 64;  // the wide instance: two 32-column groups
 constexpr int kBT = 20;            // the wide instance's batch rows in registers
+constexpr int kSubRows = 20;       // the tiled plan's largest sub-tile
+constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may opt into
 static_assert(kRows * kCols == 40, "a forward tile: 32 outputs + 8 outputs");
 
 // Shared-memory plan of one CTA; computed on the host, passed by value.
@@ -164,15 +212,26 @@ struct Plan {
   int o_x, o_w1, o_hpre, o_hact, o_dh, o_dhp, o_w2, o_b1, o_b2, o_lg, o_red, o_ms, o_ys,
       o_misc, o_bar, bytes;
   int wide, o_part;  // w1 streamed from L2; the runs' forward partials
+  // the tiled plan: a step's batch in nsub sub-tiles of Bp rows, MB staged
+  // mask and label rows a step (Bp elsewhere), the sub-tiles' gradients of
+  // w2, b2 and b1
+  int tiled, nsub, MB, o_gw2, o_gb2, o_gb1;
 };
 
 __host__ __device__ inline int up4(int v) { return (v + 3) & ~3; }
 
+// The shapes the bulk-copy plans (narrow, wide, tiled) take: rows of whole
+// 16-byte units, at most 16 classes.
+inline bool bulk_shapes(int I, int H, int C, int B) {
+  return I >= 4 && I % 4 == 0 && H >= 1 && C >= 1 && C <= 16 && B >= 1;
+}
+
 // K: the largest portable cluster whose slices are 8 or 16 columns wide;
 // else H padded to K slices of HS columns, K <= 16; past H = 256 the wide
-// instance's K x HS; K = 0 for a shape no plan takes.  A function of the
-// shapes only.
-Plan make_plan(int I, int H, int C, int B) {
+// instance's K x HS; K = 0 for a shape no plan takes.  BT > 0: the tiled
+// plan's sub-tiles of BT rows (a multiple of kRows; H <= 256 only), with
+// the narrow plan's K and HS.  A function of the shapes only.
+Plan make_plan(int I, int H, int C, int B, int BT = 0) {
   Plan p{};
   for (int k = kMaxPortable; k >= 1; --k)
     if (H % k == 0 && (H / k == 8 || H / k == 16)) {
@@ -190,9 +249,14 @@ Plan make_plan(int I, int H, int C, int B) {
       if (p.HS > kMaxWideSlice || B > kBT) p.K = 0;
     }
   }
+  if (BT > 0 && p.wide) p.K = 0;
   if (p.K == 0) return p;
-  // the wide instance's x slots hold kBT rows, those past B zero
-  p.Bp = p.wide ? kBT : (B + kRows - 1) / kRows * kRows;
+  // the wide instance's x slots hold kBT rows, those past B zero; the
+  // tiled plan's BT rows of a sub-tile
+  p.tiled = BT > 0;
+  p.Bp = p.wide ? kBT : p.tiled ? BT : (B + kRows - 1) / kRows * kRows;
+  p.nsub = p.tiled ? (B + BT - 1) / BT : 1;
+  p.MB = p.tiled ? B : p.Bp;
   p.W = 4 * ((up4(I) / 4) | 1);  // odd count of 16-byte units: conflict-free rows
   p.RB = up4(p.Bp * C > 2 * p.Bp ? p.Bp * C : 2 * p.Bp);
   int off = 0;
@@ -212,15 +276,34 @@ Plan make_plan(int I, int H, int C, int B) {
   p.o_b2 = take(C);
   p.o_lg = take(p.Bp * C);
   p.o_red = take(2 * p.K * p.RB);
-  p.o_ms = take(2 * p.Bp);
-  p.o_ys = take(2 * p.Bp);
+  p.o_ms = take(2 * p.MB);
+  p.o_ys = take(2 * p.MB);
   if (p.wide) p.o_part = take(kWarps / ((p.HS + 31) / 32) * p.Bp * p.HS);
+  p.o_gw2 = take(p.tiled ? p.HS * C : 0);
+  p.o_gb2 = take(p.tiled ? C : 0);
+  p.o_gb1 = take(p.tiled ? p.HS : 0);
   p.o_misc = take(8);  // next live step (3), mask counts (2)
   off = (off + 1) & ~1;  // 8-byte aligned mbarriers
   p.o_bar = off;
   off += 2 * 2;  // two 8-byte barriers
   p.bytes = off * 4;
   return p;
+}
+
+// The tiled plan: the largest sub-tile (20, 15, 10 or 5 rows, fewer than
+// B) whose plan fits a CTA's shared memory and gives each update thread at
+// most one w1 tile (its gradient lives in that thread's registers); K = 0
+// if none.
+Plan tiled_plan(int I, int H, int C, int B) {
+  if (!bulk_shapes(I, H, C, B)) return Plan{};
+  for (int bt = kSubRows; bt >= kRows; bt -= kRows) {
+    if (bt >= B) continue;
+    const Plan p = make_plan(I, H, C, B, bt);
+    if (p.K == 0) break;
+    const int utiles = (I / 4 + 1) / 2 * (p.HS / kCols);
+    if (p.bytes <= kMaxSmemBytes && utiles <= kThreads) return p;
+  }
+  return Plan{};
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
@@ -475,7 +558,57 @@ __device__ __forceinline__ void wide_pass(const float* xu, const float* xf, int 
   }
 }
 
-template <bool kRagged, int kHS>
+// A w1-update tile's gradient: ga[k][e] += sum over b < rows of x[b][4 qa
+// + e] * dhp[b][c0 + k] (gb: 4 qb + e, when hasb), in row order.
+__device__ __forceinline__ void accumulate_tile(const float* xt, int I, const float* dhp,
+                                                int HS, int c0, int qa, int qb, bool hasb,
+                                                int rows, float (&ga)[kCols][4],
+                                                float (&gb)[kCols][4]) {
+  for (int b = 0; b < rows; ++b) {
+    const float4 xa = ld4(xt + b * I + 4 * qa);
+    const float4 xb = hasb ? ld4(xt + b * I + 4 * qb) : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 d0 = ld4(dhp + b * HS + c0), d1 = ld4(dhp + b * HS + c0 + 4);
+    const float d[kCols] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      ga[k][0] = fmaf(xa.x, d[k], ga[k][0]);
+      ga[k][1] = fmaf(xa.y, d[k], ga[k][1]);
+      ga[k][2] = fmaf(xa.z, d[k], ga[k][2]);
+      ga[k][3] = fmaf(xa.w, d[k], ga[k][3]);
+      gb[k][0] = fmaf(xb.x, d[k], gb[k][0]);
+      gb[k][1] = fmaf(xb.y, d[k], gb[k][1]);
+      gb[k][2] = fmaf(xb.z, d[k], gb[k][2]);
+      gb[k][3] = fmaf(xb.w, d[k], gb[k][3]);
+    }
+  }
+}
+
+// w1s -= lr * the tile's gradient (w1s[h * W + i] = w1[i][h0 + h]).
+__device__ __forceinline__ void apply_tile(float* w1s, int W, int c0, int qa, int qb,
+                                           bool hasb, float lr, const float (&ga)[kCols][4],
+                                           const float (&gb)[kCols][4]) {
+#pragma unroll
+  for (int k = 0; k < kCols; ++k) {
+    float4* wa = reinterpret_cast<float4*>(w1s + (c0 + k) * W + 4 * qa);
+    float4 w = *wa;
+    w.x -= lr * ga[k][0];
+    w.y -= lr * ga[k][1];
+    w.z -= lr * ga[k][2];
+    w.w -= lr * ga[k][3];
+    *wa = w;
+    if (hasb) {
+      float4* wb = reinterpret_cast<float4*>(w1s + (c0 + k) * W + 4 * qb);
+      w = *wb;
+      w.x -= lr * gb[k][0];
+      w.y -= lr * gb[k][1];
+      w.z -= lr * gb[k][2];
+      w.w -= lr * gb[k][3];
+      *wb = w;
+    }
+  }
+}
+
+template <bool kRagged, int kHS, bool kTiled = false>
 __global__ void __launch_bounds__(kThreads, 1)
 local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
                  const int* __restrict__ y, const int* __restrict__ act,
@@ -485,6 +618,7 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
                  int epochs, float lr, Plan p) {
   constexpr bool kWide = kHS == 0;  // w1 streamed from L2, HS from the plan
   static_assert(kWide || kHS == 8 || kHS == 16, "a slice is one or two 8-column groups");
+  static_assert(!(kWide && kTiled), "the tiled plan keeps w1 in shared memory");
   const int HS = kWide ? p.HS : kHS;
   constexpr int colg = kWide ? 1 : kHS / kCols;  // 8-column groups (narrow)
   extern __shared__ __align__(128) float smem[];
@@ -502,8 +636,8 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const int nreal = H - h0 < HS ? H - h0 : HS;  // the slice's model columns
   const int quads = I / 4;
   const int npairs = (quads + 1) / 2;
-  const int ftiles = kWide ? 0 : Bp / kRows * colg;  // forward warp tiles
   const int utiles = kWide ? 0 : npairs * colg;      // w1-update thread tiles
+  const int MB = kTiled ? p.MB : Bp;  // staged mask and label rows a step
   const long long D = (long long)H + C + (long long)I * H + (long long)H * C;
 
   float* xs = smem + p.o_x;       // 2 slots of Bp x I (rows >= B stay zero)
@@ -517,8 +651,11 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   float* b2s = smem + p.o_b2;     // C
   float* lg = smem + p.o_lg;      // B x C, logits then d logits
   float* red = smem + p.o_red;    // 2 x K x RB cluster partials, a slot a rank
-  float* ms = smem + p.o_ms;      // 2 x Bp staged mask rows
-  int* ys = reinterpret_cast<int*>(smem + p.o_ys);        // 2 x Bp labels
+  float* ms = smem + p.o_ms;      // 2 x MB staged mask rows
+  int* ys = reinterpret_cast<int*>(smem + p.o_ys);        // 2 x MB labels
+  float* gw2s = smem + p.o_gw2;   // tiled: HS x C, w2's gradient over the sub-tiles
+  float* gb2s = smem + p.o_gb2;   // tiled: C
+  float* gb1s = smem + p.o_gb1;   // tiled: HS
   int* s_next = reinterpret_cast<int*>(smem + p.o_misc);  // next live step
   float* cnts = smem + p.o_misc + 4;                      // 2 staged mask counts
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
@@ -561,7 +698,9 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const int nb = kRagged ? nbs[r] : npad / B;
   const long long first = kRagged ? (long long)offs[r] * B : (long long)r * npad;
   const int total = epochs * nb;
-  const uint32_t tile_bytes = (uint32_t)B * I * 4;
+  const uint32_t tile_bytes = (uint32_t)B * I * 4;  // a whole batch's x tile
+  // the bytes of the tiled plan's x tile whose first batch row is b
+  auto sub_bytes = [&](int b) { return (uint32_t)(B - b < Bp ? B - b : Bp) * I * 4; };
   const bool stager = warp == 0;  // the forward's fastest warp (measured)
   if (tid == 0) {
     mbar_init(smem_addr(&bars[0]), 1);
@@ -575,19 +714,32 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   cluster.sync();  // every barrier of the cluster initialised, params staged
   int t = s_next[2];
   if (tid == 0 && t < total)
-    issue_tile(x + (first + (long long)(t % nb) * B) * I, xs, &bars[0], tile_bytes, rank, K);
+    issue_tile(x + (first + (long long)(t % nb) * B) * I, xs, &bars[0],
+               kTiled ? sub_bytes(0) : tile_bytes, rank, K);
 
-  int use = 0, nred = 0;
+  // the tiled plan: sub-tile `sub` of step t, the step's parity bpar (its
+  // staged mask and labels, its w2 rows), and each update thread's w1
+  // gradient over the step's sub-tiles (its one tile: utiles <= nthr)
+  int use = 0, nred = 0, sub = 0, bpar = 0;
+  float ua[kCols][4], ub[kCols][4];
+#pragma unroll
+  for (int k = 0; k < kCols; ++k)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ua[k][e] = ub[k][e] = 0.f;
   bool ready = false;  // the wide instance: this step's forward partials are in `runs`
   while (t < total) {
     const int cur = use & 1, nxt = cur ^ 1;
+    const int bp = kTiled ? bpar & 1 : cur;  // the step's parity
+    const bool sfirst = !kTiled || sub == 0, slast = !kTiled || sub == p.nsub - 1;
+    const int tb0 = kTiled ? sub * Bp : 0;                      // the sub-tile's first row
+    const int bt = kTiled ? (B - tb0 < Bp ? B - tb0 : Bp) : B;  // and its rows
     const float* xt = xs + cur * Bp * I;
     // --- the next live batch's mask row and labels, read ahead by the
-    // stager warp: the first candidate's loads are issued before the forward
-    // product and consumed after it
+    // stager warp (in a step's first sub-tile): the first candidate's loads
+    // are issued before the forward product and consumed after it
     float mv = 0.f;
     int yv = 0;
-    if (stager && t + 1 < total && B <= 32) {
+    if (stager && sfirst && t + 1 < total && B <= 32) {
       const long long rowc = first + (long long)((t + 1) % nb) * B;
       if (lane < B) {
         mv = mask[rowc + lane];
@@ -612,7 +764,10 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
     }
     // --- forward: a warp's tile is kRows batch rows x kCols hidden columns;
     // lane l sums the 4-row groups q = l, l + 32, ... of I, then the warp
-    // reduce-scatters the 40 sums
+    // reduce-scatters the 40 sums (rows past bt, zero or a previous
+    // sub-tile's, are summed and dropped)
+    const int ftiles =  // forward warp tiles
+        kWide ? 0 : (kTiled ? (bt + kRows - 1) / kRows : Bp / kRows) * colg;
     for (int tile = warp; tile < ftiles; tile += nwarps) {
       const int r0 = tile / colg * kRows, c0 = tile % colg * kCols;
       float acc[kRows * kCols];
@@ -641,14 +796,15 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
 #pragma unroll
       for (int part = 0; part < 2; ++part) {
         const int b = r0 + (part ? kRows - 1 : lane / kCols);
-        if (b < B && (part == 0 || lane < kCols)) {
+        if (b < bt && (part == 0 || lane < kCols)) {
           const float hp = (part ? hi : lo) + b1s[h];
           hpre[b * HS + h] = hp;
           if (!soft) hact[b * HS + h] = fmaxf(hp, 0.f);
         }
       }
     }
-    if (stager) {
+    if (stager && sfirst) {
+      const int np = bp ^ 1;  // the next step's parity
       int tn = total;
       if (t + 1 < total) {
         if (B <= 32) {
@@ -657,20 +813,20 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
           if (cnt > 0.f) {
             tn = t + 1;
             if (lane < B) {
-              ms[nxt * Bp + lane] = mv;
-              ys[nxt * Bp + lane] = yv;
+              ms[np * MB + lane] = mv;
+              ys[np * MB + lane] = yv;
             }
-            if (lane == 0) cnts[nxt] = cnt;
+            if (lane == 0) cnts[np] = cnt;
           } else {
-            tn = stage_next_live(mask, y, first, nb, B, t + 2, total, ms + nxt * Bp,
-                                 ys + nxt * Bp, &cnts[nxt], lane);
+            tn = stage_next_live(mask, y, first, nb, B, t + 2, total, ms + np * MB,
+                                 ys + np * MB, &cnts[np], lane);
           }
         } else {
-          tn = stage_next_live(mask, y, first, nb, B, t + 1, total, ms + nxt * Bp,
-                               ys + nxt * Bp, &cnts[nxt], lane);
+          tn = stage_next_live(mask, y, first, nb, B, t + 1, total, ms + np * MB,
+                               ys + np * MB, &cnts[np], lane);
         }
       }
-      if (lane == 0) s_next[cur] = tn;
+      if (lane == 0) s_next[bp] = tn;
     }
     __syncthreads();
     if constexpr (kWide) {
@@ -685,16 +841,16 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
       }
       __syncthreads();
     }
-    const int tn = s_next[cur];
-    const float* w2s = w2b + cur * HS * C;  // this step's w2 rows
-    float* w2n = w2b + nxt * HS * C;        // the next step's
+    const int tn = s_next[bp];
+    const float* w2s = w2b + bp * HS * C;  // this step's w2 rows
+    float* w2n = w2b + (bp ^ 1) * HS * C;  // the next step's
     // --- softmax hidden layer: each CTA's row max and exp-sum over its
     // slice's model columns; one barrier; then a half warp per row takes the
     // global max and sum over the K slices (rank order) and the row's h (0
     // in a pad column)
     if (soft) {
       float* buf = red + (nred & 1) * K * RB;
-      for (int b = tid; b < B; b += nthr) {
+      for (int b = tid; b < bt; b += nthr) {
         const float* hp = hpre + b * HS;
         float m = -INFINITY;
 #pragma unroll
@@ -708,7 +864,7 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
         push(cluster, buf, RB, rank, K, 2 * b + 1, sum);
       }
       cluster.sync();
-      for (int b = 2 * warp + half; b < B; b += 2 * nwarps) {
+      for (int b = 2 * warp + half; b < bt; b += 2 * nwarps) {
         float m = -INFINITY;
         for (int rk = 0; rk < K; ++rk) m = fmaxf(m, buf[rk * RB + 2 * b]);
         float sum = 0.f;
@@ -728,35 +884,38 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
     // max(cnt, 1), lane l holding classes l and l + 8 (C <= 16)
     {
       float* buf = red + (nred & 1) * K * RB;
-      for (int k = tid; k < B * C; k += nthr) {
+      for (int k = tid; k < bt * C; k += nthr) {
         const int b = k / C, c = k % C;
         push(cluster, buf, RB, rank, K, k, dot4(hact + b * HS, 1, w2s + c, C, HS));
       }
       cluster.sync();
-      // every CTA of the cluster has finished the previous step: the other
-      // slot is free everywhere, so the next live batch's tile goes out now
-      if (tid == nthr - 1 && tn < total)
-        issue_tile(x + (first + (long long)(tn % nb) * B) * I, xs + nxt * Bp * I, &bars[nxt],
-                   tile_bytes, rank, K);
-      const float* mrow = ms + cur * Bp;
-      const int* yrow = ys + cur * Bp;
-      const float cnt = fmaxf(cnts[cur], 1.f);
-      for (int b0 = 4 * warp; b0 < B; b0 += 4 * nwarps) {
+      // every CTA of the cluster has finished the previous sub-tile: the
+      // other slot is free everywhere, so the next tile goes out now (the
+      // step's next sub-tile, else the next live batch's first)
+      const int tu = kTiled && !slast ? t : tn;
+      const int bu = kTiled && !slast ? tb0 + Bp : 0;
+      if (tid == nthr - 1 && tu < total)
+        issue_tile(x + (first + (long long)(tu % nb) * B + bu) * I, xs + nxt * Bp * I,
+                   &bars[nxt], kTiled ? sub_bytes(bu) : tile_bytes, rank, K);
+      const float* mrow = ms + bp * MB + tb0;
+      const int* yrow = ys + bp * MB + tb0;
+      const float cnt = fmaxf(cnts[bp], 1.f);
+      for (int b0 = 4 * warp; b0 < bt; b0 += 4 * nwarps) {
         const int b = b0 + (lane >> 3), l8 = lane & 7;
         float lv[2], e[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int c = l8 + 8 * j;
-          lv[j] = b < B && c < C ? gather_sum(buf, RB, K, b * C + c) + b2s[c] : -INFINITY;
+          lv[j] = b < bt && c < C ? gather_sum(buf, RB, K, b * C + c) + b2s[c] : -INFINITY;
         }
         const float mx = quarter_max(fmaxf(lv[0], lv[1]));
 #pragma unroll
-        for (int j = 0; j < 2; ++j) e[j] = b < B && l8 + 8 * j < C ? expf(lv[j] - mx) : 0.f;
+        for (int j = 0; j < 2; ++j) e[j] = b < bt && l8 + 8 * j < C ? expf(lv[j] - mx) : 0.f;
         const float sum = quarter_sum(e[0] + e[1]);
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int c = l8 + 8 * j;
-          if (b < B && c < C)
+          if (b < bt && c < C)
             lg[b * C + c] = (e[j] / sum - (c == yrow[b] ? 1.f : 0.f)) * (mrow[b] / cnt);
         }
       }
@@ -766,9 +925,12 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
     // --- dh[:, slice] = d logits @ w2[slice]^T, two columns a thread (a ReLU
     // hidden layer passes it where hpre > 0); beside it, on the threads
     // past those, the next step's w2[slice] = w2 - lr * h^T @ d logits and
-    // b2 -= lr * sum_b d logits (b2 identical in every CTA)
+    // b2 -= lr * sum_b d logits (b2 identical in every CTA).  The tiled
+    // plan sums a gradient over the step's sub-tiles in sub-tile order,
+    // each sub-tile's share as the narrow plan sums a step's, and its last
+    // sub-tile applies it.
     {
-      const int ndh = B * HS / 2;
+      const int ndh = bt * HS / 2;
       const int spare0 = ndh < nthr ? ndh : 0;
       for (int k = tid; k < ndh; k += nthr) {
 #pragma unroll
@@ -783,10 +945,16 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
         for (int k = tid - spare0; k < HS * C + C; k += nthr - spare0) {
           if (k < HS * C) {
             const int hl = k / C, c = k % C;
-            w2n[k] = w2s[k] - lr * dot4(hact + hl, HS, lg + c, C, B);
+            float gs = dot4(hact + hl, HS, lg + c, C, bt);
+            if (!sfirst) gs = gw2s[k] + gs;
+            if (slast) w2n[k] = w2s[k] - lr * gs;
+            else gw2s[k] = gs;
           } else {
             const int c = k - HS * C;
-            b2s[c] -= lr * dot4(lg + c, C, nullptr, 0, B);
+            float gs = dot4(lg + c, C, nullptr, 0, bt);
+            if (!sfirst) gs = gb2s[c] + gs;
+            if (slast) b2s[c] -= lr * gs;
+            else gb2s[c] = gs;
           }
         }
       }
@@ -796,10 +964,10 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
       // softmax backward: the row dot sum(dh * h) over all H (the slices'
       // partials in rank order), then d hpre = h * (dh - dot)
       float* buf = red + (nred & 1) * K * RB;
-      for (int b = tid; b < B; b += nthr)
+      for (int b = tid; b < bt; b += nthr)
         push(cluster, buf, RB, rank, K, b, dot4(dh + b * HS, 1, hact + b * HS, 1, HS));
       cluster.sync();
-      for (int b = 2 * warp + half; b < B; b += 2 * nwarps) {
+      for (int b = 2 * warp + half; b < bt; b += 2 * nwarps) {
         const float dot = gather_sum(buf, RB, K, b);
         for (int hl = l16; hl < HS; hl += 16) {
           const int k = b * HS + hl;
@@ -831,6 +999,30 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
           if (j < B) runs[(run * Bp + j) * HS + wcol] = acc[j];
       ready = fwd;
       for (int k = tid; k < HS; k += nthr) b1s[k] -= lr * dot4(dhp + k, HS, nullptr, 0, B);
+    } else if constexpr (kTiled) {
+      // the narrow plan's tiles, each thread's w1 gradient in registers
+      // and b1's in shared memory, summed over the step's sub-tiles; the
+      // last sub-tile applies them
+      int spare0 = (utiles + 31) / 32 * 32;
+      if (spare0 >= nthr) spare0 = 0;
+      if (tid >= spare0)
+        for (int k = tid - spare0; k < HS; k += nthr - spare0) {
+          float gs = dot4(dhp + k, HS, nullptr, 0, bt);
+          if (!sfirst) gs = gb1s[k] + gs;
+          if (slast) b1s[k] -= lr * gs;
+          else gb1s[k] = gs;
+        }
+      if (tid < utiles) {
+        const int c0 = tid / npairs * kCols, qa = tid % npairs, qb = qa + npairs;
+        accumulate_tile(xt, I, dhp, HS, c0, qa, qb, qb < quads, bt, ua, ub);
+        if (slast) {
+          apply_tile(w1s, W, c0, qa, qb, qb < quads, lr, ua, ub);
+#pragma unroll
+          for (int k = 0; k < kCols; ++k)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ua[k][e] = ub[k][e] = 0.f;
+        }
+      }
     } else {
       // a thread's tile is kCols columns x the 4-row groups q and q + npairs
       // of I; b1 on the whole warps past those tiles (no warp runs both)
@@ -841,55 +1033,26 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
           b1s[k] -= lr * dot4(dhp + k, HS, nullptr, 0, B);
       for (int u = tid; u < utiles; u += nthr) {
         const int c0 = u / npairs * kCols, qa = u % npairs, qb = qa + npairs;
-        const bool hasb = qb < quads;
         float ga[kCols][4], gb[kCols][4];
 #pragma unroll
         for (int k = 0; k < kCols; ++k)
 #pragma unroll
           for (int e = 0; e < 4; ++e) ga[k][e] = gb[k][e] = 0.f;
-        for (int b = 0; b < B; ++b) {
-          const float4 xa = ld4(xt + b * I + 4 * qa);
-          const float4 xb = hasb ? ld4(xt + b * I + 4 * qb) : make_float4(0.f, 0.f, 0.f, 0.f);
-          const float4 d0 = ld4(dhp + b * HS + c0), d1 = ld4(dhp + b * HS + c0 + 4);
-          const float d[kCols] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-          for (int k = 0; k < kCols; ++k) {
-            ga[k][0] = fmaf(xa.x, d[k], ga[k][0]);
-            ga[k][1] = fmaf(xa.y, d[k], ga[k][1]);
-            ga[k][2] = fmaf(xa.z, d[k], ga[k][2]);
-            ga[k][3] = fmaf(xa.w, d[k], ga[k][3]);
-            gb[k][0] = fmaf(xb.x, d[k], gb[k][0]);
-            gb[k][1] = fmaf(xb.y, d[k], gb[k][1]);
-            gb[k][2] = fmaf(xb.z, d[k], gb[k][2]);
-            gb[k][3] = fmaf(xb.w, d[k], gb[k][3]);
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kCols; ++k) {
-          float4* wa = reinterpret_cast<float4*>(w1s + (c0 + k) * W + 4 * qa);
-          float4 w = *wa;
-          w.x -= lr * ga[k][0];
-          w.y -= lr * ga[k][1];
-          w.z -= lr * ga[k][2];
-          w.w -= lr * ga[k][3];
-          *wa = w;
-          if (hasb) {
-            float4* wb = reinterpret_cast<float4*>(w1s + (c0 + k) * W + 4 * qb);
-            w = *wb;
-            w.x -= lr * gb[k][0];
-            w.y -= lr * gb[k][1];
-            w.z -= lr * gb[k][2];
-            w.w -= lr * gb[k][3];
-            *wb = w;
-          }
-        }
+        accumulate_tile(xt, I, dhp, HS, c0, qa, qb, qb < quads, B, ga, gb);
+        apply_tile(w1s, W, c0, qa, qb, qb < quads, lr, ga, gb);
       }
     }
     // the next step's forward reads w1 and b1 (written here by other
     // threads) only after the block barrier that follows it
     __syncthreads();
     ++use;
-    t = tn;
+    if (slast) {
+      t = tn;
+      sub = 0;
+      ++bpar;
+    } else {
+      ++sub;
+    }
   }
   __syncthreads();
   float* orow = out + (long long)r * D;
@@ -904,7 +1067,7 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
     }
   }
   float* ow2 = ow1 + (long long)I * H;
-  const float* w2s = w2b + (use & 1) * HS * C;
+  const float* w2s = w2b + ((kTiled ? bpar : use) & 1) * HS * C;
   for (int k = tid; k < nreal * C; k += nthr) ow2[(long long)h0 * C + k] = w2s[k];
   cluster.sync();  // no CTA leaves while a peer may still read its partials
 }
@@ -920,11 +1083,12 @@ cudaError_t set_attributes(Kernel kernel, const Plan& p) {
   return err;
 }
 
-template <bool kRagged, int kHS>
+template <bool kRagged, int kHS, bool kTiled = false>
 int launch(const Plan& p, const float* g, const float* x, const int* y, const int* act,
            const float* mask, const int* nb, const int* off, const int* order, float* out,
            int R, int npad, int I, int H, int C, int B, int epochs, float lr, void* stream) {
-  cudaError_t err = set_attributes(local_sgd_kernel<kRagged, kHS>, p);
+  auto kernel = local_sgd_kernel<kRagged, kHS, kTiled>;
+  cudaError_t err = set_attributes(kernel, p);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(R * p.K));
@@ -938,22 +1102,23 @@ int launch(const Plan& p, const float* g, const float* x, const int* y, const in
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, local_sgd_kernel<kRagged, kHS>, g, x, y, act, mask, nb, off,
-                           order, out, npad, I, H, C, B, epochs, lr, p);
+  err = cudaLaunchKernelEx(&cfg, kernel, g, x, y, act, mask, nb, off, order, out, npad, I, H,
+                           C, B, epochs, lr, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // Registers and spilled bytes a thread of the dense instance, and how many
 // clusters of the plan's K CTAs fit on the card at once.
-template <int kHS>
+template <int kHS, bool kTiled = false>
 int attrs(const Plan& p, int* regs, int* local_bytes, int* max_clusters) {
+  auto kernel = local_sgd_kernel<false, kHS, kTiled>;
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, local_sgd_kernel<false, kHS>);
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
-  err = set_attributes(local_sgd_kernel<false, kHS>, p);
+  err = set_attributes(kernel, p);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)p.K);
@@ -966,16 +1131,16 @@ int attrs(const Plan& p, int* regs, int* local_bytes, int* max_clusters) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(max_clusters, local_sgd_kernel<false, kHS>, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
 }
 
 
 // ------------------------------------------------------------------------
-// The general instance: every shape the narrow plan and the wide instance
-// refuse -- batches whose two x tiles do not fit shared memory (B > 20 at
-// I = 784), any class count, any input width, H past 1,024 -- so every
-// shape of the reference's envelope (repro/kernels/local_sgd.py:57
-// fused_fits_vmem).  Simple before fast: one cluster of K <= 8 CTAs a
+// The general instance: every shape the other three refuse -- any class
+// count, any input width, H past 1,024, batches past 20 at H past 256 and
+// what the tiled plan cannot fit -- so, with them, every shape of the
+// reference's envelope (repro/kernels/local_sgd.py:57 fused_fits_vmem).
+// Simple before fast: one cluster of K <= 8 CTAs a
 // client (K = ceil(H / 64) up to H = 512, else 8), CTA `rank` owning the
 // model columns [h0, h0 + nreal) of the hidden layer, with no pad column.
 // A step is five block-wide products (x w1, h w2, dl w2^T, h^T dl, x^T
@@ -1543,6 +1708,16 @@ int local_sgd_wide_launch(bool ragged, const float* g, const float* x, const int
                           int B, int epochs, float lr, void* stream);
 int local_sgd_wide_attrs(int I, int H, int C, int B, int* regs, int* local_bytes,
                          int* max_clusters);
+
+// The tiled plan (H <= 256, a step's batch in sub-tiles), built in
+// local_sgd_tiled.cu: launch it for tiled_plan(I, H, C, B), or report its
+// resources, as launch<> / attrs<>.
+int local_sgd_tiled_launch(bool ragged, const float* g, const float* x, const int* y,
+                           const int* act, const float* mask, const int* nb, const int* off,
+                           const int* order, float* out, int R, int npad, int I, int H, int C,
+                           int B, int epochs, float lr, void* stream);
+int local_sgd_tiled_attrs(int I, int H, int C, int B, int* regs, int* local_bytes,
+                          int* max_clusters);
 
 // The general instance, built in local_sgd_general.cu: launch it on
 // `nclusters` clusters (each walks clients cl, cl + nclusters, ... of

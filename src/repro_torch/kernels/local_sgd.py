@@ -3,21 +3,39 @@
 ClientUpdate (Algorithm 2 lines 16-21) is the round's FLOP-dominant op:
 every client runs E epochs of batch SGD on its local shard.  The CUDA
 kernel (``csrc/local_sgd.cuh``; built as ``local_sgd.cu``,
-``local_sgd_wide.cu`` and ``local_sgd_general.cu``, one file an instance)
-runs each client's whole epochs x batches chain in one launch on a
-thread-block cluster of K CTAs, each CTA owning an HS-column slice of the
-hidden layer (K and HS from ``plan``).  ``plan`` picks the instance from the
-shapes alone:
+``local_sgd_wide.cu``, ``local_sgd_tiled.cu`` and ``local_sgd_general.cu``,
+one file an instance) runs each client's whole epochs x batches chain in
+one launch on a thread-block cluster of K CTAs, each CTA owning an
+HS-column slice of the hidden layer (K and HS from ``plan``).  ``plan``
+picks the instance from the shapes alone, the first that takes the shape:
 
   narrow   H <= 256 at I a multiple of 4, C <= 16 and a batch whose two x
-           tiles fit a CTA's shared memory: the w1 slice in shared memory,
-           H padded up to K x 16 columns, K <= 16 where no split of 8 or 16
-           columns covers it;
+           tiles fit a CTA's shared memory (B <= 20 at I = 784): the w1
+           slice in shared memory, H padded up to K x 16 columns, K <= 16
+           where no split of 8 or 16 columns covers it;
   wide     257 <= H <= 1,024 at the same I and C, B <= 20: the w1 slice
            streamed from L2, in place in the client's output row;
-  general  every other shape: x read in sub-tiles of batch rows, the
-           per-row temporaries in a workspace in global memory, one slot for
-           each resident cluster (``torch.empty`` on the call's device).
+  tiled    H <= 256 at the same I and C, a batch the narrow plan cannot
+           hold (every B from 21 up at I = 784, H <= 256): the narrow
+           plan's cluster, slices and shared-memory layout, the batch
+           through in sub-tiles of up to 20 rows (``Plan.rows``), the
+           gradients summed over the sub-tiles before one update, each
+           thread's share of w1's in its registers; it takes a shape
+           whose plan fits a CTA's shared memory at I <= 1,024 (16-column
+           slices) or 2,048 (8-column);
+  general  every other shape (C > 16, I not a multiple of 4, H > 1,024,
+           H > 256 at B > 20, and what the tiled plan cannot fit): x read
+           in sub-tiles of batch rows, the per-row temporaries in a
+           workspace in global memory, one slot for each resident cluster
+           (``torch.empty`` on the call's device).
+
+What bounds the tiled plan on an H100 is what bounds the narrow one: the
+chain's step latency, not the 16-column slice's FMA work (~1.0 MFLOP a CTA
+a 20-row sub-tile at I = 784, H = 128, ~2 us at an SM's share of the fp32
+peak, against the ~12 us a narrow step at B = 20 takes on the card,
+PERF.md section 6).  A step of B rows costs ceil(B / 20) narrow steps'
+latency, so on a given fleet the kernel's time stays near the narrow
+plan's at B = 20.
 
 Together they take every shape of the reference's envelope,
 ``fused_fits_vmem``, and more; ``plan`` raises only for a dimension under 1
@@ -125,7 +143,7 @@ local_sgd.launches = 0
 # routes on it; it names the envelope in errors and tests.
 VMEM_BUDGET_BYTES = 8 * 1024 * 1024
 
-INSTANCES = ("narrow", "wide", "general")
+INSTANCES = ("narrow", "wide", "general", "tiled")
 
 
 def fused_fits_vmem(n: int, input_dim: int, hidden: int, classes: int,
@@ -144,8 +162,9 @@ class Plan(NamedTuple):
     """The kernel's plan for one shape: cluster size K, slice width HS (H
     padded to K * HS columns), threads and dynamic shared bytes a CTA,
     whether w1 streams from L2, the instance (``INSTANCES``), the batch rows
-    a sub-tile and the floats of one cluster's workspace slot (the general
-    instance; B and 0 for the others)."""
+    a sub-tile (the tiled plan and the general instance; B for the others)
+    and the floats of one cluster's workspace slot (the general instance;
+    0 for the others)."""
     cluster: int
     slice: int
     threads: int

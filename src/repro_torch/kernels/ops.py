@@ -42,9 +42,9 @@ from repro_torch.kernels import ref
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("local_sgd.cu", "local_sgd_wide.cu", "local_sgd_general.cu", "fedavg_agg.cu",
-           "defense_sim.cu", "compress.cu", "flash_attention.cu", "ssm_scan.cu",
-           "count_sketch.cu")
+SOURCES = ("local_sgd.cu", "local_sgd_wide.cu", "local_sgd_general.cu", "local_sgd_tiled.cu",
+           "fedavg_agg.cu", "defense_sim.cu", "compress.cu", "flash_attention.cu",
+           "ssm_scan.cu", "count_sketch.cu")
 HEADERS = ("local_sgd.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

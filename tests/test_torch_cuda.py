@@ -124,20 +124,21 @@ def test_local_sgd_rows_do_not_depend_on_client_order(cuda_device, I, H):
     assert torch.equal(back, ragged)
 
 
-def test_local_sgd_shape_that_fits_no_cluster_raises(cuda_device):
+def test_local_sgd_shapes_that_once_fit_no_cluster_run_and_match_plain(cuda_device):
     """The two shapes that once fit no cluster -- a batch of 80 rows of 784
     (two x tiles of 251 KB) and I = 18 (no whole number of 16-byte rows) --
-    now run on the general instance and match the plain version, the
-    ragged form bit-equal to the dense; and the server builds on the kernel
-    route at the paper's B = 40 (the third point of its Fig. 6 grid)."""
+    now run, the first on the tiled plan, the second on the general
+    instance, and match the plain version, the ragged form bit-equal to the
+    dense; and the server builds on the kernel route at the paper's B = 40
+    (the third point of its Fig. 6 grid)."""
     from repro_torch.common.config import FedConfig
     from repro_torch.configs.fedar_mnist import MnistConfig
     from repro_torch.kernels.local_sgd import plan
 
     assert plan(784, 128, 10, 20)[:2] == (8, 16)
-    for I, H, B in ((784, 128, 80), (18, 8, 20)):
+    for I, H, B, inst in ((784, 128, 80, "tiled"), (18, 8, 20, "general")):
         p = plan(I, H, 10, B)
-        assert p.instance == "general" and p.streamed
+        assert p.instance == inst and p.streamed == (inst == "general")
         g, x, y, act, mask = _sgd_inputs(cuda_device, I=I, H=H, n=97)
         g = g / 6
         kw = dict(hidden=H, classes=10, lr=0.1, epochs=2)
@@ -154,7 +155,7 @@ def test_local_sgd_shape_that_fits_no_cluster_raises(cuda_device):
 
 
 @pytest.mark.parametrize("hidden", [1025, 1536])
-def test_engine_rejects_a_width_the_kernel_cannot_take(cuda_device, hidden):
+def test_widths_past_the_wide_instance_run_on_the_general_instance(cuda_device, hidden):
     """Hidden widths past the wide instance's 1,024: at I = 16 (inside the
     reference's envelope) the direct call runs on the general instance and
     matches the plain version; the server at I = 784 (past the envelope,
@@ -209,7 +210,9 @@ def test_plan_takes_every_shape_of_the_reference_envelope(cuda_device):
         seen.add(p.instance)
         if p.instance == "general":
             assert 1 <= p.rows <= min(B, 64) and p.workspace > 0
-    assert seen == {"narrow", "wide", "general"}
+        if p.instance == "tiled":
+            assert 5 <= p.rows <= 20 and p.rows < B and p.workspace == 0 and H <= 256
+    assert seen == {"narrow", "wide", "general", "tiled"}
     assert plan(784, 128, 10, 20).instance == "narrow"
     assert plan(784, 512, 10, 20).instance == "wide"
 
@@ -236,15 +239,17 @@ def test_shape_past_the_plan_raises_before_any_launch(cuda_device):
                                      (16, 4096, 10, 20), (784, 512, 10, 40),
                                      (784, 128, 10, 200)])
 def test_local_sgd_general_instance_matches_plain(cuda_device, I, H, C, B):
-    """The general instance at phase 2's shapes (batches past 20 at MNIST
-    width, class counts past 16, I not a multiple of 4, H past 1,024, B =
-    40 past H = 256): both activations, a ragged tail, an all-False client,
-    labels over all C classes, against the plain version; the ragged form
-    bit-equal to the dense; at least one cluster resident, no spills."""
+    """Phase 2's ``GENERAL_SHAPES``: the general instance at class counts
+    past 16, I not a multiple of 4, H past 1,024 and B = 40 past H = 256,
+    and the tiled plan at the batches past 20 at MNIST width: both
+    activations, a ragged tail, an all-False client, labels over all C
+    classes, against the plain version; the ragged form bit-equal to the
+    dense; at least one cluster resident, no spills."""
     from repro_torch.kernels.local_sgd import kernel_attrs
 
     a = kernel_attrs(I, H, C, B)
-    assert a["instance"] == "general" and a["max_clusters"] >= 1 and a["local_bytes"] == 0
+    want = "tiled" if (I, H, C) == (784, 128, 10) else "general"
+    assert a["instance"] == want and a["max_clusters"] >= 1 and a["local_bytes"] == 0
     g, x, y, act, mask = _sgd_inputs(cuda_device, I=I, H=H, C=C, R=6, n=2 * B + 17)
     g = g / 6
     kw = dict(hidden=H, classes=C, lr=0.1, epochs=2)
@@ -255,6 +260,68 @@ def test_local_sgd_general_instance_matches_plain(cuda_device, I, H, C, B):
     xt, yt, mt, nb, off = _ragged_from_dense(x, y, mask, B)
     assert torch.equal(local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw), got)
 
+
+
+# The tiled plan's shapes: the paper's MLP at B = 21 (sub-tiles of 20 and
+# 1), 40 (Fig. 6), 50 (20, 20, 10) and 200 (ten of 20), and B = 40 at H =
+# 100 (7 x 16 padded) and 256 (16 x 16, a non-portable cluster)
+TILED_SHAPES = [(128, 21), (128, 40), (128, 50), (128, 200), (100, 40), (256, 40)]
+
+
+@pytest.mark.parametrize("H,B", TILED_SHAPES)
+def test_local_sgd_tiled_plan_matches_plain(cuda_device, H, B):
+    """Kernels 1 and 4 on the tiled plan: the narrow plan's cluster and
+    slices at B = 20, no workspace, no spills, a cluster resident; both
+    activations, a ragged tail, an all-masked batch and an all-False client
+    against the plain version (fp32 sums in another order); the ragged form
+    bit-equal to the dense, and both bit-equal again with the clients
+    given in reverse (other clusters train them)."""
+    from repro_torch.kernels.local_sgd import kernel_attrs, plan
+
+    a = kernel_attrs(784, H, 10, B)
+    assert a["instance"] == "tiled" and a["rows"] == 20 and a["workspace"] == 0
+    assert (a["cluster"], a["slice"]) == tuple(plan(784, H, 10, 20)[:2])
+    assert not a["streamed"] and a["local_bytes"] == 0 and a["max_clusters"] >= 1
+    g, x, y, act, mask = _sgd_inputs(cuda_device, I=784, H=H, R=6, n=2 * B + 17)
+    mask[3, B:2 * B] = False  # an all-masked batch between live ones
+    g = g / 6
+    kw = dict(hidden=H, classes=10, lr=0.1, epochs=2)
+    n0 = local_sgd.launches
+    got = local_sgd(g, x, y, act, mask, batch_size=B, **kw)
+    assert local_sgd.launches == n0 + 1
+    torch.testing.assert_close(got, ref.local_sgd_ref(g, x, y, act, mask, batch_size=B, **kw),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[2], g)
+    xt, yt, mt, nb, off = _ragged_from_dense(x, y, mask, B)
+    assert torch.equal(local_sgd_ragged(g, xt, yt, mt, act, nb, off, **kw), got)
+    back = local_sgd(g, x.flip(0), y.flip(0), act.flip(0), mask.flip(0), batch_size=B,
+                     **kw).flip(0)
+    assert torch.equal(back, got)
+    back = local_sgd_ragged(g, xt, yt, mt, act.flip(0), nb.flip(0), off.flip(0),
+                            **kw).flip(0)
+    assert torch.equal(back, got)
+
+
+def test_plan_routes_batches_past_20_to_the_tiled_plan(cuda_device):
+    """``plan`` from the shapes alone: the paper's MLP on the tiled plan at
+    every B from 21 to 200 (K = 8 x 16 columns, sub-tiles of 20 rows, no
+    workspace), on the narrow plan at B <= 20 as before, the wide instance
+    at H = 512, B = 20 as before; C = 47, I = 18 and H = 4,096 at B = 40
+    stay on the general instance."""
+    from repro_torch.kernels.local_sgd import plan
+
+    for B in range(21, 201):
+        p = plan(784, 128, 10, B)
+        assert (p.instance, p.cluster, p.slice, p.rows, p.workspace, p.streamed) == (
+            "tiled", 8, 16, 20, 0, False), B
+    for B in range(1, 21):
+        p = plan(784, 128, 10, B)
+        assert (p.instance, p.cluster, p.slice, p.rows, p.workspace) == (
+            "narrow", 8, 16, B, 0), B
+    p = plan(784, 512, 10, 20)
+    assert (p.instance, p.cluster, p.slice, p.streamed) == ("wide", 16, 32, True)
+    for I, H, C in ((784, 128, 47), (18, 8, 10), (16, 4096, 10)):
+        assert plan(I, H, C, 40).instance == "general", (I, H, C)
 
 # Digests of kernel 1's and 4's output bits (the first 16 hex digits of
 # SHA-256) at the widths the unpadded plan takes (at most 8 slices of 8 or
@@ -374,14 +441,15 @@ def test_wide_hidden_rounds_on_the_kernel_route_match_einsum(cuda_device, hidden
 @pytest.mark.parametrize("layout", ["dense", "packed", "gated"])
 @pytest.mark.parametrize("B", [40, 60])
 def test_general_instance_rounds_on_the_kernel_route_match_einsum(cuda_device, B, layout):
-    """The paper's MLP (784 -> 128 -> 10) at batches no other instance
-    takes, through the engine on the default route, dense, packed and gated
-    packed (half the fleet selected), against ``sgd_impl="einsum"``: one
-    launch a round, trust and masks identical, params within 2e-4."""
+    """The paper's MLP (784 -> 128 -> 10) at batches the narrow plan cannot
+    hold (the tiled plan's), through the engine on the default route,
+    dense, packed and gated packed (half the fleet selected), against
+    ``sgd_impl="einsum"``: one launch a round, trust and masks identical,
+    params within 2e-4."""
     from repro_torch.configs.fedar_mnist import MnistConfig
     from repro_torch.kernels.local_sgd import plan
 
-    assert plan(784, 128, 10, B).instance == "general"
+    assert plan(784, 128, 10, B).instance == "tiled"
     ds = make_federated("digits", 16, scenario="quantity_skew", samples_per_client=3 * B,
                         seed=7)
     fed = fleet_fed(16, defense="foolsgold_sketch", local_batch_size=B,

@@ -299,6 +299,62 @@ def test_local_sgd_plain_matches_reference_oracle_past_the_fixed_plans(Bg, Cg, I
     np.testing.assert_array_equal(ragged[2], g)
 
 
+# The batches the card's tiled plan takes (past 20 rows, in sub-tiles of up
+# to 20): the paper's Fig. 6 point B = 40 and one full 200-sample batch,
+# at I = 16, H = 16 (two 8-column slices on the card)
+TILED_BATCHES = (40, 200)
+
+
+@pytest.mark.parametrize("form", ["dense", "ragged"])
+@pytest.mark.parametrize("Bt", TILED_BATCHES)
+def test_local_sgd_plain_matches_pallas_interpret_at_tiled_batches(Bt, form):
+    """``local_sgd`` / ``local_sgd_ragged`` (plain on the CPU) against the
+    Pallas ``local_sgd_fused`` / ``local_sgd_fused_ragged`` in interpret
+    mode at B = 40 and 200 (I = 16, H = 16, C = 10, 2 epochs): both
+    activations, a partial last batch, an all-masked client and an
+    all-masked batch; the ragged buffer is the dense batches client after
+    client.  atol = rtol = 1e-5: fp32 sums of up to B = 200 terms taken in
+    another order than XLA's, over a few steps."""
+    from repro.kernels.local_sgd import local_sgd_fused_ragged
+    from repro_torch.kernels.local_sgd import local_sgd_ragged
+
+    Ht = 16
+    rng = np.random.default_rng(31)
+    R, n = 4, 2 * Bt + 17
+    D = Ht + C + I * Ht + Ht * C
+    g = (rng.standard_normal(D) * 0.3).astype(np.float32)
+    x = rng.random((R, n, I), dtype=np.float32)
+    y = rng.integers(0, C, (R, n)).astype(np.int32)
+    act = (np.arange(R) % 2).astype(np.int32)
+    mask = np.ones((R, n), bool)
+    mask[1, n - 5:] = False
+    mask[2, :] = False
+    mask[3, Bt:2 * Bt] = False
+    p = _split(g, Ht)
+    if form == "dense":
+        got = local_sgd(*(torch.as_tensor(a) for a in (g, x, y, act, mask)), hidden=Ht,
+                        classes=C, lr=0.1, batch_size=Bt, epochs=2)
+        want = jax_sgd_kernel(p["w1"], p["b1"], p["w2"], p["b2"], jnp.asarray(x),
+                              jnp.asarray(y), jnp.asarray(act), jnp.asarray(mask),
+                              lr=0.1, batch_size=Bt, epochs=2, interpret=True)
+    else:
+        nbk = -(-n // Bt)
+        pad = nbk * Bt - n
+        xt = np.pad(x, ((0, 0), (0, pad), (0, 0))).reshape(-1, Bt, I)
+        yt = np.pad(y, ((0, 0), (0, pad))).reshape(-1, Bt)
+        mt = np.pad(mask, ((0, 0), (0, pad))).reshape(-1, Bt)
+        nb = np.full(R, nbk, np.int32)
+        off = (np.arange(R) * nbk).astype(np.int32)
+        arrays = (xt, yt, mt, act, nb, off)
+        got = local_sgd_ragged(torch.as_tensor(g), *(torch.as_tensor(a) for a in arrays),
+                               hidden=Ht, classes=C, lr=0.1, epochs=2)
+        want = local_sgd_fused_ragged(
+            p["w1"], p["b1"], p["w2"], p["b2"], *(jnp.asarray(a) for a in arrays),
+            lr=0.1, epochs=2, nb_max=nbk, interpret=True)
+    np.testing.assert_allclose(got.numpy(), _jax_flat(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got[2].numpy(), g)
+
+
 # ------------------------------------------------------- sketch_similarity
 def test_sketch_similarity_plain_matches_reference():
     """M != N and K = 300, not a multiple of 128: fp32 dot products,
