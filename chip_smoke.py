@@ -251,10 +251,13 @@ longest client's steps on its cluster's SMs at their share of the fp32
 peak).  It holds ``local_sgd_ragged`` on phase 7's tile buffer against its
 plain version and, bit for bit, against ``local_sgd`` on the fleet's dense
 (N, n_max) rectangle; both local-SGD kernels at H = 256 (a non-portable
-cluster of 16), H = 100 (padded to 7 x 16 columns) and, w1 streamed from
-L2, H = 512 (16 x 32) and 813 (15 x 56), dense at 512 clients with both
-activations and a partial last batch and ragged on phase 7's tiles, a row
-past the tight bound arbitrated by the plain version in float64; both on
+cluster of 16), H = 100 (padded to 7 x 16 columns) and, on the wide
+instance (w1 streamed from L2 through a ring of row chunks in shared
+memory), H = 512 (8 x 64) and 813 (7 x 128) with the us of a step and the
+times before its redesign, dense at 512 clients with both activations and
+a partial last batch, ragged on phase 7's tiles and on the dense fleet's
+own batches (bit-equal to the dense), a row past the tight bound
+arbitrated by the plain version in float64; both on
 ``GENERAL_SHAPES``, the tiled plan at batches past 20 (B = 21, 40, 50,
 200 at H = 128, B = 40 at H = 256; the time of one sub-tile printed) and
 the general instance at class counts past 16, I not a multiple of 4, H
@@ -806,16 +809,25 @@ def ragged_row_f64(g, rag, r: int, kw):
                              batch_size=B, dtype=torch.float64, **kw)
 
 
+# Kernels 1 and 4's ms at H = 512 and 813 on the wide instance before its
+# redesign (dense on phase 4's fleet, ragged on phase 7's layout; PERF.md
+# section 6, an H100 80GB HBM3 at 700 W)
+WIDE_BEFORE_MS = {512: (99.762, 105.089), 813: (149.868, 157.642)}
+
+
 def wide_sgd_phase(ref, local_sgd, local_sgd_ragged, packed) -> dict:
     """Phase 2, kernels 1 and 4 at hidden widths past the unpadded plan's: H = 256
     (16 slices of 16 columns, a non-portable cluster), H = 100 (padded
-    to 7 x 16), and the wide instance, w1 streamed from L2, at H = 512 (16
-    x 32) and 813 (15 x 56).  Dense on phase 4's fleet (R = 512, n = 200, E = 5),
-    clients alternating ReLU and softmax, the last batch partial (13 of 20
-    samples live); ragged on phase 7's tile buffer.  Each against its plain
-    version by phase 4's per-row rule, with ms, bound, chain floor and the
-    plan's resources.  Returns {H: {"dense": ..., "ragged": ...}} for the
-    JSON line.
+    to 7 x 16), and the wide instance, w1 streamed from L2 through a ring
+    of row chunks in shared memory, at H = 512 (8 x 64) and 813 (7 x 128).
+    Dense on phase 4's fleet (R = 512, n = 200, E = 5), clients alternating
+    ReLU and softmax, the last batch partial (13 of 20 samples live);
+    ragged on phase 7's tile buffer, and (wide instance) on the dense
+    fleet's own batches, bit-equal to the dense.  Each against its plain
+    version by phase 4's per-row rule, with ms, bound, chain floor, the
+    plan's resources and (wide instance) the us of one step: kernel 1's
+    ms x the clusters resident / (R x a client's steps).  Returns {H:
+    {"dense": ..., "ragged": ...}} for the JSON line.
 
     Phase 4's rule holds for the fleet's digit images.  On uniform-random
     pixels (all 784 live) more ReLU pre-activations end within rounding of
@@ -848,11 +860,13 @@ def wide_sgd_phase(ref, local_sgd, local_sgd_ragged, packed) -> dict:
         g = (torch.randn(D, generator=gen) * 0.05).to(DEV)
         a = kernel_attrs(I, H, C, B)
         K = a["cluster"]
-        print(f"local_sgd / local_sgd_ragged at H = {H}: H padded to {K} x {a['slice']} "
-              f"columns, w1 {'streamed from L2' if a['streamed'] else 'in shared memory'}, "
-              f"{a['dynamic_smem']} dynamic shared bytes a CTA, {a['registers']} "
-              f"registers and {a['local_bytes']} spilled bytes a thread, "
-              f"{a['max_clusters']} clusters of {K} on the card at once")
+        w1_at = (f"streamed from L2 through a ring of {a['ring']} row chunks"
+                 if a["streamed"] else "in shared memory")
+        print(f"local_sgd / local_sgd_ragged at H = {H}: {a['instance']} instance, H padded "
+              f"to {K} x {a['slice']} columns, w1 {w1_at}, {a['dynamic_smem']} dynamic "
+              f"shared bytes a CTA, {a['registers']} registers and {a['local_bytes']} "
+              f"spilled bytes a thread, {a['max_clusters']} clusters of {K} on the card "
+              f"at once")
         kw = dict(hidden=H, classes=C, lr=lr, epochs=E)
         got = local_sgd(g, x, y, act, mask, batch_size=B, **kw)
         want = ref.local_sgd_ref(g, x, y, act, mask, batch_size=B, **kw)
@@ -875,10 +889,19 @@ def wide_sgd_phase(ref, local_sgd, local_sgd_ragged, packed) -> dict:
                               sgd_flops(mask, B, I, H, C, E))
         steps = E * int(live_batches(mask, B).max())
         floor = chain_floor_ms(steps, B, I, H, C, K)
-        print(f"    kernel {k_ms:.3f} ms, plain {plain_line(p_ms)}, bound {b_ms:.3g} ms "
-              f"({b_by}); chain floor {floor:.3g} ms ({steps} steps on {K} SMs)")
+        before = WIDE_BEFORE_MS.get(H)
+        step_us = k_ms * 1e3 * a["max_clusters"] / (R * steps)
+        print(f"    kernel {k_ms:.3f} ms"
+              f"{f' (before the redesign {before[0]:.3f} ms)' if before else ''}, "
+              f"plain {plain_line(p_ms)}, bound {b_ms:.3g} ms ({b_by}); chain floor "
+              f"{floor:.3g} ms ({steps} steps on {K} SMs); ~{step_us:.2f} us a step")
         dense = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                     chain_floor_ms=floor, **a)
+                     chain_floor_ms=floor, step_us=step_us, **a)
+        if a["streamed"]:
+            tiles = dense_tiles(x, y, mask, B)
+            compare_exact("local_sgd_ragged on the same batches vs local_sgd",
+                          local_sgd_ragged(g, *tiles[:3], act, *tiles[3:], **kw), got)
+            del tiles
         got = local_sgd_ragged(g, *rag, **kw)
         want = ref.local_sgd_ragged_ref(g, *rag, **kw)
         torch.cuda.synchronize()
@@ -894,8 +917,10 @@ def wide_sgd_phase(ref, local_sgd, local_sgd_ragged, packed) -> dict:
                 if a["streamed"] else None)
         b_ms, b_by = ragged_bound(packed, packed.tile_mask, None, D, H, C, E)
         floor = chain_floor_ms(rag_steps, B, I, H, C, K)
-        print(f"    kernel {k_ms:.3f} ms, plain {plain_line(p_ms)}, bound {b_ms:.3g} ms "
-              f"({b_by}); chain floor {floor:.3g} ms ({rag_steps} steps on {K} SMs)")
+        print(f"    kernel {k_ms:.3f} ms"
+              f"{f' (before the redesign {before[1]:.3f} ms)' if before else ''}, "
+              f"plain {plain_line(p_ms)}, bound {b_ms:.3g} ms ({b_by}); chain floor "
+              f"{floor:.3g} ms ({rag_steps} steps on {K} SMs)")
         out[H] = dict(dense=dense, ragged=dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                                                bound_ms=b_ms, bound_by=b_by,
                                                chain_floor_ms=floor))

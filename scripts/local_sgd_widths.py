@@ -17,10 +17,15 @@ in a copy with the three instances, which one runs (``instance``).  A width the 
 that width bit for bit alike.  ``--f64`` also holds the kernel and the fp32
 plain version against the plain version in float64, row by row: where the
 two fp32 versions part, it shows which one left the float64 rows.
+``--packed`` also times kernel 4 on the packed tile layout of the
+quantity-skewed fleet (``make_federated("digits", 512,
+scenario="quantity_skew", samples_per_client=200, seed=7)``, the layout
+the engine builds for it) at each width, with the digest of its bits.
 
 Run:  python scripts/local_sgd_widths.py --src src --label change
       python scripts/local_sgd_widths.py --src src --widths 128 --batches 40,50,200 \
           --clients 512
+      python scripts/local_sgd_widths.py --src src --widths 512,813 --clients 512 --packed
 """
 import argparse
 import hashlib
@@ -80,6 +85,21 @@ def device_ms(torch, fn, reps=5):
     return statistics.median(times)
 
 
+def packed_layout(H, B):
+    """The engine's packed tile layout of the quantity-skewed 512-client
+    fleet (batches of B) for ``small_model(H)``, on the card."""
+    from repro_torch.configs.fedar_mnist import fleet_fed, small_model
+    from repro_torch.core.fedar import FedARServer
+    from repro_torch.core.resources import TaskRequirement
+    from repro_torch.data.datasets import make_federated
+
+    skew = make_federated("digits", 512, scenario="quantity_skew", samples_per_client=200,
+                          seed=7)
+    server = FedARServer(small_model(H), fleet_fed(512, local_batch_size=B),
+                         TaskRequirement(), device="cuda")
+    return server.engine.prepare_data(skew, layout="packed")["packed"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(Path(__file__).resolve().parent.parent / "src"))
@@ -90,6 +110,8 @@ def main() -> int:
     ap.add_argument("--samples", type=int, default=200)
     ap.add_argument("--f64", action="store_true",
                     help="also measure both fp32 versions against a float64 plain version")
+    ap.add_argument("--packed", action="store_true",
+                    help="also time kernel 4 on the quantity-skewed fleet's packed layout")
     args = ap.parse_args()
 
     import torch
@@ -146,6 +168,12 @@ def main() -> int:
         # a copy with the padded plan or with the three instances
         if hasattr(mod, "MAX_HIDDEN") or hasattr(mod, "INSTANCES"):
             rec.update(mod.kernel_attrs(784, H, C, B))
+        if args.packed:
+            lay = packed_layout(H, B)
+            pargs = (lay.tiles["x"], lay.tiles["y"], lay.tile_mask, lay.act, lay.nb, lay.off)
+            rec.update(packed_tiles=int(lay.tile_mask.shape[0]),
+                       packed=digest(mod.local_sgd_ragged(g, *pargs, **kw)),
+                       packed_ms=device_ms(torch, lambda: mod.local_sgd_ragged(g, *pargs, **kw)))
         print(json.dumps(rec))
     return 0
 

@@ -6,9 +6,9 @@
 
 namespace {
 
-// Whether the narrow plan or the wide instance takes (I, H, C, B), as they
-// did before the general instance: rows of whole 16-byte units, C at most
-// 16, a plan with a cluster, and its shared bytes within a block's.
+// Whether the narrow plan takes (I, H, C, B): rows of whole 16-byte units,
+// C at most 16, a plan with a cluster, and its shared bytes within a
+// block's.
 bool fixed_plan(int I, int H, int C, int B, Plan* p) {
   if (!bulk_shapes(I, H, C, B)) return false;
   *p = make_plan(I, H, C, B);
@@ -22,15 +22,15 @@ int dispatch(const float* g, const float* x, const int* y, const int* act, const
              void* stream) {
   Plan p;
   if (!fixed_plan(I, H, C, B, &p)) {
+    if (wide_plan(I, H, C, B).K)
+      return local_sgd_wide_launch(kRagged, g, x, y, act, mask, nb, off, order, out, R, npad,
+                                   I, H, C, B, epochs, lr, stream);
     if (tiled_plan(I, H, C, B).K)
       return local_sgd_tiled_launch(kRagged, g, x, y, act, mask, nb, off, order, out, R, npad,
                                     I, H, C, B, epochs, lr, stream);
     return local_sgd_general_launch(kRagged, g, x, y, act, mask, nb, off, order, out, ws,
                                     nclusters, R, npad, I, H, C, B, epochs, lr, stream);
   }
-  if (p.wide)
-    return local_sgd_wide_launch(kRagged, g, x, y, act, mask, nb, off, order, out, R, npad, I,
-                                 H, C, B, epochs, lr, stream);
   switch (p.HS) {
     case 8:
       return launch<kRagged, 8>(p, g, x, y, act, mask, nb, off, order, out, R, npad, I, H, C,
@@ -49,23 +49,36 @@ int dispatch(const float* g, const float* x, const int* y, const int* act, const
 // instance, 2 the general instance, 3 the tiled plan), cluster size K,
 // slice width HS, one CTA's threads and dynamic shared bytes, whether w1
 // streams from L2, the batch rows a sub-tile (B for the narrow plan and the
-// wide instance) and the floats of one cluster's workspace slot (the
-// general instance; 0 for the others); -1 for a shape no instance takes (a
-// dimension under 1, or a slot or an output row past 2^31 floats).
+// wide instance), the wide instance's ring slots (0 for the others) and the
+// floats of one cluster's workspace slot (the general instance; 0 for the
+// others); -1 for a shape no instance takes (a dimension under 1, or a slot
+// or an output row past 2^31 floats).
 extern "C" int fedar_local_sgd_plan(int I, int H, int C, int B, int* instance, int* K,
                                     int* HS, int* threads, int* smem_bytes, int* streamed,
-                                    int* rows, long long* ws_floats) {
+                                    int* rows, int* ring, long long* ws_floats) {
   Plan p;
   const bool fixed = fixed_plan(I, H, C, B, &p);
-  if (!fixed) p = tiled_plan(I, H, C, B);
-  if (p.K) {
-    *instance = fixed ? p.wide : 3;
+  const WPlan w = fixed ? WPlan{} : wide_plan(I, H, C, B);
+  if (!fixed && !w.K) p = tiled_plan(I, H, C, B);
+  *threads = kThreads;
+  *ring = 0;
+  *ws_floats = 0;
+  if (w.K) {
+    *instance = 1;
+    *K = w.K;
+    *HS = w.HS;
+    *smem_bytes = w.bytes;
+    *streamed = 1;
+    *rows = B;
+    *ring = w.NS;
+    *threads = kWideThreads;
+  } else if (p.K) {
+    *instance = fixed ? 0 : 3;
     *K = p.K;
     *HS = p.HS;
     *smem_bytes = p.bytes;
-    *streamed = p.wide;
+    *streamed = 0;
     *rows = fixed ? B : p.Bp;
-    *ws_floats = 0;
   } else {
     const GPlan q = make_general_plan(I, H, C, B);
     if (q.K == 0) return -1;
@@ -77,7 +90,6 @@ extern "C" int fedar_local_sgd_plan(int I, int H, int C, int B, int* instance, i
     *rows = q.BT;
     *ws_floats = q.slot;
   }
-  *threads = kThreads;
   return 0;
 }
 
@@ -85,11 +97,12 @@ extern "C" int fedar_local_sgd_attrs(int I, int H, int C, int B, int* regs,
                                      int* local_bytes, int* max_clusters) {
   Plan p;
   if (!fixed_plan(I, H, C, B, &p)) {
+    if (wide_plan(I, H, C, B).K)
+      return local_sgd_wide_attrs(I, H, C, B, regs, local_bytes, max_clusters);
     if (tiled_plan(I, H, C, B).K)
       return local_sgd_tiled_attrs(I, H, C, B, regs, local_bytes, max_clusters);
     return local_sgd_general_attrs(I, H, C, B, regs, local_bytes, max_clusters);
   }
-  if (p.wide) return local_sgd_wide_attrs(I, H, C, B, regs, local_bytes, max_clusters);
   switch (p.HS) {
     case 8:
       return attrs<8>(p, regs, local_bytes, max_clusters);

@@ -15,7 +15,7 @@
 //   general  every other shape (C > 16, I not a multiple of 4, H > 1,024,
 //            H > 256 at B > 20, what the tiled plan cannot fit)
 //
-// The forms:
+// The forms (the same for the wide and the general instance's kernels):
 //
 //   local_sgd_kernel<false>  the dense (R, npad) sample rectangle
 //   local_sgd_kernel<true>   the ragged batch-tile buffer of the packed
@@ -108,35 +108,53 @@
 // memory only up to 12 CTAs (H = 288; the cluster's partial buffers grow
 // with K), 32 at no K (I = 784, B = 20).
 //
-// The wide instance (256 < H <= 1,024; kHS = 0): w1 streamed from L2.
-// HS = ceil(H / 16) rounded up to a multiple of 8 (24 at H = 257, 32 at
-// 512, 56 at 813 and 879, 64 at 1,024) and K = ceil(H / HS) <= 16 (11 at
-// 257, 15 at 813).  The slice of w1 leaves shared memory: its working copy
-// is the client's own output row, out[r]'s w1 columns [h0, h0 + HS), read
-// and written in place, as the Pallas kernel keeps its parameters in its
-// output tiles.  That row starts at float H + C of a row D floats long
-// (D = 646,345 at H = 813: D * 4 is no multiple of 16), so neither 16-byte
-// cp.async nor a TMA tensor map can address it for general H; the kernel
-// uses 4-byte loads and stores, coalesced along a row of w1 (a warp's 32
-// lanes take 32 neighbouring columns).  The other choice, an aligned
-// workspace of padded pitch copied to out at the end, would take R * I *
-// Hp * 4 bytes (1.6 GB at R = 512, H = 1,024) and one more pass over them.
-// Each w1 element has one owner thread for the whole chain: warps split
-// the slice into groups of 32 columns (one or two) and I into 8 or 4 runs
-// of rows, and a lane owns one column of its run.  One pass over the run
-// (`wide_pass`, 16 rows of w1 in flight, loads `ld.global.cg`, L2 only)
-// updates each element with the step's x^T d hpre, its column of d hpre in
-// registers, writes it back once, and on the new value sums the next live
-// step's x @ w1[:, col] for every batch row in registers (that step's x
-// tile has landed by then); the runs' partials meet in shared memory,
-// summed in run order.  Only a chain's first step runs the forward alone.
-// Because the owner that reads an element is the one that wrote it, no
-// barrier guards w1.  A step moves the slice twice through L2 (784 x 32 x
-// 4 = 100 KB a CTA at H = 512: one read, one write), against 50 MB of L2
-// for the ~1.6-2.8 MB of w1 of each resident client (7 of 11-16 CTAs).
-// The x tiles (kBT = 20 rows a slot, those past B zero), b1, the w2 rows,
-// the B x HS activations and the cluster's partial buffers stay in shared
-// memory as in the narrow plan, which is unchanged for H <= 256.
+// The wide instance (256 < H <= 1,024, B <= 20; local_sgd_wide_kernel, after
+// the general instance): w1 streamed from L2 through a ring in shared
+// memory.  The slice's working copy is the client's own output row, out[r]'s
+// w1 columns [h0, h0 + HS), read and written in place, as the Pallas kernel
+// keeps its parameters in its output tiles.  That row starts at float H + C
+// of a row D floats long (D = 646,345 at H = 813: D * 4 is no multiple of
+// 16), so neither 16-byte copies nor a TMA tensor map can address it for
+// general H; the other choice, an aligned workspace of padded pitch, would
+// take R * I * Hp * 4 bytes (1.6 GB at R = 512, H = 1,024) and one more pass.
+// What bounded its first design (a lane owning one w1 column of a 15-16 CTA
+// cluster, 16 rows in flight in registers), measured on an H100 with clock64
+// stamps (PERF.md section 7): a step took 28.0 us at H = 512 and 40.2 at 813,
+// the pass over w1 13.5 and 23.3 of it: each float4 of x, read from shared
+// memory, fed 4 FMAs, and only 7 clusters were resident.  What it does now:
+// - Portable clusters of K <= 8 CTAs with slices of HS = 64 columns up to H
+//   = 512 and 128 past it (8 x 64 at 512, 7 x 128 at 813 and 879, 8 x 128 at
+//   1,024; the last slice padded): 15-22 clusters resident against 7, at
+//   twice the work a CTA.
+// - A ring of 3-4 slots of 16 KB (wide_plan; 8 KB where shared memory is
+//   short): chunk c holds 64 (HS = 64) or 32 rows of the slice, copied in by
+//   4-byte cp.async, a warp on neighbouring columns, each column at wpos so
+//   that a thread's tile columns are one float4; an updated chunk goes back
+//   by coalesced 4-byte stores with the same thread mapping two turns later,
+//   just before its slot is refilled.  A turn is one block barrier.
+// - Two roles of 4 warps, each thread a register tile of 4 columns x 4 rows
+//   of I (a quad): the update warps hold d hpre of their tile's columns for
+//   all 20 batch rows (80 registers) and update the tile, w - lr * sum_b
+//   x[b][i] d[b][h] (b in order), back into the slot; the forward warps,
+//   one turn behind, sum the next step's x @ w1 on the updated tile for all
+//   20 rows (80 registers), folded over the lane rows by shuffles and met
+//   over (at most two) warp rows in shared memory, in order, plus b1.  Each
+//   float4 of x read from shared memory feeds 16 FMAs, each w1 value all 20
+//   batch rows.  One thread holding both (160 registers) spilled or, without
+//   spills, stalled; split, 210-220 registers and no spill.
+// - The step's short phases spread over the CTA: a warp a batch row for the
+//   softmax hidden layer's row max and exp-sum and its backward dot, a
+//   column a thread group for dh and the w2 gradient (held in registers
+//   until w2's last reader this step has passed).
+// What bounds it now (PERF.md section 7): the pass, ~25 us at H = 512 and
+// ~49 at 813 against 7.9 and 15.7 us of FMA time; the short phases ~11-14
+// us.  Stripped copies of the kernel timed on the card put the pass's excess
+// on the ring's 4-byte copies (an instruction, and a shared load too on the
+// way back, an element), not on the slice's 0.4-0.8 MB through L2: without
+// the copies it ran 29% (H = 512) and 33% (813) faster, without either
+// role's FMAs 11-15%.  Every sum runs in an order fixed by the
+// shapes, so the ragged form is bit-equal to the dense and no row depends on
+// the client order (tests/test_torch_kernels.py writes the order out).
 //
 // The tiled plan (kTiled; H <= 256 and a batch whose two x tiles do not
 // fit, so B > 20 at I = 784).  What bounds it is what bounds the narrow
@@ -173,9 +191,9 @@
 //
 // Pad columns (h >= H, only in the last CTA's slice) are not the model's:
 // their w1 columns, b1 entries and w2 rows start at zero in shared memory
-// (in the wide instance their w1 is never read, an exact 0, since in out
-// they would alias the next row's first columns) and are never written to
-// `out`; D and every offset into g and out use the true H.  Under ReLU a
+// (in the wide instance the ring's copies zero-fill their w1 instead of
+// reading out, where they would alias the next row's first columns) and are
+// never written to `out`; D and every offset into g and out use the true H.  Under ReLU a
 // pad column's pre-activation is exactly 0, so its h, its dh and every
 // update it feeds stay 0.  A softmax hidden layer maps 0
 // to 1/sum, not 0, so the slice's row max and exp-sum take only the real
@@ -199,7 +217,6 @@ constexpr int kRows = 5;        // batch rows of a warp's forward tile
 constexpr int kCols = 8;        // hidden columns of a forward / update tile
 constexpr int kMaxPortable = 8;  // the portable cluster size
 constexpr int kMaxCluster = 16;  // the non-portable limit on Hopper
-constexpr int kMaxWideSlice = 64;  // the wide instance: two 32-column groups
 constexpr int kBT = 20;            // the wide instance's batch rows in registers
 constexpr int kSubRows = 20;       // the tiled plan's largest sub-tile
 constexpr int kMaxSmemBytes = 232448;  // dynamic shared memory a block may opt into
@@ -211,7 +228,6 @@ struct Plan {
   int K, HS, Bp, W, RB;
   int o_x, o_w1, o_hpre, o_hact, o_dh, o_dhp, o_w2, o_b1, o_b2, o_lg, o_red, o_ms, o_ys,
       o_misc, o_bar, bytes;
-  int wide, o_part;  // w1 streamed from L2; the runs' forward partials
   // the tiled plan: a step's batch in nsub sub-tiles of Bp rows, MB staged
   // mask and label rows a step (Bp elsewhere), the sub-tiles' gradients of
   // w2, b2 and b1
@@ -227,10 +243,10 @@ inline bool bulk_shapes(int I, int H, int C, int B) {
 }
 
 // K: the largest portable cluster whose slices are 8 or 16 columns wide;
-// else H padded to K slices of HS columns, K <= 16; past H = 256 the wide
-// instance's K x HS; K = 0 for a shape no plan takes.  BT > 0: the tiled
-// plan's sub-tiles of BT rows (a multiple of kRows; H <= 256 only), with
-// the narrow plan's K and HS.  A function of the shapes only.
+// else H padded to K slices of HS columns, K <= 16; K = 0 past H = 256
+// (the wide instance has its own plan, wide_plan).  BT > 0: the tiled
+// plan's sub-tiles of BT rows (a multiple of kRows), with the narrow plan's
+// K and HS.  A function of the shapes only.
 Plan make_plan(int I, int H, int C, int B, int BT = 0) {
   Plan p{};
   for (int k = kMaxPortable; k >= 1; --k)
@@ -242,19 +258,12 @@ Plan make_plan(int I, int H, int C, int B, int BT = 0) {
   if (p.K == 0) {
     p.HS = H < 8 ? 8 : 16;
     p.K = (H + p.HS - 1) / p.HS;
-    if (p.K > kMaxCluster) {
-      p.wide = 1;
-      p.HS = ((H + kMaxCluster - 1) / kMaxCluster + 7) / 8 * 8;
-      p.K = (H + p.HS - 1) / p.HS;
-      if (p.HS > kMaxWideSlice || B > kBT) p.K = 0;
-    }
+    if (p.K > kMaxCluster) p.K = 0;
   }
-  if (BT > 0 && p.wide) p.K = 0;
   if (p.K == 0) return p;
-  // the wide instance's x slots hold kBT rows, those past B zero; the
-  // tiled plan's BT rows of a sub-tile
+  // the tiled plan's x slots hold BT rows of a sub-tile
   p.tiled = BT > 0;
-  p.Bp = p.wide ? kBT : p.tiled ? BT : (B + kRows - 1) / kRows * kRows;
+  p.Bp = p.tiled ? BT : (B + kRows - 1) / kRows * kRows;
   p.nsub = p.tiled ? (B + BT - 1) / BT : 1;
   p.MB = p.tiled ? B : p.Bp;
   p.W = 4 * ((up4(I) / 4) | 1);  // odd count of 16-byte units: conflict-free rows
@@ -266,7 +275,7 @@ Plan make_plan(int I, int H, int C, int B, int BT = 0) {
     return o;
   };
   p.o_x = take(2 * p.Bp * I);
-  p.o_w1 = take(p.wide ? 0 : p.HS * p.W);
+  p.o_w1 = take(p.HS * p.W);
   p.o_hpre = take(p.Bp * p.HS);
   p.o_hact = take(p.Bp * p.HS);
   p.o_dh = take(p.Bp * p.HS);
@@ -278,7 +287,6 @@ Plan make_plan(int I, int H, int C, int B, int BT = 0) {
   p.o_red = take(2 * p.K * p.RB);
   p.o_ms = take(2 * p.MB);
   p.o_ys = take(2 * p.MB);
-  if (p.wide) p.o_part = take(kWarps / ((p.HS + 31) / 32) * p.Bp * p.HS);
   p.o_gw2 = take(p.tiled ? p.HS * C : 0);
   p.o_gb2 = take(p.tiled ? C : 0);
   p.o_gb1 = take(p.tiled ? p.HS : 0);
@@ -491,73 +499,6 @@ __device__ __forceinline__ float gather_sum(const float* buf, int RB, int K, int
   return s;
 }
 
-// The wide instance's w1 column of one thread: rows 4 * q0 .. 4 * q0 + 15
-// of the column at w (row stride H) into v, rows at or past 4 * qb as 0.
-__device__ __forceinline__ void load_rows(float (&v)[16], const float* w, long long H, int q0,
-                                          int qb) {
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    v[j] = q0 + j / 4 < qb ? __ldcg(w + (long long)(4 * q0 + j) * H) : 0.f;
-}
-
-// One pass of a thread over its run of rows 4*qa .. 4*qb - 1 of w1's
-// column at w (row stride H), 16 rows a chunk, the next chunk's loads in
-// flight during this one's FMAs.  With `upd`, the update w1[i][col] -= lr *
-// sum_b xu[b][i] * d[b], each element read once and written once; with
-// `fwd`, the forward acc[b] += xf[b][i] * w1[i][col] on the element as it
-// leaves the pass (the updated one), in row order, so a step's update and
-// the next step's forward share one read and one write of the column.
-// Rows of xu / xf at or past B are zero and d[b] = 0 there.
-__device__ __forceinline__ void wide_pass(const float* xu, const float* xf, int I, float* w,
-                                          long long H, int qa, int qb, const float (&d)[kBT],
-                                          float lr, float (&acc)[kBT], bool upd, bool fwd) {
-  float nx[16];
-  load_rows(nx, w, H, qa, qb);
-  for (int q0 = qa; q0 < qb; q0 += 4) {
-    float wc[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) wc[j] = nx[j];
-    if (q0 + 4 < qb) load_rows(nx, w, H, q0 + 4, qb);
-#pragma unroll
-    for (int qq = 0; qq < 4; ++qq) {
-      const int q = q0 + qq;
-      if (q >= qb) break;
-      float nw0 = wc[4 * qq], nw1 = wc[4 * qq + 1], nw2 = wc[4 * qq + 2], nw3 = wc[4 * qq + 3];
-      if (upd) {
-        float g0 = 0.f, g1 = 0.f, g2 = 0.f, g3 = 0.f;
-#pragma unroll
-        for (int j = 0; j < kBT; ++j) {
-          const float4 xv = ld4(xu + j * I + 4 * q);
-          g0 = fmaf(xv.x, d[j], g0);
-          g1 = fmaf(xv.y, d[j], g1);
-          g2 = fmaf(xv.z, d[j], g2);
-          g3 = fmaf(xv.w, d[j], g3);
-        }
-        nw0 -= lr * g0;
-        nw1 -= lr * g1;
-        nw2 -= lr * g2;
-        nw3 -= lr * g3;
-        float* wr = w + (long long)(4 * q) * H;
-        __stcg(wr, nw0);
-        __stcg(wr + H, nw1);
-        __stcg(wr + 2 * H, nw2);
-        __stcg(wr + 3 * H, nw3);
-      }
-      if (fwd) {
-#pragma unroll
-        for (int j = 0; j < kBT; ++j) {
-          const float4 xv = ld4(xf + j * I + 4 * q);
-          float a = acc[j];
-          a = fmaf(xv.x, nw0, a);
-          a = fmaf(xv.y, nw1, a);
-          a = fmaf(xv.z, nw2, a);
-          acc[j] = fmaf(xv.w, nw3, a);
-        }
-      }
-    }
-  }
-}
-
 // A w1-update tile's gradient: ga[k][e] += sum over b < rows of x[b][4 qa
 // + e] * dhp[b][c0 + k] (gb: 4 qb + e, when hasb), in row order.
 __device__ __forceinline__ void accumulate_tile(const float* xt, int I, const float* dhp,
@@ -616,11 +557,9 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
                  const int* __restrict__ offs, const int* __restrict__ order,
                  float* __restrict__ out, int npad, int I, int H, int C, int B,
                  int epochs, float lr, Plan p) {
-  constexpr bool kWide = kHS == 0;  // w1 streamed from L2, HS from the plan
-  static_assert(kWide || kHS == 8 || kHS == 16, "a slice is one or two 8-column groups");
-  static_assert(!(kWide && kTiled), "the tiled plan keeps w1 in shared memory");
-  const int HS = kWide ? p.HS : kHS;
-  constexpr int colg = kWide ? 1 : kHS / kCols;  // 8-column groups (narrow)
+  static_assert(kHS == 8 || kHS == 16, "a slice is one or two 8-column groups");
+  const int HS = kHS;
+  constexpr int colg = kHS / kCols;  // 8-column groups
   extern __shared__ __align__(128) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int K = p.K, Bp = p.Bp, W = p.W, RB = p.RB;
@@ -636,7 +575,7 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const int nreal = H - h0 < HS ? H - h0 : HS;  // the slice's model columns
   const int quads = I / 4;
   const int npairs = (quads + 1) / 2;
-  const int utiles = kWide ? 0 : npairs * colg;      // w1-update thread tiles
+  const int utiles = npairs * colg;  // w1-update thread tiles
   const int MB = kTiled ? p.MB : Bp;  // staged mask and label rows a step
   const long long D = (long long)H + C + (long long)I * H + (long long)H * C;
 
@@ -664,26 +603,9 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   const float* gb2 = g + H;
   const float* gw1 = g + H + C;
   const float* gw2 = gw1 + (long long)I * H;
-  // the wide instance's owner of a w1 column: a group of 32 columns, run
-  // `run` of I (quads q_lo .. q_hi - 1), lane = column wcol of the slice;
-  // w1g is that column in this client's output row
-  const int ncg = (HS + 31) / 32, nruns = nwarps / ncg;
-  const int run = warp / ncg, wcol = warp % ncg * 32 + lane;
-  const int qper = (quads + nruns - 1) / nruns;
-  const int q_lo = run * qper < quads ? run * qper : quads;
-  const int q_hi = q_lo + qper < quads ? q_lo + qper : quads;
-  const bool owner = kWide && wcol < nreal;
-  float* w1g = out + (long long)r * D + H + C + h0 + wcol;
-  float* runs = smem + p.o_part;  // nruns x Bp x HS forward partials
-  if constexpr (kWide) {
-    if (owner)
-      for (int i = 4 * q_lo; i < 4 * q_hi; ++i)
-        __stcg(w1g + (long long)i * H, gw1[(long long)i * H + h0 + wcol]);
-  } else {
-    for (int k = tid; k < I * HS; k += nthr) {
-      const int i = k / HS, hl = k % HS;
-      w1s[hl * W + i] = hl < nreal ? gw1[(long long)i * H + h0 + hl] : 0.f;
-    }
+  for (int k = tid; k < I * HS; k += nthr) {
+    const int i = k / HS, hl = k % HS;
+    w1s[hl * W + i] = hl < nreal ? gw1[(long long)i * H + h0 + hl] : 0.f;
   }
   for (int k = tid; k < HS * C; k += nthr)
     w2b[k] = k < nreal * C ? gw2[(long long)h0 * C + k] : 0.f;
@@ -726,7 +648,6 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   for (int k = 0; k < kCols; ++k)
 #pragma unroll
     for (int e = 0; e < 4; ++e) ua[k][e] = ub[k][e] = 0.f;
-  bool ready = false;  // the wide instance: this step's forward partials are in `runs`
   while (t < total) {
     const int cur = use & 1, nxt = cur ^ 1;
     const int bp = kTiled ? bpar & 1 : cur;  // the step's parity
@@ -747,27 +668,12 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
       }
     }
     mbar_wait(smem_addr(&bars[cur]), (use >> 1) & 1);
-    // --- wide forward of the chain's first live step, each owner's run of
-    // x @ w1[:, col] into the partials (0 in a pad column), summed after the
-    // barrier below; a later step's partials come with the previous update
-    if constexpr (kWide) {
-      if (!ready) {
-        float acc[kBT], d[kBT];
-#pragma unroll
-        for (int j = 0; j < kBT; ++j) acc[j] = d[j] = 0.f;
-        if (owner) wide_pass(xt, xt, I, w1g, H, q_lo, q_hi, d, lr, acc, false, true);
-        if (wcol < HS)
-#pragma unroll
-          for (int j = 0; j < kBT; ++j)
-            if (j < B) runs[(run * Bp + j) * HS + wcol] = acc[j];
-      }
-    }
     // --- forward: a warp's tile is kRows batch rows x kCols hidden columns;
     // lane l sums the 4-row groups q = l, l + 32, ... of I, then the warp
     // reduce-scatters the 40 sums (rows past bt, zero or a previous
     // sub-tile's, are summed and dropped)
     const int ftiles =  // forward warp tiles
-        kWide ? 0 : (kTiled ? (bt + kRows - 1) / kRows : Bp / kRows) * colg;
+        (kTiled ? (bt + kRows - 1) / kRows : Bp / kRows) * colg;
     for (int tile = warp; tile < ftiles; tile += nwarps) {
       const int r0 = tile / colg * kRows, c0 = tile % colg * kCols;
       float acc[kRows * kCols];
@@ -829,18 +735,6 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
       if (lane == 0) s_next[bp] = tn;
     }
     __syncthreads();
-    if constexpr (kWide) {
-      // the runs' partials in run order, plus b1
-      for (int k = tid; k < B * HS; k += nthr) {
-        const int b = k / HS, h = k % HS;
-        float s = runs[b * HS + h];
-        for (int rn = 1; rn < nruns; ++rn) s += runs[(rn * Bp + b) * HS + h];
-        const float hp = s + b1s[h];
-        hpre[k] = hp;
-        if (!soft) hact[k] = fmaxf(hp, 0.f);
-      }
-      __syncthreads();
-    }
     const int tn = s_next[bp];
     const float* w2s = w2b + bp * HS * C;  // this step's w2 rows
     float* w2n = w2b + (bp ^ 1) * HS * C;  // the next step's
@@ -978,28 +872,7 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
       __syncthreads();
     }
     // --- w1[:, slice] -= lr * x^T @ d hpre and b1[slice] -= lr * sum_b d hpre
-    if constexpr (kWide) {
-      // each owner's column over its run, d hpre of its column in
-      // registers; with a next live step, that step's forward partials on
-      // the updated column (its tile, issued after the logits barrier,
-      // lands during the backward); b1 after it
-      const bool fwd = tn < total;
-      if (fwd) mbar_wait(smem_addr(&bars[nxt]), ((use + 1) >> 1) & 1);
-      float acc[kBT], d[kBT];
-#pragma unroll
-      for (int j = 0; j < kBT; ++j) {
-        acc[j] = 0.f;
-        d[j] = owner && j < B ? dhp[j * HS + wcol] : 0.f;
-      }
-      if (owner)
-        wide_pass(xt, xs + nxt * Bp * I, I, w1g, H, q_lo, q_hi, d, lr, acc, true, fwd);
-      if (fwd && wcol < HS)
-#pragma unroll
-        for (int j = 0; j < kBT; ++j)
-          if (j < B) runs[(run * Bp + j) * HS + wcol] = acc[j];
-      ready = fwd;
-      for (int k = tid; k < HS; k += nthr) b1s[k] -= lr * dot4(dhp + k, HS, nullptr, 0, B);
-    } else if constexpr (kTiled) {
+    if constexpr (kTiled) {
       // the narrow plan's tiles, each thread's w1 gradient in registers
       // and b1's in shared memory, summed over the step's sub-tiles; the
       // last sub-tile applies them
@@ -1060,11 +933,9 @@ local_sgd_kernel(const float* __restrict__ g, const float* __restrict__ x,
   if (rank == 0)
     for (int k = tid; k < C; k += nthr) orow[H + k] = b2s[k];
   float* ow1 = orow + H + C;
-  if constexpr (!kWide) {  // the wide instance's w1 is already in place
-    for (int k = tid; k < I * HS; k += nthr) {
-      const int i = k / HS, hl = k % HS;
-      if (hl < nreal) ow1[(long long)i * H + h0 + hl] = w1s[hl * W + i];
-    }
+  for (int k = tid; k < I * HS; k += nthr) {
+    const int i = k / HS, hl = k % HS;
+    if (hl < nreal) ow1[(long long)i * H + h0 + hl] = w1s[hl * W + i];
   }
   float* ow2 = ow1 + (long long)I * H;
   const float* w2s = w2b + ((kTiled ? bpar : use) & 1) * HS * C;
@@ -1698,10 +1569,643 @@ int launch_general(const GPlan& p, const float* g, const float* x, const int* y,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------------------
+// The wide instance (257 <= H <= 1,024; the header's notes give the design
+// and what it is for): one cluster of K <= 8 CTAs a client, CTA `rank`
+// owning the slice [rank * HS, rank * HS + HS) of the hidden layer, HS = 64
+// or 128; w1 in place in the client's output row, streamed through a ring
+// of row chunks in shared memory once a step.
+
+constexpr int kWideThreads = 256;                // 8 warps: two on each SM sub-partition
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kRoleWarps = kWideWarps / 2;       // 4 update warps, then 4 forward warps
+constexpr int kBlockCols = 32;                   // a warp's block of columns in a pass
+constexpr int kTileFloats = kRoleWarps * 32 * 16;  // a role's 4 x 4 tiles: one quad a row lane
+constexpr int kMaxRing = 4;                      // ring slots at most
+constexpr int kMaxWideC = 16;
+
+// The wide instance's plan: K, HS, ring slots NS and chunks a pass, and
+// one CTA's shared-memory layout in floats (offsets multiples of 4).
+struct WPlan {
+  int K, HS, NS, QT, nch, RB;
+  int o_x, o_part, o_hpre, o_hact, o_dpp, o_w2, o_b1, o_b2, o_lg, o_red, o_ms, o_ys, o_misc,
+      o_bar, o_ring, bytes;
+};
+
+// The narrowest slice of 64 or 128 columns whose cluster is portable (K =
+// ceil(H / HS) <= 8: 64 up to H = 512, else 128); chunks of QT = 2 quads a
+// row lane (16 KB), else 1, and as many ring slots (3-4) as the shared
+// bytes leave; K = 0 for a shape it does not take.  A function of the
+// shapes only.
+WPlan wide_plan(int I, int H, int C, int B) {
+  WPlan p{};
+  if (!bulk_shapes(I, H, C, B) || H <= 256 || H > 1024 || B > kBT) return p;
+  p.HS = (H + 63) / 64 <= kMaxPortable ? 64 : 128;
+  p.K = (H + p.HS - 1) / p.HS;
+  const int nwr = kRoleWarps / (p.HS / kBlockCols);  // a role's warps on a column
+  p.RB = up4(kBT * C > 2 * kBT ? kBT * C : 2 * kBT);
+  int off = 0;
+  auto take = [&off](int n) {
+    int o = off;
+    off += up4(n);
+    return o;
+  };
+  p.o_x = take(2 * kBT * I);
+  p.o_part = take((nwr - 1) * kBT * p.HS);
+  p.o_hpre = take(kBT * p.HS);
+  p.o_hact = take(kBT * p.HS);
+  p.o_dpp = take(kBT * p.HS);
+  p.o_w2 = take(p.HS * C);
+  p.o_b1 = take(p.HS);
+  p.o_b2 = take(C);
+  p.o_lg = take(kBT * C);
+  p.o_red = take(2 * p.K * p.RB);
+  p.o_ms = take(2 * kBT);
+  p.o_ys = take(2 * kBT);
+  p.o_misc = take(8);
+  p.o_bar = take(4);  // two 8-byte barriers
+  p.o_ring = off;
+  for (p.QT = 2; p.QT >= 1; --p.QT) {
+    p.NS = (kMaxSmemBytes / 4 - off) / (p.QT * kTileFloats);
+    if (p.NS > kMaxRing) p.NS = kMaxRing;
+    if (p.NS >= 3) break;
+  }
+  if (p.QT < 1) {
+    p.K = 0;
+    return p;
+  }
+  p.nch = (I / 4 + 4 * nwr * p.QT - 1) / (4 * nwr * p.QT);
+  p.bytes = (off + p.NS * p.QT * kTileFloats) * 4;
+  return p;
+}
+
+// A slice column's position in a ring row and in dpp: the 32 columns of a
+// warp's block laid out so that a lane's four (tcg, tcg + 8, + 16, + 24)
+// are one float4.
+__device__ __forceinline__ int wpos(int hl) {
+  return (hl & ~31) | ((hl & 7) << 2) | ((hl >> 3) & 3);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+// The whole block at the pass's barrier (named barrier 1: the two roles
+// reach it from their own loops).
+__device__ __forceinline__ void bar_all() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kWideThreads) : "memory");
+}
+
+// The slice's w1 rows of chunk c (w1o: the slice's column 0 of w1's row 0
+// in the output row, row stride H) to or from a ring slot, a column at wpos
+// in a row of kHS floats: 8 elements a thread a quad of the chunk (qt), its
+// column fixed and its row stepping by kWideThreads / kHS, a warp on
+// neighbouring columns of a row; only rows before I and the slice's model
+// columns.  `kIn`: 4-byte cp.async copies in (the row is not 16-byte
+// aligned for general H), zero elsewhere; else stores out.  Copies in and
+// out use one thread mapping, so a thread's copy out of a slot comes before
+// its copy into it in program order.
+template <int kHS, bool kIn>
+__device__ __forceinline__ void ring_copy(float* slot, float* w1o, long long H, int c, int qt,
+                                          int I, int nreal) {
+  constexpr int kStep = kWideThreads / kHS, kPer = kTileFloats / kWideThreads;
+  const int rows = kTileFloats / kHS * qt;  // rows of a chunk
+  const int col = threadIdx.x & (kHS - 1), rr = threadIdx.x / kHS;
+  const int i0 = rows * c + rr;
+  float* sp = slot + rr * kHS + wpos(col);
+  float* gp = w1o + (long long)i0 * H + col;
+  const bool live = col < nreal, whole = rows * (c + 1) <= I;
+  for (int m0 = 0; m0 < kPer * qt; m0 += kPer) {
+#pragma unroll
+    for (int m = m0; m < m0 + kPer; ++m) {
+      const bool valid = live && (whole || i0 + kStep * m < I);
+      if constexpr (kIn) cp_async4(sp + kStep * kHS * m, valid ? gp : w1o, valid);
+      else if (valid) *gp = sp[kStep * kHS * m];
+      gp += kStep * H;
+    }
+  }
+}
+
+// Chunk c's ring slot (NS is 3 or 4).
+__device__ __forceinline__ int slot_of(int c, int NS) { return NS == 4 ? c & 3 : c % 3; }
+
+// The ring's state in a pass: slots, chunks, the slice's w1 in the output
+// row, and whether chunks go back (an update pass).
+struct Ring {
+  float* slots;
+  float* w1o;
+  long long H;
+  int NS, QT, nch, I, nreal;
+  bool back;
+  __device__ float* slot(int c) const { return slots + slot_of(c, NS) * QT * kTileFloats; }
+};
+
+// Ring chunks 0 .. NS - 3 of the next pass (its w1 rows written before the
+// last barrier), a cp.async group each.
+template <int kHS>
+__device__ __forceinline__ void prefetch_ring(const Ring& g) {
+  for (int c = 0; c < g.NS - 2; ++c) {
+    if (c < g.nch) ring_copy<kHS, true>(g.slot(c), g.w1o, g.H, c, g.QT, g.I, g.nreal);
+    cp_commit();
+  }
+}
+
+// Turn s of a pass, every thread: chunk s has landed (at most NS - 3
+// groups in flight) and every thread has left turn s - 1 (the barrier);
+// chunk s - 2, which no role reads any more, goes back to the output row
+// (an update pass) and chunk s + NS - 2 comes into its slot.
+template <int kHS>
+__device__ __forceinline__ void ring_turn(const Ring& g, int s) {
+  if (g.NS >= 4) asm volatile("cp.async.wait_group 1;" ::: "memory");
+  else asm volatile("cp.async.wait_group 0;" ::: "memory");
+  bar_all();
+  const int co = s - 2, ci = s + g.NS - 2;
+  if (g.back && co >= 0 && co < g.nch)
+    ring_copy<kHS, false>(g.slot(co), g.w1o, g.H, co, g.QT, g.I, g.nreal);
+  if (ci < g.nch) ring_copy<kHS, true>(g.slot(ci), g.w1o, g.H, ci, g.QT, g.I, g.nreal);
+  cp_commit();
+}
+
+// After a pass's `turns` turns: one barrier, then the chunks not yet back.
+template <int kHS>
+__device__ __forceinline__ void ring_tail(const Ring& g, int turns) {
+  bar_all();
+  if (g.back)
+    for (int c = turns - 2 > 0 ? turns - 2 : 0; c < g.nch; ++c)
+      ring_copy<kHS, false>(g.slot(c), g.w1o, g.H, c, g.QT, g.I, g.nreal);
+}
+
+// A role's 4 x 4 tile: warp rw (0-3 within the role) takes the column block
+// cb = rw % (HS / 32) and row lanes 4 (rw / (HS / 32)) .. + 3 (lane bits
+// 3-4), lane bits 0-2 the columns tcg + 8 k (k < 4) of the block; in chunk
+// c a row lane takes quads q = (c QT + u) nrl + rl of I (u < QT), rows 4 (u
+// nrl + rl) .. + 3 of the slot: a lane's quads in increasing order.
+template <int kHS>
+struct Tile {
+  static constexpr int ncb = kHS / kBlockCols, nwr = kRoleWarps / ncb, nrl = 4 * nwr;
+  int rl, tp;
+  __device__ Tile(int rw, int lane)
+      : rl(4 * (rw / ncb) + (lane >> 3)), tp(kBlockCols * (rw % ncb) + 4 * (lane & 7)) {}
+};
+
+// The update role's pass (`upd`; else it only turns the ring): each weight
+// of its tile becomes w - lr * sum_b xu[b][i] d[b][h] (b in order; d hpre of
+// the tile's columns held in registers for the pass), back into its slot
+// in turn c; the forward role reads it in turn c + lag.  Each float4 of x
+// read from shared memory feeds 16 FMAs.
+template <int kHS>
+__device__ __forceinline__ void update_role(const Ring& g, int turns, bool upd, const float* xu,
+                                            const float* dpp, float lr) {
+  const Tile<kHS> t(threadIdx.x >> 5, threadIdx.x & 31);
+  const int quads = g.I / 4;
+  float d[kBT][4];
+#pragma unroll
+  for (int b = 0; b < kBT; ++b) {
+    const float4 v = upd ? ld4(dpp + b * kHS + t.tp) : make_float4(0.f, 0.f, 0.f, 0.f);
+    d[b][0] = v.x;
+    d[b][1] = v.y;
+    d[b][2] = v.z;
+    d[b][3] = v.w;
+  }
+  for (int s = 0; s < turns; ++s) {
+    ring_turn<kHS>(g, s);
+    if (!upd || s >= g.nch) continue;
+    for (int u = 0; u < g.QT; ++u) {
+      const int q = (s * g.QT + u) * t.nrl + t.rl;
+      if (q >= quads) break;
+      float* ws = g.slot(s) + 4 * (u * t.nrl + t.rl) * kHS + t.tp;
+      float w[4][4], gq[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 v = ld4(ws + e * kHS);
+        w[e][0] = v.x;
+        w[e][1] = v.y;
+        w[e][2] = v.z;
+        w[e][3] = v.w;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) gq[e][k] = 0.f;
+      }
+      const float* xb = xu + 4 * q;
+#pragma unroll
+      for (int b = 0; b < kBT; ++b) {
+        const float4 xv = ld4(xb + b * g.I);
+        const float xe[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) gq[e][k] = fmaf(xe[e], d[b][k], gq[e][k]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) w[e][k] -= lr * gq[e][k];
+        *reinterpret_cast<float4*>(ws + e * kHS) = make_float4(w[e][0], w[e][1], w[e][2], w[e][3]);
+      }
+    }
+  }
+  ring_tail<kHS>(g, turns);
+}
+
+// The forward role's pass (`fwd`; else it only turns the ring): in turn s
+// its tile of chunk s - lag (updated by then), acc[4 b + k] += sum_i
+// xf[b][i] w[i][k] over the tile's rows in order; then the four lane rows
+// of each column summed (lane bit 4, then bit 3: a fixed tree) into the kBT
+// sums a lane keeps, v[j] row 10 * bit4 + 5 * bit3 + j / 4 of column
+// (block) + tcg + 8 * (j % 4).  Each float4 of x feeds 16 FMAs, each weight
+// all kBT batch rows.
+template <int kHS>
+__device__ __forceinline__ void forward_role(const Ring& g, int turns, int lag, bool fwd,
+                                             const float* xf, float (&v)[kBT]) {
+  const int lane = threadIdx.x & 31;
+  const Tile<kHS> t((threadIdx.x >> 5) - kRoleWarps, lane);
+  const int quads = g.I / 4;
+  float acc[4 * kBT];
+#pragma unroll
+  for (int j = 0; j < 4 * kBT; ++j) acc[j] = 0.f;
+  for (int s = 0; s < turns; ++s) {
+    ring_turn<kHS>(g, s);
+    const int c = s - lag;
+    if (!fwd || c < 0 || c >= g.nch) continue;
+    for (int u = 0; u < g.QT; ++u) {
+      const int q = (c * g.QT + u) * t.nrl + t.rl;
+      if (q >= quads) break;
+      const float* ws = g.slot(c) + 4 * (u * t.nrl + t.rl) * kHS + t.tp;
+      float w[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float4 v = ld4(ws + e * kHS);
+        w[e][0] = v.x;
+        w[e][1] = v.y;
+        w[e][2] = v.z;
+        w[e][3] = v.w;
+      }
+      const float* xb = xf + 4 * q;
+#pragma unroll
+      for (int b = 0; b < kBT; ++b) {
+        const float4 xv = ld4(xb + b * g.I);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float a = acc[4 * b + k];
+          a = fmaf(xv.x, w[0][k], a);
+          a = fmaf(xv.y, w[1][k], a);
+          a = fmaf(xv.z, w[2][k], a);
+          acc[4 * b + k] = fmaf(xv.w, w[3][k], a);
+        }
+      }
+    }
+  }
+  ring_tail<kHS>(g, turns);
+  float u[2 * kBT];
+  const bool up16 = lane & 16, up8 = lane & 8;
+#pragma unroll
+  for (int j = 0; j < 2 * kBT; ++j) {
+    const float send = up16 ? acc[j] : acc[j + 2 * kBT];
+    const float keep = up16 ? acc[j + 2 * kBT] : acc[j];
+    u[j] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+  }
+#pragma unroll
+  for (int j = 0; j < kBT; ++j) {
+    const float send = up8 ? u[j] : u[j + kBT];
+    const float keep = up8 ? u[j + kBT] : u[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+  }
+}
+
+template <bool kRagged, int kHS>
+__global__ void __launch_bounds__(kWideThreads, 1)
+local_sgd_wide_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                      const int* __restrict__ y, const int* __restrict__ act,
+                      const float* __restrict__ mask, const int* __restrict__ nbs,
+                      const int* __restrict__ offs, const int* __restrict__ order,
+                      float* __restrict__ out, int npad, int I, int H, int C, int B,
+                      int epochs, float lr, WPlan p) {
+  extern __shared__ __align__(128) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int HS = kHS, nthr = kWideThreads, nwarps = kWideWarps;
+  const int K = p.K, RB = p.RB, NS = p.NS, nch = p.nch;
+  const int rank = (int)cluster.block_rank();
+  const int r = order[blockIdx.x / K];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h0 = rank * HS;
+  const int nreal = H - h0 < HS ? H - h0 : HS;  // the slice's model columns
+  const long long D = (long long)H + C + (long long)I * H + (long long)H * C;
+  // the forward role's tile (forward_role): its warps on a column, this
+  // warp's row of them (-1: an update warp), the lane's first column and
+  // first batch row of its sums
+  constexpr int ncb = HS / kBlockCols, nwr = kRoleWarps / ncb;
+  const bool fwarp = warp >= kRoleWarps;
+  const int wr = fwarp ? (warp - kRoleWarps) / ncb : -1;
+  const int hc = kBlockCols * (warp % kRoleWarps % ncb) + (lane & 7);
+  const int fb = 10 * ((lane >> 4) & 1) + 5 * ((lane >> 3) & 1);
+
+  float* xs = smem + p.o_x;       // 2 slots of kBT x I (rows >= B stay zero)
+  float* part = smem + p.o_part;  // (nwr - 1) x kBT x HS: the forward warps' sums
+  float* hpre = smem + p.o_hpre;  // kBT x HS
+  float* dh = hpre;  // kBT x HS, softmax-hidden clients (whose h is made by then)
+  float* hact = smem + p.o_hact;  // kBT x HS
+  float* dpp = smem + p.o_dpp;    // kBT x HS, d hpre at wpos (rows >= B stay zero)
+  float* w2s = smem + p.o_w2;     // HS x C, rows h0.. of w2
+  float* b1s = smem + p.o_b1;     // HS
+  float* b2s = smem + p.o_b2;     // C
+  float* lg = smem + p.o_lg;      // B x C, logits then d logits
+  float* red = smem + p.o_red;    // 2 x K x RB cluster partials, a slot a rank
+  float* ms = smem + p.o_ms;      // 2 x kBT staged mask rows
+  int* ys = reinterpret_cast<int*>(smem + p.o_ys);        // 2 x kBT labels
+  int* s_next = reinterpret_cast<int*>(smem + p.o_misc);  // next live step
+  float* cnts = smem + p.o_misc + 4;                      // 2 staged mask counts
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + p.o_bar);
+
+  const float* gw1 = g + H + C;
+  const float* gw2 = gw1 + (long long)I * H;
+  float* w1o = out + (long long)r * D + H + C + h0;  // the slice's w1, row stride H
+  for (int k = tid; k < I * nreal; k += nthr) {
+    const int i = k / nreal, hl = k % nreal;
+    w1o[(long long)i * H + hl] = gw1[(long long)i * H + h0 + hl];
+  }
+  for (int k = tid; k < HS * C; k += nthr)
+    w2s[k] = k < nreal * C ? gw2[(long long)h0 * C + k] : 0.f;
+  for (int k = tid; k < HS; k += nthr) b1s[k] = k < nreal ? g[h0 + k] : 0.f;
+  for (int k = tid; k < C; k += nthr) b2s[k] = g[H + k];
+  for (int k = tid; k < kBT * HS; k += nthr) dpp[k] = 0.f;
+  for (int k = B * I + tid; k < kBT * I; k += nthr) {
+    xs[k] = 0.f;
+    xs[kBT * I + k] = 0.f;
+  }
+  const bool soft = act[r] == 1;
+  const int nb = kRagged ? nbs[r] : npad / B;
+  const long long first = kRagged ? (long long)offs[r] * B : (long long)r * npad;
+  const int total = epochs * nb;
+  const uint32_t tile_bytes = (uint32_t)B * I * 4;
+  const bool stager = warp == 0;
+  if (tid == 0) {
+    mbar_init(smem_addr(&bars[0]), 1);
+    mbar_init(smem_addr(&bars[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (stager) {
+    const int t0 = stage_next_live(mask, y, first, nb, B, 0, total, ms, ys, &cnts[0], lane);
+    if (lane == 0) s_next[2] = t0;
+  }
+  cluster.sync();  // every barrier of the cluster initialised, params staged
+  int t = s_next[2];
+  if (tid == 0 && t < total)
+    issue_tile(x + (first + (long long)(t % nb) * B) * I, xs, &bars[0], tile_bytes, rank, K);
+  Ring ring{smem + p.o_ring, w1o, H, NS, p.QT, nch, I, nreal, false};
+  if (t < total) prefetch_ring<kHS>(ring);
+  // a pass over the ring, the update warps and the forward warps in their
+  // own loops (the forward one chunk behind the update when it follows
+  // it); the forward warps' sums of each output, the first row of them (wr
+  // = 0) keeping its own in registers, the others in part
+  float mine[kBT];
+  auto pass = [&](bool upd, bool fwd, const float* xu, const float* xf) {
+    const int lag = upd && fwd ? 1 : 0, turns = nch + lag;
+    ring.back = upd;
+    if (!fwarp) {
+      update_role<kHS>(ring, turns, upd, xu, dpp, lr);
+    } else {
+      forward_role<kHS>(ring, turns, lag, fwd, xf, mine);
+      if (fwd && wr > 0)
+#pragma unroll
+        for (int j = 0; j < kBT; ++j)
+          part[((wr - 1) * kBT + fb + j / 4) * HS + hc + 8 * (j % 4)] = mine[j];
+    }
+  };
+  // after the barrier: the sums met in warp order, plus b1 (ReLU: h too)
+  auto meet = [&]() {
+    if (wr == 0)
+#pragma unroll
+      for (int j = 0; j < kBT; ++j) {
+        const int b = fb + j / 4, h = hc + 8 * (j % 4);
+        float s = mine[j];
+        for (int w = 1; w < nwr; ++w) s += part[((w - 1) * kBT + b) * HS + h];
+        const float hp = s + b1s[h];
+        hpre[b * HS + h] = hp;
+        if (!soft) hact[b * HS + h] = fmaxf(hp, 0.f);
+      }
+  };
+
+  int use = 0, nred = 0;
+  constexpr int tpc = nthr / HS, ngw = (kMaxWideC + tpc - 1) / tpc;  // threads a column
+  float gw[ngw];  // this thread's w2 gradients (classes c0 + tpc m), applied before the pass
+  while (t < total) {
+    const int cur = use & 1, nxt = cur ^ 1;
+    const float* xt = xs + cur * kBT * I;
+    // --- the next live batch's mask row and labels, read ahead by the
+    // stager warp: the first candidate's loads in flight during the wait
+    float mv = 0.f;
+    int yv = 0;
+    if (stager && t + 1 < total && B <= 32) {
+      const long long rowc = first + (long long)((t + 1) % nb) * B;
+      if (lane < B) {
+        mv = mask[rowc + lane];
+        yv = y[rowc + lane];
+      }
+    }
+    mbar_wait(smem_addr(&bars[cur]), (use >> 1) & 1);
+    // --- the chain's first live step runs its forward alone; a later
+    // step's came with the previous step's update
+    if (use == 0) {
+      pass(false, true, xt, xt);
+      __syncthreads();
+      meet();
+      prefetch_ring<kHS>(ring);
+    }
+    if (stager) {
+      int tn = total;
+      if (t + 1 < total) {
+        if (B <= 32) {
+          float cnt = 0.f;
+          for (int j = 0; j < B; ++j) cnt += __shfl_sync(0xffffffffu, mv, j);
+          if (cnt > 0.f) {
+            tn = t + 1;
+            if (lane < B) {
+              ms[nxt * kBT + lane] = mv;
+              ys[nxt * kBT + lane] = yv;
+            }
+            if (lane == 0) cnts[nxt] = cnt;
+          } else {
+            tn = stage_next_live(mask, y, first, nb, B, t + 2, total, ms + nxt * kBT,
+                                 ys + nxt * kBT, &cnts[nxt], lane);
+          }
+        } else {
+          tn = stage_next_live(mask, y, first, nb, B, t + 1, total, ms + nxt * kBT,
+                               ys + nxt * kBT, &cnts[nxt], lane);
+        }
+      }
+      if (lane == 0) s_next[cur] = tn;
+    }
+    __syncthreads();
+    const int tn = s_next[cur];
+    // --- softmax hidden layer: a warp a row takes its slice's row max and
+    // exp-sum over the model columns (butterflies), lanes < K send them to
+    // every rank; one barrier; then the K slices' in rank order
+    if (soft) {
+      float* buf = red + (nred & 1) * K * RB;
+      for (int b = warp; b < B; b += nwarps) {
+        const float* hp = hpre + b * HS;
+        float m = -INFINITY;
+        for (int hl = lane; hl < nreal; hl += 32) m = fmaxf(m, hp[hl]);
+        m = warp_max(m);
+        float s = 0.f;
+        for (int hl = lane; hl < nreal; hl += 32) s += expf(hp[hl] - m);
+        s = warp_sum(s);
+        if (lane < K) {
+          float* dst = cluster.map_shared_rank(buf, lane) + rank * RB + 2 * b;
+          dst[0] = m;
+          dst[1] = s;
+        }
+      }
+      cluster.sync();
+      for (int b = warp; b < B; b += nwarps) {
+        float m = -INFINITY;
+        for (int rk = 0; rk < K; ++rk) m = fmaxf(m, buf[rk * RB + 2 * b]);
+        float s = 0.f;
+        for (int rk = 0; rk < K; ++rk) s += buf[rk * RB + 2 * b + 1] * expf(buf[rk * RB + 2 * b] - m);
+        for (int hl = lane; hl < HS; hl += 32) {
+          const int k = b * HS + hl;
+          hact[k] = hl < nreal ? expf(hpre[k] - m) / s : 0.f;
+        }
+      }
+      ++nred;
+      __syncthreads();
+    }
+    // --- logits: each CTA's h_slice @ w2[slice] to every CTA, one barrier,
+    // then a quarter warp a batch row sums the K slices in rank order, adds
+    // b2 and turns the row into d logits (as in the narrow plan)
+    {
+      float* buf = red + (nred & 1) * K * RB;
+      for (int k = tid; k < B * C; k += nthr) {
+        const int b = k / C, c = k % C;
+        push(cluster, buf, RB, rank, K, k, dot4(hact + b * HS, 1, w2s + c, C, HS));
+      }
+      cluster.sync();
+      // every CTA has finished the previous step: the other x slot is free
+      if (tid == nthr - 1 && tn < total)
+        issue_tile(x + (first + (long long)(tn % nb) * B) * I, xs + nxt * kBT * I, &bars[nxt],
+                   tile_bytes, rank, K);
+      const float* mrow = ms + cur * kBT;
+      const int* yrow = ys + cur * kBT;
+      const float cnt = fmaxf(cnts[cur], 1.f);
+      for (int b0 = 4 * warp; b0 < B; b0 += 4 * nwarps) {
+        const int b = b0 + (lane >> 3), l8 = lane & 7;
+        float lv[2], e[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = l8 + 8 * j;
+          lv[j] = b < B && c < C ? gather_sum(buf, RB, K, b * C + c) + b2s[c] : -INFINITY;
+        }
+        const float mx = quarter_max(fmaxf(lv[0], lv[1]));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) e[j] = b < B && l8 + 8 * j < C ? expf(lv[j] - mx) : 0.f;
+        const float sum = quarter_sum(e[0] + e[1]);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = l8 + 8 * j;
+          if (b < B && c < C)
+            lg[b * C + c] = (e[j] / sum - (c == yrow[b] ? 1.f : 0.f)) * (mrow[b] / cnt);
+        }
+      }
+      ++nred;
+    }
+    __syncthreads();
+    // --- dh[:, slice] = d logits @ w2[slice]^T (ReLU: d hpre, at wpos),
+    // the w2 rows' gradient h^T @ d logits into registers (applied after
+    // the last reader of w2 this step) and b2 -= lr * sum_b d logits: a
+    // column a thread group, each sum in a fixed order
+    {
+      const int hl = tid % HS, c0 = tid / HS;
+      float w2r[kMaxWideC];
+#pragma unroll
+      for (int c = 0; c < kMaxWideC; ++c) w2r[c] = c < C ? w2s[hl * C + c] : 0.f;
+#pragma unroll 4
+      for (int b = c0; b < B; b += tpc) {
+        float a = 0.f;
+#pragma unroll
+        for (int c = 0; c < kMaxWideC; ++c)
+          if (c < C) a = fmaf(lg[b * C + c], w2r[c], a);
+        if (soft) dh[b * HS + hl] = a;
+        else dpp[b * HS + wpos(hl)] = hpre[b * HS + hl] > 0.f ? a : 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < ngw; ++m) gw[m] = 0.f;
+#pragma unroll 4
+      for (int b = 0; b < B; ++b) {
+        const float h = hact[b * HS + hl];
+#pragma unroll
+        for (int m = 0; m < ngw; ++m) {
+          const int c = c0 + tpc * m;
+          if (c < C) gw[m] = fmaf(h, lg[b * C + c], gw[m]);
+        }
+      }
+      if (tid < C) b2s[tid] -= lr * dot4(lg + tid, C, nullptr, 0, B);
+    }
+    __syncthreads();
+    if (soft) {
+      // softmax backward: the row dot sum(dh * h) over all H (the slices'
+      // shares in rank order), then d hpre = h * (dh - dot)
+      float* buf = red + (nred & 1) * K * RB;
+      for (int b = warp; b < B; b += nwarps) {
+        float d = 0.f;
+        for (int hl = lane; hl < HS; hl += 32) d = fmaf(dh[b * HS + hl], hact[b * HS + hl], d);
+        d = warp_sum(d);
+        if (lane < K) cluster.map_shared_rank(buf, lane)[rank * RB + b] = d;
+      }
+      cluster.sync();
+      for (int b = warp; b < B; b += nwarps) {
+        const float dot = gather_sum(buf, RB, K, b);
+        for (int hl = lane; hl < HS; hl += 32) {
+          const int k = b * HS + hl;
+          dpp[b * HS + wpos(hl)] = hact[k] * (dh[k] - dot);
+        }
+      }
+      ++nred;
+      __syncthreads();
+    }
+    // --- w2 and b1 updates (w2 and b1 have no reader until the next step)
+    {
+      const int hl = tid % HS, c0 = tid / HS;
+#pragma unroll
+      for (int m = 0; m < ngw; ++m) {
+        const int c = c0 + tpc * m;
+        if (c < C) w2s[hl * C + c] -= lr * gw[m];
+      }
+      if (tid < HS) b1s[tid] -= lr * dot4(dpp + wpos(tid), HS, nullptr, 0, B);
+    }
+    // --- w1[:, slice] -= lr * x^T @ d hpre through the ring; with a next
+    // live step, that step's forward on the updated rows (its tile, issued
+    // after the logits barrier, lands during the backward), met after the
+    // barrier, and the next pass's first chunks issued
+    const bool fwd = tn < total;
+    if (fwd) mbar_wait(smem_addr(&bars[nxt]), ((use + 1) >> 1) & 1);
+    pass(true, fwd, xt, xs + nxt * kBT * I);
+    __syncthreads();
+    if (fwd) {
+      meet();
+      prefetch_ring<kHS>(ring);
+    }
+    ++use;
+    t = tn;
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  float* orow = out + (long long)r * D;
+  for (int k = tid; k < nreal; k += nthr) orow[h0 + k] = b1s[k];
+  if (rank == 0)
+    for (int k = tid; k < C; k += nthr) orow[H + k] = b2s[k];
+  float* ow2 = orow + H + C + (long long)I * H;
+  for (int k = tid; k < nreal * C; k += nthr) ow2[(long long)h0 * C + k] = w2s[k];
+  cluster.sync();  // no CTA leaves while a peer may still read its partials
+}
+
 }  // namespace
 
-// The wide instance (kHS = 0), built in local_sgd_wide.cu: launch it for
-// the plan of (I, H, C, B), or report its resources, as launch<> / attrs<>.
+// The wide instance, built in local_sgd_wide.cu: launch it for
+// wide_plan(I, H, C, B), or report its resources, as launch<> / attrs<>.
 int local_sgd_wide_launch(bool ragged, const float* g, const float* x, const int* y,
                           const int* act, const float* mask, const int* nb, const int* off,
                           const int* order, float* out, int R, int npad, int I, int H, int C,

@@ -13,8 +13,12 @@ picks the instance from the shapes alone, the first that takes the shape:
            tiles fit a CTA's shared memory (B <= 20 at I = 784): the w1
            slice in shared memory, H padded up to K x 16 columns, K <= 16
            where no split of 8 or 16 columns covers it;
-  wide     257 <= H <= 1,024 at the same I and C, B <= 20: the w1 slice
-           streamed from L2, in place in the client's output row;
+  wide     257 <= H <= 1,024 at the same I and C, B <= 20: a portable
+           cluster of K <= 8 slices of 64 or 128 columns, the w1 slice in
+           place in the client's output row and streamed each step through
+           a ring of row chunks in shared memory (``Plan.ring`` slots), an
+           update and a forward role of 4 warps each with register tiles
+           of 4 columns x 4 rows of I (256 threads a CTA);
   tiled    H <= 256 at the same I and C, a batch the narrow plan cannot
            hold (every B from 21 up at I = 784, H <= 256): the narrow
            plan's cluster, slices and shared-memory layout, the batch
@@ -28,6 +32,16 @@ picks the instance from the shapes alone, the first that takes the shape:
            in sub-tiles of batch rows, the per-row temporaries in a
            workspace in global memory, one slot for each resident cluster
            (``torch.empty`` on the call's device).
+
+What bounded the wide instance's first design (a lane owning one w1
+column, 15-16 slices a client, 7 clusters resident) was its pass over w1,
+measured at ~13.5 of a 28 us step at H = 512: each float4 of x read from
+shared memory fed 4 FMAs.  Its register tiles feed 16, and twice as many
+clusters run at once.  What holds its pass up now, timed on the card with
+stripped copies of the kernel, is the ring's 4-byte copies in and out, not
+the FMAs and not the slice's bytes through L2: without the copies the
+kernel ran about a third faster, without either role's FMAs 11-15% (PERF.md
+section 7).
 
 What bounds the tiled plan on an H100 is what bounds the narrow one: the
 chain's step latency, not the 16-column slice's FMA work (~1.0 MFLOP a CTA
@@ -162,9 +176,10 @@ class Plan(NamedTuple):
     """The kernel's plan for one shape: cluster size K, slice width HS (H
     padded to K * HS columns), threads and dynamic shared bytes a CTA,
     whether w1 streams from L2, the instance (``INSTANCES``), the batch rows
-    a sub-tile (the tiled plan and the general instance; B for the others)
-    and the floats of one cluster's workspace slot (the general instance;
-    0 for the others)."""
+    a sub-tile (the tiled plan and the general instance; B for the others),
+    the floats of one cluster's workspace slot (the general instance; 0 for
+    the others) and the slots of the wide instance's ring of w1 chunks (0
+    for the others)."""
     cluster: int
     slice: int
     threads: int
@@ -173,12 +188,13 @@ class Plan(NamedTuple):
     instance: str
     rows: int
     workspace: int
+    ring: int
 
 
 def plan(I: int, H: int, C: int, B: int) -> Plan:
     """The kernel's plan for (I, H, C, B), chosen from the shapes alone;
     raises for a shape no instance takes."""
-    ints = [ctypes.c_int() for _ in range(7)]
+    ints = [ctypes.c_int() for _ in range(8)]
     ws = ctypes.c_longlong()
     if ops.library().fedar_local_sgd_plan(I, H, C, B, *(ctypes.byref(v) for v in ints),
                                           ctypes.byref(ws)) != 0:
@@ -188,8 +204,8 @@ def plan(I: int, H: int, C: int, B: int) -> Plan:
             f"dimension is under 1, or one cluster's workspace slot or one "
             f"output row would pass 2^31 floats (the reference's envelope, "
             f"fused_fits_vmem, {'holds' if inside else 'does not hold'} it)")
-    inst, K, HS, threads, smem, streamed, rows = (v.value for v in ints)
-    return Plan(K, HS, threads, smem, bool(streamed), INSTANCES[inst], rows, ws.value)
+    inst, K, HS, threads, smem, streamed, rows, ring = (v.value for v in ints)
+    return Plan(K, HS, threads, smem, bool(streamed), INSTANCES[inst], rows, ws.value, ring)
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,7 +227,8 @@ def kernel_attrs(I: int, H: int, C: int, B: int) -> dict:
     regs, local, clusters = _attrs(I, H, C, B, torch.cuda.current_device())
     attrs = dict(cluster=p.cluster, slice=p.slice, threads=p.threads,
                  dynamic_smem=p.smem_bytes, streamed=p.streamed, instance=p.instance,
-                 rows=p.rows, workspace=p.workspace, registers=regs, local_bytes=local,
+                 rows=p.rows, workspace=p.workspace, ring=p.ring, registers=regs,
+                 local_bytes=local,
                  max_clusters=clusters)
     if clusters < 1:
         raise ValueError(f"local_sgd kernel: no cluster of {p.cluster} CTAs with "

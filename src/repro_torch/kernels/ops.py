@@ -126,7 +126,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_local_sgd_ragged.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                                            I, F, P]
     lib.fedar_local_sgd_ragged.restype = I
-    lib.fedar_local_sgd_plan.argtypes = [I, I, I, I, PI, PI, PI, PI, PI, PI, PI,
+    lib.fedar_local_sgd_plan.argtypes = [I, I, I, I, PI, PI, PI, PI, PI, PI, PI, PI,
                                          ctypes.POINTER(L)]
     lib.fedar_local_sgd_plan.restype = I
     lib.fedar_local_sgd_attrs.argtypes = [I, I, I, I, PI, PI, PI]

@@ -153,10 +153,11 @@ def test_model_local_sgd_matches_reference(masked):
 
 # Kernels 1 and 4 take any hidden width up to 1,024 on the card: up to 256
 # padding H to K slices of 16 columns where no portable split fits (H =
-# 100, 200), past it the wide instance, w1 streamed from L2 (H = 512, and
-# 879, the widest the reference's kernel takes at I = 784 and one sample);
-# their plain versions are the CPU route and the card's yardstick.
-WIDE = (100, 200, 256, 512, 879)
+# 100, 200), past it the wide instance, w1 streamed from L2 through a ring
+# (H = 257, its first width; 512; 879, the widest the reference's kernel
+# takes at I = 784 and one sample; 1,024, its last); their plain versions
+# are the CPU route and the card's yardstick.
+WIDE = (100, 200, 256, 257, 512, 879, 1024)
 
 
 def _wide_inputs(Hw, R=4, n=30, seed=5):
@@ -220,6 +221,212 @@ def test_local_sgd_ragged_plain_matches_pallas_interpret_at_wide_hidden(Hw):
         p["w1"], p["b1"], p["w2"], p["b2"], *(jnp.asarray(a) for a in arrays),
         lr=0.1, epochs=2, nb_max=int(nb.max()), interpret=True)
     np.testing.assert_allclose(got.numpy(), _jax_flat(pallas), rtol=1e-5, atol=1e-5)
+
+
+# The wide instance's order of sums (csrc/local_sgd.cuh, local_sgd_wide_kernel),
+# written out in torch: K slices of HS columns (64 up to H = 512, else 128),
+# a CTA's 4 forward warps on HS / 32 column blocks; in a pass over the ring
+# a warp row `wr` and lane row `rq` (row lane 4 wr + rq) take quad j * nrl
+# + rl of I in chunk j; the forward sums a row lane's quads in chunk order,
+# the four lane rows fold as (rq 0 + rq 2) + (rq 1 + rq 3), the warp rows
+# meet in order; butterflies over 32 lanes for a slice's row max, exp-sum
+# and softmax dot, the K slices in rank order; d hpre, the w2 gradient and
+# the w1 update summed in batch-row order over the 20-row tile.
+_KBT = 20
+
+
+def _dot4(terms):
+    """A sum in the kernel's dot4 order: four interleaved partial sums,
+    combined as (s0 + s1) + (s2 + s3)."""
+    s = [torch.zeros_like(terms[0]) for _ in range(4)]
+    for k, v in enumerate(terms):
+        s[k % 4] = s[k % 4] + v
+    return (s[0] + s[1]) + (s[2] + s[3])
+
+
+def _butterfly(v, op):
+    """A warp butterfly over the last axis (32 lanes): every lane ends with
+    the same value."""
+    for o in (16, 8, 4, 2, 1):
+        v = op(v, v[..., torch.arange(v.shape[-1]) ^ o])
+    return v
+
+
+def _lanes(h, nreal):
+    """(rows, HS) -> (rows, 32 lanes, HS / 32): lane l holds columns l, l +
+    32, ... of a slice, -inf past its model columns."""
+    h = torch.where(torch.arange(h.shape[-1]) < nreal, h, torch.tensor(-torch.inf))
+    return h.reshape(h.shape[0], -1, 32).transpose(1, 2)
+
+
+def _wide_client(p, x, y, m, soft, Bw, epochs, lr):
+    """One client's chain on the wide instance's plan, in its order of sums;
+    returns the updated (w1, b1, w2, b2), float32."""
+    Iw, Hw = p["w1"].shape
+    Cw = p["b2"].shape[0]
+    HS = 64 if -(-Hw // 64) <= 8 else 128
+    K = -(-Hw // HS)
+    nwr = 4 // (HS // 32)
+    nrl = 4 * nwr
+    quads = Iw // 4
+    nch = -(-quads // nrl)
+    Hp = K * HS
+    w1 = torch.zeros(Iw, Hp)
+    w1[:, :Hw] = p["w1"]
+    b1 = torch.zeros(Hp)
+    b1[:Hw] = p["b1"]
+    w2 = torch.zeros(Hp, Cw)
+    w2[:Hw] = p["w2"]
+    b2 = p["b2"].clone()
+    nreal = [min(HS, Hw - k * HS) for k in range(K)]
+    n = x.shape[0]
+    nb = -(-n // Bw)
+    xp = torch.zeros(nb * Bw + _KBT, Iw)
+    xp[:n] = x
+    yp = torch.zeros(nb * Bw, dtype=torch.int64)
+    yp[:n] = y
+    mp = torch.zeros(nb * Bw)
+    mp[:n] = m
+
+    def tile(t):
+        xt = torch.zeros(_KBT, Iw)
+        xt[:Bw] = xp[t % nb * Bw:(t % nb + 1) * Bw]
+        return xt
+
+    def forward(xt):
+        acc = torch.zeros(nwr, 4, _KBT, Hp)
+        for j in range(nch):
+            for wr in range(nwr):
+                for rq in range(4):
+                    q = j * nrl + 4 * wr + rq
+                    if q < quads:
+                        for e in range(4):
+                            i = 4 * q + e
+                            acc[wr, rq] = acc[wr, rq] + xt[:, i:i + 1] * w1[i]
+        v = (acc[:, 0] + acc[:, 2]) + (acc[:, 1] + acc[:, 3])
+        s = v[0]
+        for wr in range(1, nwr):
+            s = s + v[wr]
+        return s + b1
+
+    live = [t for t in range(epochs * nb) if mp[t % nb * Bw:(t % nb + 1) * Bw].sum() > 0]
+    hpre = forward(tile(live[0])) if live else None
+    for step, t in enumerate(live):
+        xt = tile(t)
+        rows = slice(t % nb * Bw, (t % nb + 1) * Bw)
+        if soft:
+            hact = torch.zeros(_KBT, Hp)
+            mk, sk = [], []
+            for k in range(K):
+                hl = _lanes(hpre[:Bw, k * HS:(k + 1) * HS], nreal[k])
+                mx = _butterfly(hl.amax(-1), torch.maximum)[:, 0]
+                e = torch.exp(hl - mx[:, None, None])
+                lane = torch.zeros(Bw, 32)
+                for c in range(e.shape[-1]):
+                    lane = lane + e[..., c]
+                mk.append(mx)
+                sk.append(_butterfly(lane, torch.add)[:, 0])
+            M = mk[0]
+            for mx in mk[1:]:
+                M = torch.maximum(M, mx)
+            S = torch.zeros(Bw)
+            for mx, sm in zip(mk, sk):
+                S = S + sm * torch.exp(mx - M)
+            for k in range(K):
+                cols = slice(k * HS, k * HS + nreal[k])
+                hact[:Bw, cols] = torch.exp(hpre[:Bw, cols] - M[:, None]) / S[:, None]
+        else:
+            hact = torch.relu(hpre)
+        logits = None
+        for k in range(K):
+            cols = range(k * HS, (k + 1) * HS)
+            part = _dot4([hact[:Bw, h:h + 1] * w2[h] for h in cols])
+            logits = part if logits is None else logits + part
+        logits = logits + b2
+        # a quarter warp a row: lane l8 holds classes l8 and l8 + 8
+        lv = torch.full((Bw, 16), -torch.inf)
+        lv[:, :Cw] = logits
+        q8 = torch.maximum(lv[:, :8], lv[:, 8:])
+        for o in (4, 2, 1):
+            q8 = torch.maximum(q8, q8[:, torch.arange(8) ^ o])
+        e = torch.exp(lv - q8[:, :1])
+        s8 = e[:, :8] + e[:, 8:]
+        for o in (4, 2, 1):
+            s8 = s8 + s8[:, torch.arange(8) ^ o]
+        onehot = torch.nn.functional.one_hot(yp[rows], 16).to(torch.float32)
+        cnt = torch.clamp(mp[rows].sum(), min=1.0)
+        lg = ((e / s8[:, :1] - onehot) * (mp[rows] / cnt)[:, None])[:, :Cw]
+        dh = torch.zeros(_KBT, Hp)
+        for c in range(Cw):
+            dh[:Bw] = dh[:Bw] + lg[:, c:c + 1] * w2[:, c]
+        gw2 = torch.zeros(Hp, Cw)
+        for b in range(Bw):
+            gw2 = gw2 + hact[b][:, None] * lg[b]
+        b2 = b2 - lr * _dot4([lg[b] for b in range(Bw)])
+        if soft:
+            dots = []
+            for k in range(K):
+                prod = (dh[:Bw] * hact[:Bw])[:, k * HS:(k + 1) * HS]
+                prod = prod.reshape(Bw, -1, 32).transpose(1, 2)
+                lane = torch.zeros(Bw, 32)
+                for c in range(prod.shape[-1]):
+                    lane = lane + prod[..., c]
+                dots.append(_butterfly(lane, torch.add)[:, 0])
+            dot = dots[0]
+            for d in dots[1:]:
+                dot = dot + d
+            dpp = torch.zeros(_KBT, Hp)
+            dpp[:Bw] = hact[:Bw] * (dh[:Bw] - dot[:, None])
+        else:
+            dpp = torch.where(hpre > 0, dh, torch.zeros(()))
+            dpp[Bw:] = 0.0
+        w2 = w2 - lr * gw2
+        b1 = b1 - lr * _dot4([dpp[b] for b in range(Bw)])
+        g1 = torch.zeros(Iw, Hp)
+        for b in range(_KBT):
+            g1 = g1 + xt[b][:, None] * dpp[b]
+        w1 = w1 - lr * g1
+        if step + 1 < len(live):
+            hpre = forward(tile(live[step + 1]))
+    return w1[:, :Hw], b1[:Hw], w2[:Hw], b2
+
+
+def test_wide_instance_order_of_sums_matches_pallas_and_float64():
+    """The wide instance's order of sums (``_wide_client``) at I = 96 (24
+    quads: three ring chunks of 8 at HS = 64), H = 300 (5 slices of 64, the
+    last with 44 model columns), B = 10 (rows 10-19 of the tile zero), 2
+    epochs, both activations, a ragged tail, an all-masked batch and an
+    all-False client: within atol = rtol = 1e-5 of the Pallas kernel in
+    interpret mode and of the plain version run in float64."""
+    Iw, Hw, Bw = 96, 300, 10
+    rng = np.random.default_rng(32)
+    R, n = 4, 30
+    D = Hw + C + Iw * Hw + Hw * C
+    g = (rng.standard_normal(D) * 0.3).astype(np.float32)
+    x = rng.random((R, n, Iw), dtype=np.float32)
+    y = rng.integers(0, C, (R, n)).astype(np.int32)
+    act = (np.arange(R) % 2).astype(np.int32)
+    mask = np.ones((R, n), bool)
+    mask[1, n - 7:] = False
+    mask[2, :] = False
+    mask[3, :10] = False
+    p = ref.split_flat(torch.as_tensor(g), Iw, Hw, C)
+    rows = []
+    for r in range(R):
+        w1, b1, w2, b2 = _wide_client(p, torch.as_tensor(x[r]), torch.as_tensor(y[r]),
+                                      torch.as_tensor(mask[r], dtype=torch.float32),
+                                      bool(act[r]), Bw, 2, 0.1)
+        rows.append(torch.cat([b1, b2, w1.reshape(-1), w2.reshape(-1)]))
+    emu = torch.stack(rows).numpy()
+    jp = {k: jnp.asarray(v.numpy()) for k, v in p.items()}
+    pallas = jax_sgd_kernel(jp["w1"], jp["b1"], jp["w2"], jp["b2"], jnp.asarray(x),
+                            jnp.asarray(y), jnp.asarray(act), jnp.asarray(mask),
+                            lr=0.1, batch_size=Bw, epochs=2, interpret=True)
+    np.testing.assert_allclose(emu, _jax_flat(pallas), rtol=1e-5, atol=1e-5)
+    f64 = ref.local_sgd_ref(*(torch.as_tensor(a) for a in (g, x, y, act, mask)), hidden=Hw,
+                            classes=C, lr=0.1, batch_size=Bw, epochs=2, dtype=torch.float64)
+    np.testing.assert_allclose(emu, f64.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(emu[2], g)
 
 
 # Past the narrow and wide plans the card runs the general instance: any
