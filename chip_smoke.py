@@ -1423,13 +1423,15 @@ def ssd_bound(B, S, nh, hd, st, chunk, dtype):
     return bound_ms(nbytes, flops, peak)
 
 
-def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_cases,
+def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, fp32_fns, ssm, flash_cases,
                     ssm_cases, chunk):
     """Phase 2, the LM kernels at phase 9's shapes, each in the dtypes its
-    case names, against their plain versions on the same inputs.  ``ssm``
-    is the scan's (wrapper, ``kernel_attrs``, ``plan``).  Returns the JSON
-    entries of each kernel's main-path case (its first, in bf16); the
-    attention entry also lists every case under ``cases``."""
+    case names, against their plain versions on the same inputs.
+    ``fp32_fns`` is the attention's (``fp32_plan``, ``fp32_attrs``),
+    ``ssm`` the scan's (wrapper, ``kernel_attrs``, ``plan``).  Returns the
+    JSON entries of each kernel's main-path case (its first, in bf16); the
+    attention entry also lists every case under ``cases``, each fp32 one
+    with its plan."""
     entries = {}
     cases = []
     gen = torch.Generator(device=DEV).manual_seed(3)
@@ -1445,6 +1447,12 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                                          + attrs[hdp]["dynamic_smem"] > 232448):
             raise AssertionError(f"the bf16 attention instance at {hdp} spills or "
                                  "takes more shared memory than a block may")
+    fp32_plan, fp32_attrs = fp32_fns
+    for name, a in fp32_attrs().items():
+        print(f"  fp32 {'kernel' if name == 'merge' else 'instance'} {name}: {a} (a block: 256 "
+              "threads)")
+        if a["local_bytes"]:
+            raise AssertionError(f"the fp32 attention kernel {name} spills")
     for n, (label, B, S, H, K, hd, window, dtypes, *rest) in enumerate(flash_cases):
         # a case with a narrower v (MLA: dv 64 under q's 96) hands the
         # kernel v zero-padded to hd, as mla_forward does; such a case, and
@@ -1456,9 +1464,13 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
         for dtype in dtypes:
             q, k, v_own = (t.to(dtype) for t in (q32, k32, v32))
             v = torch.nn.functional.pad(v_own, (0, hd - dv)) if dv < hd else v_own
+            fp32 = dtype == torch.float32
+            if fp32:
+                plan = fp32_plan(B, S, H, K, hd, window,
+                                 sms=torch.cuda.get_device_properties(0).multi_processor_count)
+                print(f"  {label}, fp32 plan: {plan._asdict()}")
             got = flash_attention(q, k, v, causal=True, window=window)
             want = ref.flash_attention_ref(q, k, v, causal=True, window=window)
-            fp32 = dtype == torch.float32
             err = compare_by_row(f"{label}: (B, S, H, K, hd) = {(B, S, H, K, hd)}"
                                  + (f", v {dv} padded to {hd}" if dv < hd else "")
                                  + f", window {window}, {str(dtype)[6:]}", got, want,
@@ -1500,7 +1512,9 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
                 if dv < hd:
                     case.update(v_head_dim=dv)
                 library += f", {backend}"
-            if not fp32:
+            if fp32:
+                case["plan"] = plan._asdict()
+            else:
                 hdp = 64 if hd <= 64 else 128 if hd <= 128 else 256
                 case["resources"] = attrs[hdp]
                 res = (f"; instance {hdp}: {attrs[hdp]['registers']} registers, "
@@ -1571,7 +1585,8 @@ def lm_kernel_phase(ref, flash_attention, flash_attention_attrs, ssm, flash_case
 
 # each LM kernel's wrapper name -> the exact __global__ names it launches
 LM_KERNEL_SYMBOLS = {
-    "flash_attention": ("flash_attention_kernel", "flash_attention_fp32_fma_kernel"),
+    "flash_attention": ("flash_attention_kernel", "flash_attention_fp32_kernel",
+                        "flash_attention_fp32_merge_kernel"),
     "ssm_scan": ("ssm_scan_kernel", "ssm_scan_fp32_fma_kernel"),
 }
 
@@ -4012,7 +4027,8 @@ def main() -> int:
     from repro_torch.kernels.count_sketch import count_sketch
     from repro_torch.kernels.defense_sim import sketch_similarity
     from repro_torch.kernels.fedavg_agg import fedavg_agg
-    from repro_torch.kernels.flash_attention import flash_attention, tensor_core_attrs
+    from repro_torch.kernels.flash_attention import (flash_attention, fp32_attrs, fp32_plan,
+                                                     tensor_core_attrs)
     from repro_torch.kernels.local_sgd import local_sgd, local_sgd_ragged
     from repro_torch.kernels.ssm_scan import kernel_attrs as ssm_attrs
     from repro_torch.kernels.ssm_scan import plan as ssm_plan
@@ -4097,12 +4113,15 @@ def main() -> int:
     # bf16 at 4 x 2,048, fp32 at the route check's 1 x 1,024, and a ragged
     # S) and yi-9b's (32 heads of 128 over 4); phase 15's and phase 16's
     # (internvl2-1b's 14 heads over 2, a group of 7; musicgen-medium's 24 of
-    # 64; each with SDPA's backend named); zamba2-7b's SSD (112 heads of 64,
+    # 64; each with SDPA's backend named); in fp32 also internvl2-1b's route
+    # check (1 x 1,024: 112 query tiles, so the plan splits the keys) and a
+    # head dim of 61 (4-byte copies); zamba2-7b's SSD (112 heads of 64,
     # state 64) over the same two prompt shapes as its attention
     zamba = get_config("zamba2-7b")
     both = (torch.bfloat16, torch.float32)
     entries.update(lm_kernel_phase(
-        ref, flash_attention, tensor_core_attrs, (ssm_scan, ssm_attrs, ssm_plan),
+        ref, flash_attention, tensor_core_attrs, (fp32_plan, fp32_attrs),
+        (ssm_scan, ssm_attrs, ssm_plan),
         [("zamba2-7b", 4, 2048, 32, 32, 112, 0, both),
          ("zamba2-7b, one long prompt", 1, 8192, 32, 32, 112, 0, both[:1]),
          ("zamba2-7b, window 512", 4, 2048, 32, 32, 112, 512, both),
@@ -4116,7 +4135,9 @@ def main() -> int:
          ("qwen2-moe-a2.7b", 4, 2048, 16, 16, 128, 0, both),
          ("minicpm3-4b, MLA", 4, 2048, 40, 40, 96, 0, both, 64),
          ("internvl2-1b, 256 patches + 1,792 text", 4, 2048, 14, 2, 64, 0, both, 64, True),
-         ("musicgen-medium", 4, 2048, 24, 24, 64, 0, both, 64, True)],
+         ("musicgen-medium", 4, 2048, 24, 24, 64, 0, both, 64, True),
+         ("internvl2-1b, route check", 1, 1024, 14, 2, 64, 0, both[1:]),
+         ("head dim 61", 2, 1000, 8, 2, 61, 0, both[1:])],
         [("zamba2-7b", 4, 2048, 112, 64, 64, both),
          ("zamba2-7b, one long prompt", 1, 8192, 112, 64, 64, both[:1])],
         zamba.ssm_chunk))

@@ -56,12 +56,54 @@
 //   stays fp32 in registers and is divided by the row sum once, then stored
 //   bf16 with the row check.
 //
-// fp32 (the route check's dtype): the earlier design, not redesigned.  TF32
-// tensor cores would not hold the route check's 1e-4, so fp32 keeps plain
-// FMAs from shared memory: 64-row query tiles, 256 threads as a 16 x 16
-// grid, tiles widened in padded shared rows, two __syncthreads per key tile;
-// one instance for hd <= 128 and one for hd <= 256 (16 output columns a
-// thread, 148 KB of shared memory).
+// fp32 (the route checks' dtype, and that of every reduced() config): FMAs
+// on the CUDA cores, since TF32 tensor cores would not hold the route
+// checks' 1e-4.  It is bound by operations (67 TFLOP/s of fp32 FMAs).  An
+// SM issues 4 warp FMAs a cycle but serves one 128-byte shared wavefront a
+// cycle, and a warp's 16-byte shared read takes 4 wavefronts even as a
+// broadcast (a 4-key score tile ran at just that rate), so the design keeps
+// both pipes within their limits: register tiles with 16 FMAs a 16-byte
+// read.
+// - One block per (query tile, batch x head, part of the tile's key
+//   tiles), 256 threads (8 warps, the most that 255 registers a thread
+//   allow).  Three instances (Fp32Tile): hd <= 64 and hd <= 128 give a
+//   thread 8 rows x 8 keys of scores (64 registers) and 8 rows x 8 output
+//   columns (64), against 256 x 64 and 128 x 128 (query x key) tiles;
+//   hd <= 256 gives 4 x 4 and 4 x 16 against 64 x 64.
+// - Q K^T: per float4 of hd a thread reads 8 float4s of K and 8 of Q for
+//   256 FMAs.  A row group's lanes share their rows (Q reads broadcast) and
+//   read distinct keys whose rows start in distinct bank groups (the row
+//   pitch is an odd number of float4s).
+// - P passes to P V through shared memory, 32 keys at a time within the
+//   warp, in rows of 32 + L floats so that the row groups' stores fall in
+//   distinct banks, and is read back as float4s of 4 keys; V rows are read
+//   as float4s, L lanes across the columns.  Per 4 keys: 8 + 8 reads for
+//   256 FMAs at the hd <= 128 instances.
+// - Copies are cp.async: 16 bytes where hd % 4 == 0 and every pointer is
+//   16-byte aligned, else 4; rows at or past S and the columns from hd to a
+//   multiple of 4 are zero-filled.  K and V have a buffer each.  V of tile
+//   t is queued a unit at a time inside the tile's score loop and K of tile
+//   t + 1 inside its P V loop, so the copies neither stall every warp at
+//   once nor wait for a barrier of their own: two barriers a key tile.
+//   Shared bytes: 4 ((BQ + 2 BK) pitch + BQ (32 + L + 2)): 228,352 at hd =
+//   128, 203,776 at 112, 147,456 at 64, 212,480 at 256, of the 232,448 a
+//   block may take.  A second stage of K and V would add 135,168 bytes at
+//   hd = 128 and 133,120 at 256, and does not fit; each copy has a compute
+//   phase of several microseconds to land in.
+// - Key split: where B H ceil(S / BQ) blocks would leave SMs idle (gemma3-
+//   1b's route check: 64 blocks), the plan (kernels/flash_attention.py::
+//   fp32_plan) splits each query tile's live key tiles into `parts`
+//   contiguous parts.  Each part writes its unnormalized rows and (m, l) to
+//   a workspace, and a merge kernel combines them in part order, with no
+//   atomics: the same input gives the same bits.  A part in which a row
+//   has no live key carries m = -inf, l = 0, and weighs 0.
+// - GQA: each query head reads its kv head's tiles from L2.  Heads that
+//   share a kv head do not share a tile in a block: the copies overlap the
+//   FMAs that bound the kernel, and a shared tile would cost a query
+//   tile's worth of shared memory or halve each head's rows.
+// - A warp whose rows lie wholly before a tile's keys (causal), past them
+//   (window) or at or past S skips the tile.  Masked scores are -inf and
+//   the softmax runs in base 2, as in the bf16 instance.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -502,169 +544,436 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ----------------------------------------------------------------- fp32
 
-constexpr int kBQ32 = 64;       // query rows per block
-constexpr int kBK32 = 64;       // keys per tile
-constexpr int kThreads32 = 256;
+constexpr int kThreads32 = 256;  // 8 warps
+constexpr int kPChunk = 32;      // keys of P that pass through shared memory at once
 constexpr int kMaxHd = 256;
+constexpr int kMaxParts = 16;
+constexpr int kMaxGridY = 65535;
 
-// Loads rows [r0, r0 + 64) of one head (row stride `stride` elements) into
-// a 64 x hd tile with row pitch `pitch`; rows at or past S are zeros.
-__device__ __forceinline__ void load_tile32(float* dst, const float* src, int r0, int S,
-                                            long long stride, int hd, int pitch) {
-  for (int e = threadIdx.x; e < 64 * hd; e += kThreads32) {
-    const int r = e / hd;
-    const int c = e - r * hd;
-    const int s = r0 + r;
-    dst[r * pitch + c] = s < S ? src[(long long)s * stride + c] : 0.f;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off, 16));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off, 16);
-  return v;
-}
-
-// 256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows 4 ty ..
-// 4 ty + 3, score columns tx + 16 j (j < 4) and output columns tx + 16 c
-// (c < HDP / 16, so hd <= HDP).  The 16 threads of a row are one half warp,
-// so the row max and row sum are four shuffles.  Shared rows are padded to
-// hd + 1 words; K and V share one buffer (K for the scores, then V for P V).
+// The fp32 instances, by the largest hd they take.  L lanes share a row
+// group (G groups a warp); a thread holds R rows x KT keys of scores and R
+// rows x C4 float4 columns of the output.  Per float4 of hd the scores
+// take R + KT shared reads for 4 R KT FMAs, and P V per 4 keys R + 4 C4
+// reads for 16 R C4 FMAs: at R = KT = 8, C4 = 2, both 16 FMAs a read.
+//   hd <=  64: L  8, R 8, KT 8, C4 2: 64-key tiles, 256 query rows
+//   hd <= 128: L 16, R 8, KT 8, C4 2: 128-key tiles, 128 query rows
+//   hd <= 256: L 16, R 4, KT 4, C4 4: 64-key tiles, 64 query rows (the
+//              output's 64 accumulators a thread leave no registers for
+//              a larger score tile)
 template <int HDP>
-__global__ void __launch_bounds__(kThreads32)
-flash_attention_fp32_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, float* __restrict__ o, int S,
-                                int H, int KH, int hd, int causal, int window, float scale) {
-  extern __shared__ float smem[];
-  const int pitch = hd + 1;
-  float* sq = smem;                 // kBQ32 x pitch
-  float* skv = sq + kBQ32 * pitch;  // kBK32 x pitch: K, then V
-  float* sp = skv + kBK32 * pitch;  // kBQ32 x (kBK32 + 1): probabilities
-  const int pp = kBK32 + 1;
+struct Fp32Tile {
+  static constexpr int kL = HDP == 64 ? 8 : 16;
+  static constexpr int kG = 32 / kL;
+  static constexpr int kR = HDP == 256 ? 4 : 8;
+  static constexpr int kKT = HDP == 256 ? 4 : 8;
+  static constexpr int kC4 = HDP / (4 * kL);
+  static constexpr int kBK = kL * kKT;      // keys a tile
+  static constexpr int kBQ = 8 * kG * kR;   // query rows a tile
+  static constexpr int kPP = kPChunk + kL;  // floats a row of P: row groups kL banks apart
+};
+
+// Floats of a shared row of Q, K or V: hd rounded up to 4 and then to an
+// odd number of float4s, so that 8 consecutive rows start in 8 distinct
+// 16-byte bank groups.
+__host__ __device__ __forceinline__ int fp32_pitch(int hd) { return 4 * (((hd + 3) / 4) | 1); }
+
+template <int HDP>
+int fp32_smem_bytes(int hd) {
+  using T = Fp32Tile<HDP>;
+  return 4 * ((T::kBQ + 2 * T::kBK) * fp32_pitch(hd) + T::kBQ * (T::kPP + 2));
+}
+
+// 16 bytes, or zeros when !valid (src is then not read)
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// A tile's copy, queued a unit at a time (a unit: one float4 with VEC,
+// else one float of the row padded to 4 ceil(hd / 4)) from inside the
+// compute loops, so that its cp.async instructions spread over the tile's
+// FMAs instead of stalling every warp at once.  `start` aims it at rows
+// [r0, r0 + rows) of one head (row stride `stride` floats from `src`) and
+// the tile at shared address `dst` (row pitch `pitch` floats); `step`
+// queues this thread's next unit, `rest` the ones left.  Rows at or past
+// S, and without VEC the columns from hd to the next multiple of 4, are
+// written as zeros.  A thread advances by 256 units without a division.
+template <bool VEC>
+struct TileCopy {
+  int S, hd, pitch, width, dr, dc;
+  long long stride;
+  uint32_t dst;
+  const float* src;
+  int r0, rows, r, c;
+
+  __device__ __forceinline__ TileCopy(int S_, int hd_, int pitch_, long long stride_)
+      : S(S_), hd(hd_), pitch(pitch_), stride(stride_) {
+    width = VEC ? hd / 4 : 4 * ((hd + 3) / 4);
+    dr = kThreads32 / width;
+    dc = kThreads32 - dr * width;
+  }
+
+  __device__ __forceinline__ void start(uint32_t dst_, const float* src_, int r0_, int rows_) {
+    dst = dst_;
+    src = src_;
+    r0 = r0_;
+    rows = rows_;
+    r = threadIdx.x / width;
+    c = threadIdx.x - r * width;
+  }
+
+  __device__ __forceinline__ void step() {
+    if (r >= rows) return;
+    const int s = r0 + r;
+    if (VEC) {
+      const bool ok = s < S;
+      cp16(dst + 4u * (r * pitch + 4 * c), ok ? src + s * stride + 4 * c : src, ok);
+    } else {
+      const bool ok = s < S && c < hd;
+      cp4(dst + 4u * (r * pitch + c), ok ? src + s * stride + c : src, ok);
+    }
+    r += dr;
+    c += dc;
+    if (c >= width) {
+      c -= width;
+      ++r;
+    }
+  }
+
+  __device__ __forceinline__ void rest() {
+    while (r < rows) step();
+  }
+};
+
+template <int N>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = N / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+template <int N>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = N / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// One block per (query tile, batch x head, part of the tile's live key
+// tiles), 256 threads.  Lane l of warp w owns query rows G R w + l / L +
+// G i (i < R), score columns l % L + L j (j < KT) and output float4
+// columns l % L + L c (c < C4): a row group holds all the keys and all
+// the columns of its rows, so a row's max and sum over a tile are log2 L
+// shuffles each, and P passes from the scores to P V through shared memory
+// within the warp (kPChunk keys at a time, behind __syncwarp).  Each row's
+// running max and sum wait in shared memory too, sparing 16 of the 255
+// registers a thread may hold: lane 0 of the row group rewrites them after
+// each tile.  Output columns past hd are computed from whatever the shared
+// rows hold past it and never stored.  The grid's y walks the query tiles
+// last to first, the parts of a tile side by side.  With parts == 1 the
+// block writes o; else its unnormalized output rows to part_o and (m, l)
+// to part_ml, for the merge kernel (m in base 2; an empty part writes only
+// (-inf, 0)).
+template <int HDP, bool VEC>
+__global__ void __launch_bounds__(kThreads32, 1)
+flash_attention_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ part_o, float2* __restrict__ part_ml, int S,
+                            int H, int KH, int hd, int causal, int window, int parts,
+                            float scale_log2) {
+  using T = Fp32Tile<HDP>;
+  constexpr int L = T::kL, G = T::kG, R = T::kR, KT = T::kKT, C4 = T::kC4;
+  constexpr int BK = T::kBK, BQ = T::kBQ, PP = T::kPP;
+  extern __shared__ __align__(16) float smem32[];
+  const int pitch = fp32_pitch(hd);
+  const int pitch4 = pitch / 4;
+  float* sq = smem32;            // BQ x pitch
+  float* sk = sq + BQ * pitch;   // BK x pitch
+  float* sv = sk + BK * pitch;   // BK x pitch
+  float* sp = sv + BK * pitch;   // BQ x PP: a chunk of P
+  float* sml = sp + BQ * PP;     // BQ x 2: each row's running max and sum
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int g = h / (H / KH);
-  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kBQ32;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  constexpr int kOutCols = HDP / 16;  // output columns per thread
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt = nq - 1 - (int)blockIdx.y / parts;
+  const int part = (int)blockIdx.y - (nq - 1 - qt) * parts;
+  const int q0 = qt * BQ;
+  // this part's share of the query tile's live key tiles
+  const int k_end = causal ? min(S, q0 + BQ) : S;
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  const int n_tiles = (k_end + BK - 1) / BK - t_first;
+  const int t_lo = t_first + part * n_tiles / parts;
+  const int t_hi = t_first + (part + 1) * n_tiles / parts;
+  const long long id = ((long long)bh * nq + qt) * parts + part;  // this block's partials
+
+  if (t_lo == t_hi) {
+    for (int r = threadIdx.x; r < BQ; r += kThreads32)
+      part_ml[id * BQ + r] = make_float2(-CUDART_INF_F, 0.f);
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tx = lane % L;
+  const int lr0 = G * R * warp + lane / L;  // local rows lr0 + G i
+  const int w_lo = q0 + G * R * warp;       // the warp's rows w_lo .. w_hi
+  const int w_hi = w_lo + G * R - 1;
+  const int nd4 = (hd + 3) / 4;
 
   const long long qstride = (long long)H * hd;
   const long long kvstride = (long long)KH * hd;
   const float* qb = q + (long long)b * S * qstride + (long long)h * hd;
   const float* kb = k + (long long)b * S * kvstride + (long long)g * hd;
   const float* vb = v + (long long)b * S * kvstride + (long long)g * hd;
+  const uint32_t s_k = static_cast<uint32_t>(__cvta_generic_to_shared(sk));
+  const uint32_t s_v = static_cast<uint32_t>(__cvta_generic_to_shared(sv));
+  {
+    TileCopy<VEC> qc(S, hd, pitch, qstride);
+    qc.start(static_cast<uint32_t>(__cvta_generic_to_shared(sq)), qb, q0, BQ);
+    qc.rest();
+  }
+  TileCopy<VEC> cp(S, hd, pitch, kvstride);
+  cp.start(s_k, kb, t_lo * BK, BK);
+  cp.rest();
+  cp_commit();
 
-  load_tile32(sq, qb, q0, S, qstride, hd, pitch);
+  const float4* q4 = reinterpret_cast<const float4*>(sq) + lr0 * pitch4;
+  const float4* k4 = reinterpret_cast<const float4*>(sk) + tx * pitch4;
+  const float4* v4 = reinterpret_cast<const float4*>(sv) + tx;
+  const float4* p4 = reinterpret_cast<const float4*>(sp) + lr0 * (PP / 4);
+  float* pw = sp + lr0 * PP + tx;
 
-  // live key range of this query tile
-  const int k_end = causal ? min(S, q0 + kBQ32) : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-
-  float m[4], l[4], acc[4][kOutCols];
+  float4 acc[R][C4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = -CUDART_INF_F;
-    l[a] = 0.f;
+  for (int i = 0; i < R; ++i) {
+    if (tx == 0)
+      *reinterpret_cast<float2*>(sml + 2 * (lr0 + G * i)) = make_float2(-CUDART_INF_F, 0.f);
 #pragma unroll
-    for (int c = 0; c < kOutCols; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < C4; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int k0 = k_begin / kBK32 * kBK32; k0 < k_end; k0 += kBK32) {
-    __syncthreads();  // the previous tile's V and P are no longer read
-    load_tile32(skv, kb, k0, S, kvstride, hd, pitch);
-    __syncthreads();
-
-    float s[4][4];
+  // [split] start
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BK;
+    cp_wait_all();
+    __syncthreads();  // K (and Q) landed; every warp is done with V
+    // [split] K wait
+    cp.start(s_v, vb, k0, BK);  // V, a unit a step of the scores
+    // a warp none of whose rows has a live key in the tile skips it (the
+    // result is the same: such keys add exp2(-inf) = 0), as does a warp
+    // whose rows all lie at or past S
+    const bool idle = w_lo >= S || (causal && k0 > w_hi) ||
+                      (window > 0 && k0 + BK - 1 <= w_lo - window);
+    float s[R][KT];
+    if (!idle) {
+      // S = Q K^T over hd in float4 steps
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < hd; ++d) {
-      float qa[4], kj[4];
+        for (int j = 0; j < KT; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+      for (int d = 0; d < nd4; ++d) {
+        cp.step();
+        float4 kf[KT];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = sq[(ty * 4 + a) * pitch + d];
+        for (int j = 0; j < KT; ++j) kf[j] = k4[L * j * pitch4 + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kj[j] = skv[(tx + 16 * j) * pitch + d];
+        for (int i = 0; i < R; ++i) {
+          const float4 qv = q4[G * i * pitch4 + d];
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[a][j] = fmaf(qa[a], kj[j], s[a][j]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int row = q0 + ty * 4 + a;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool live = col < S && (!causal || col <= row) &&
-                          (window <= 0 || col > row - window);
-        s[a][j] = live ? s[a][j] * scale : -CUDART_INF_F;
-        mx = fmaxf(mx, s[a][j]);
-      }
-      const float m_new = fmaxf(m[a], half_warp_max(mx));
-      const float off = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float corr = expf(m[a] - off);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[a][j] - off);
-        sp[(ty * 4 + a) * pp + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[a] = l[a] * corr + half_warp_sum(rs);
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < kOutCols; ++c) acc[a][c] *= corr;
-    }
-    __syncthreads();  // every thread is done with K; P is complete
-    load_tile32(skv, vb, k0, S, kvstride, hd, pitch);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK32; ++j) {
-      float pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = sp[(ty * 4 + a) * pp + j];
-#pragma unroll
-      for (int c = 0; c < kOutCols; ++c) {
-        const int col = tx + 16 * c;
-        if (col < hd) {
-          const float vv = skv[j * pitch + col];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(pa[a], vv, acc[a][c]);
+          for (int j = 0; j < KT; ++j) {
+            s[i][j] = fmaf(qv.x, kf[j].x, s[i][j]);
+            s[i][j] = fmaf(qv.y, kf[j].y, s[i][j]);
+            s[i][j] = fmaf(qv.z, kf[j].z, s[i][j]);
+            s[i][j] = fmaf(qv.w, kf[j].w, s[i][j]);
+          }
         }
       }
+      // [split] scores
+      // mask (only where the warp's rows meet the diagonal, the window's
+      // edge or S), then the online softmax in base 2; s becomes P
+      const bool masked = (causal && k0 + BK - 1 > w_lo) || k0 + BK > S ||
+                          (window > 0 && k0 <= w_hi - window);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int row = q0 + lr0 + G * i;
+        float mx = -CUDART_INF_F;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          float x = s[i][j] * scale_log2;
+          if (masked) {
+            const int col = k0 + tx + L * j;
+            const bool live = col < S && (!causal || col <= row) &&
+                              (window <= 0 || col > row - window);
+            x = live ? x : -CUDART_INF_F;
+          }
+          s[i][j] = x;
+          mx = fmaxf(mx, x);
+        }
+        float2* ml = reinterpret_cast<float2*>(sml + 2 * (lr0 + G * i));
+        const float2 old = *ml;
+        const float mn = fmaxf(old.x, group_max<L>(mx));
+        const float base = mn == -CUDART_INF_F ? 0.f : mn;
+        const float corr = exp2f(old.x - base);
+        float rs = 0.f;
+#pragma unroll
+        for (int j = 0; j < KT; ++j) {
+          s[i][j] = exp2f(s[i][j] - base);
+          rs += s[i][j];
+        }
+        rs = group_sum<L>(rs);
+        __syncwarp();  // every lane has read the row's old (m, l)
+        if (tx == 0) *ml = make_float2(mn, old.y * corr + rs);
+#pragma unroll
+        for (int c = 0; c < C4; ++c) {
+          acc[i][c].x *= corr;
+          acc[i][c].y *= corr;
+          acc[i][c].z *= corr;
+          acc[i][c].w *= corr;
+        }
+      }
+      // [split] softmax
     }
+    cp.rest();
+    cp_commit();
+    cp_wait_all();
+    __syncthreads();  // V landed; every warp is done with K
+    // [split] V wait
+    cp.start(s_k, kb, k0 + BK, t + 1 < t_hi ? BK : 0);  // the next K, a unit a step of P V
+    if (!idle) {
+      // O += P V, kPChunk keys at a time: the row group writes its P to
+      // shared memory and reads it back as float4s of 4 keys
+#pragma unroll
+      for (int ch = 0; ch < BK / kPChunk; ++ch) {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int jj = 0; jj < kPChunk / L; ++jj)
+            pw[G * i * PP + L * jj] = s[i][ch * (kPChunk / L) + jj];
+        __syncwarp();
+#pragma unroll 1
+        for (int kq = 0; kq < kPChunk / 4; ++kq) {
+          cp.step();
+          float4 pv[R];
+#pragma unroll
+          for (int i = 0; i < R; ++i) pv[i] = p4[G * i * (PP / 4) + kq];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float4* vrow = v4 + (ch * kPChunk + 4 * kq + e) * pitch4;
+#pragma unroll
+            for (int c = 0; c < C4; ++c) {
+              const float4 vv = vrow[L * c];
+#pragma unroll
+              for (int i = 0; i < R; ++i) {
+                const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y : e == 2 ? pv[i].z : pv[i].w;
+                acc[i][c].x = fmaf(pe, vv.x, acc[i][c].x);
+                acc[i][c].y = fmaf(pe, vv.y, acc[i][c].y);
+                acc[i][c].z = fmaf(pe, vv.z, acc[i][c].z);
+                acc[i][c].w = fmaf(pe, vv.w, acc[i][c].w);
+              }
+            }
+          }
+        }
+        __syncwarp();  // the chunk of P is read before the next overwrites it
+      }
+    }
+    cp.rest();
+    cp_commit();
+    // [split] P V
   }
+  // [split] end
 
-  float* ob = o + (long long)b * S * qstride + (long long)h * hd;
+  __syncwarp();  // the rows' (m, l) are written
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty * 4 + a;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[a], 1e-30f);
+  for (int i = 0; i < R; ++i) {
+    const int lr = lr0 + G * i;
+    const float2 ml = *reinterpret_cast<const float2*>(sml + 2 * lr);
+    const float lt = ml.y;
+    const int row = q0 + lr;
+    float* dst;
+    float inv = 1.f;
+    if (parts == 1) {
+      if (row >= S) continue;
+      dst = o + ((long long)b * S + row) * qstride + (long long)h * hd;
+      inv = 1.f / fmaxf(lt, 1e-30f);
+    } else {
+      dst = part_o + (id * BQ + lr) * hd;
+      if (tx == 0) part_ml[id * BQ + lr] = ml;
+    }
 #pragma unroll
-    for (int c = 0; c < kOutCols; ++c) {
-      const int col = tx + 16 * c;
-      if (col < hd) ob[(long long)row * qstride + col] = acc[a][c] / denom;
+    for (int c = 0; c < C4; ++c) {
+      const int c4 = tx + L * c;
+      if (c4 >= nd4) continue;
+      const float4 r4 = make_float4(acc[i][c].x * inv, acc[i][c].y * inv, acc[i][c].z * inv,
+                                    acc[i][c].w * inv);
+      if (VEC) {
+        *reinterpret_cast<float4*>(dst + 4 * c4) = r4;
+      } else {
+        const float e4[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (4 * c4 + e < hd) dst[4 * c4 + e] = e4[e];
+      }
     }
   }
 }
 
-int smem_bytes32(int hd) { return ((kBQ32 + kBK32) * (hd + 1) + kBQ32 * (kBK32 + 1)) * 4; }
+// Merges the parts of each (b, s, h) row in part order, one warp a row: a
+// part with m = -inf (no live key of the row in it) weighs 0 and its
+// output is not read, so the sums never meet exp2(-inf - -inf).  No
+// atomics: the same partials give the same bits.
+__global__ void __launch_bounds__(kThreads32)
+flash_attention_fp32_merge_kernel(const float* __restrict__ part_o,
+                                  const float2* __restrict__ part_ml, float* __restrict__ o,
+                                  int S, int H, int hd, int bq, int parts, long long rows) {
+  const long long row = (long long)blockIdx.x * (kThreads32 / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const long long bs = row / H;  // row = (b S + s) H + h
+  const int h = (int)(row - bs * H);
+  const int b = (int)(bs / S);
+  const int s = (int)(bs - (long long)b * S);
+  const int qt = s / bq;
+  const int r = s - qt * bq;
+  const int nq = (S + bq - 1) / bq;
+  const long long id0 = (((long long)b * H + h) * nq + qt) * parts;
+  float mx = -CUDART_INF_F;
+  for (int p = 0; p < parts; ++p) mx = fmaxf(mx, part_ml[(id0 + p) * bq + r].x);
+  float sum = 0.f;
+  float acc[kMaxHd / 32];
+#pragma unroll
+  for (int c = 0; c < kMaxHd / 32; ++c) acc[c] = 0.f;
+  for (int p = 0; p < parts; ++p) {
+    const float2 ml = part_ml[(id0 + p) * bq + r];
+    if (ml.x == -CUDART_INF_F) continue;
+    const float w = exp2f(ml.x - mx);
+    sum += w * ml.y;
+    const float* src = part_o + ((id0 + p) * bq + r) * hd;
+#pragma unroll
+    for (int c = 0; c < kMaxHd / 32; ++c)
+      if (lane + 32 * c < hd) acc[c] = fmaf(w, src[lane + 32 * c], acc[c]);
+  }
+  const float inv = 1.f / fmaxf(sum, 1e-30f);
+  float* dst = o + row * hd;
+#pragma unroll
+  for (int c = 0; c < kMaxHd / 32; ++c)
+    if (lane + 32 * c < hd) dst[lane + 32 * c] = acc[c] * inv;
+}
 
 // ----------------------------------------------------------------- host
 
@@ -731,34 +1040,40 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B, int S
   return (int)cudaGetLastError();
 }
 
-template <int HDP>
-int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                int KH, int hd, int causal, int window, cudaStream_t stream) {
-  const int smem = smem_bytes32(hd);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fp32_fma_kernel<HDP>,
+template <int HDP, bool VEC>
+int launch_fp32(const float* q, const float* k, const float* v, float* o, float* part_o,
+                float2* part_ml, int B, int S, int H, int KH, int hd, int causal, int window,
+                int parts, cudaStream_t stream) {
+  constexpr int BQ = Fp32Tile<HDP>::kBQ;
+  const int smem = fp32_smem_bytes<HDP>(hd);
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_fp32_kernel<HDP, VEC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + kBQ32 - 1) / kBQ32));
-  flash_attention_fp32_fma_kernel<HDP><<<grid, kThreads32, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH, hd, causal,
-      window, (float)(1.0 / sqrt((double)hd)));
+  const int nq = (S + BQ - 1) / BQ;
+  const dim3 grid((unsigned)(B * H), (unsigned)(nq * parts));
+  flash_attention_fp32_kernel<HDP, VEC><<<grid, kThreads32, smem, stream>>>(
+      q, k, v, o, part_o, part_ml, S, H, KH, hd, causal, window, parts,
+      (float)(kLog2e / sqrt((double)hd)));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return (int)err;
+  const long long rows = (long long)B * S * H;
+  const int per_block = kThreads32 / 32;
+  flash_attention_fp32_merge_kernel<<<(unsigned)((rows + per_block - 1) / per_block),
+                                      kThreads32, 0, stream>>>(part_o, part_ml, o, S, H, hd,
+                                                                BQ, parts, rows);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o: (B, S, H, hd); k, v: (B, S, KH, hd), contiguous, H % KH == 0,
-// hd <= 256.  bf16 != 0: __nv_bfloat16 tensors, hd % 8 == 0 and 16-byte
-// aligned pointers (the tensor cores' instance); else float (FMA instance).
-extern "C" int fedar_flash_attention(const void* q, const void* k, const void* v,
-                                     void* o, int B, int S, int H, int KH, int hd,
-                                     int causal, int window, int bf16, void* stream) {
+// q, o: (B, S, H, hd); k, v: (B, S, KH, hd), contiguous __nv_bfloat16, H %
+// KH == 0, hd % 8 == 0, hd <= 256, 16-byte aligned pointers (the tensor
+// cores' instance).
+extern "C" int fedar_flash_attention_bf16(const void* q, const void* k, const void* v,
+                                          void* o, int B, int S, int H, int KH, int hd,
+                                          int causal, int window, void* stream) {
   if (hd < 1 || hd > kMaxHd || KH < 1 || H % KH != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (!bf16) {
-    if (hd <= 128) return launch_fp32<128>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
-    return launch_fp32<256>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
-  }
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorMisalignedAddress;
@@ -766,6 +1081,43 @@ extern "C" int fedar_flash_attention(const void* q, const void* k, const void* v
   if (hd <= 64) return launch_tc<64>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
   if (hd <= 128) return launch_tc<128>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
   return launch_tc<256>(q, k, v, o, B, S, H, KH, hd, causal, window, s);
+}
+
+// The same in float on the CUDA cores, with the plan of
+// kernels/flash_attention.py::fp32_plan: block_q must be the instance's
+// (256 at hd <= 64, 128 at hd <= 128, 64 above), and parts > 1 needs the
+// workspace (part_o: B H nq parts block_q hd floats, part_ml: as many
+// float2s, 8-byte aligned).  vec != 0 takes the 16-byte copies: hd % 4 ==
+// 0 and every pointer 16-byte aligned.
+extern "C" int fedar_flash_attention_fp32(const void* q, const void* k, const void* v,
+                                          void* o, void* part_o, void* part_ml, int B, int S,
+                                          int H, int KH, int hd, int causal, int window,
+                                          int block_q, int parts, int vec, void* stream) {
+  if (hd < 1 || hd > kMaxHd || KH < 1 || H % KH != 0 || B < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  const int hdp = hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+  const int bq = hdp == 64    ? Fp32Tile<64>::kBQ
+                 : hdp == 128 ? Fp32Tile<128>::kBQ
+                              : Fp32Tile<256>::kBQ;
+  if (block_q != bq) return (int)cudaErrorInvalidValue;
+  const long long nq = (S + block_q - 1) / block_q;
+  if (parts < 1 || parts > kMaxParts || nq * parts > kMaxGridY) return (int)cudaErrorInvalidValue;
+  if (parts > 1 && (part_o == nullptr || part_ml == nullptr)) return (int)cudaErrorInvalidValue;
+  if (parts > 1 && reinterpret_cast<uintptr_t>(part_ml) % 8) return (int)cudaErrorMisalignedAddress;
+  if (vec && (hd % 4 || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+                         reinterpret_cast<uintptr_t>(part_o)) % 16))
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float *fq = (const float*)q, *fk = (const float*)k, *fv = (const float*)v;
+  float *fo = (float*)o, *po = (float*)part_o;
+  float2* pml = (float2*)part_ml;
+#define FEDAR_FA32(HDP, VEC) \
+  launch_fp32<HDP, VEC>(fq, fk, fv, fo, po, pml, B, S, H, KH, hd, causal, window, parts, s)
+  if (hdp == 64) return vec ? FEDAR_FA32(64, true) : FEDAR_FA32(64, false);
+  if (hdp == 128) return vec ? FEDAR_FA32(128, true) : FEDAR_FA32(128, false);
+  return vec ? FEDAR_FA32(256, true) : FEDAR_FA32(256, false);
+#undef FEDAR_FA32
 }
 
 // The bf16 instance's resources at head-dim padding hdp (64, 128 or 256):
@@ -789,6 +1141,37 @@ extern "C" int fedar_flash_attention_attrs(int hdp, int* regs, int* local_bytes,
     return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  *static_smem = (int)a.sharedSizeBytes;
+  *dynamic_smem = dyn;
+  return 0;
+}
+
+// The fp32 kernels' resources: which = 2 i / 2 i + 1 the instance i (hd
+// <= 64, 128, 256) with 16- / 4-byte copies, 6 the merge kernel.
+// Registers and local (spilled) bytes a thread, static shared bytes a
+// block, and the dynamic shared bytes a block of the instance takes at
+// head dim hd (0 for the merge, or an hd past the instance).
+extern "C" int fedar_flash_attention_fp32_attrs(int which, int hd, int* regs, int* local_bytes,
+                                                int* static_smem, int* dynamic_smem) {
+  cudaFuncAttributes a;
+  cudaError_t err;
+  switch (which) {
+    case 0: err = cudaFuncGetAttributes(&a, flash_attention_fp32_kernel<64, true>); break;
+    case 1: err = cudaFuncGetAttributes(&a, flash_attention_fp32_kernel<64, false>); break;
+    case 2: err = cudaFuncGetAttributes(&a, flash_attention_fp32_kernel<128, true>); break;
+    case 3: err = cudaFuncGetAttributes(&a, flash_attention_fp32_kernel<128, false>); break;
+    case 4: err = cudaFuncGetAttributes(&a, flash_attention_fp32_kernel<256, true>); break;
+    case 5: err = cudaFuncGetAttributes(&a, flash_attention_fp32_kernel<256, false>); break;
+    case 6: err = cudaFuncGetAttributes(&a, flash_attention_fp32_merge_kernel); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  int dyn = 0;
+  if (which < 2 && hd >= 1 && hd <= 64) dyn = fp32_smem_bytes<64>(hd);
+  if ((which == 2 || which == 3) && hd >= 1 && hd <= 128) dyn = fp32_smem_bytes<128>(hd);
+  if ((which == 4 || which == 5) && hd >= 1 && hd <= kMaxHd) dyn = fp32_smem_bytes<256>(hd);
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   *static_smem = (int)a.sharedSizeBytes;

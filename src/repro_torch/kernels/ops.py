@@ -143,10 +143,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.fedar_topk_decode.restype = I
     lib.fedar_topk_decode_attrs.argtypes = [I, PI, PI]
     lib.fedar_topk_decode_attrs.restype = I
-    lib.fedar_flash_attention.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I, P]
-    lib.fedar_flash_attention.restype = I
+    lib.fedar_flash_attention_bf16.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P]
+    lib.fedar_flash_attention_bf16.restype = I
+    lib.fedar_flash_attention_fp32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                                               I, P]
+    lib.fedar_flash_attention_fp32.restype = I
     lib.fedar_flash_attention_attrs.argtypes = [I, PI, PI, PI, PI]
     lib.fedar_flash_attention_attrs.restype = I
+    lib.fedar_flash_attention_fp32_attrs.argtypes = [I, I, PI, PI, PI, PI]
+    lib.fedar_flash_attention_fp32_attrs.restype = I
     lib.fedar_ssm_scan.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
     lib.fedar_ssm_scan.restype = I
     lib.fedar_ssm_scan_attrs.argtypes = [PI, PI, PI, PI]

@@ -186,6 +186,65 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32)).to(q.dtype)
 
 
+def flash_attention_partials_ref(q, k, v, key_ranges, *, block_q: int,
+                                 causal: bool = True, window: int = 0):
+    """The fp32 kernel's key split in plain fp32: ``key_ranges[qt][p]`` is
+    (lo, hi), the keys [lo, hi) of part p of query tile qt (rows qt
+    ``block_q`` onwards).  For each (tile, part, row) it gives m, the
+    row's largest live score in base 2 (q k hd^-1/2 log2 e), l, the sum of
+    exp2(s - m) over the part's live keys, and the unnormalized output,
+    the same sum of exp2(s - m) v.  A row with no live key in its part has
+    m = -inf, l = 0 and a zero output.  Returns part_o (B, H, nq, P,
+    block_q, hd) and part_ml (B, H, nq, P, block_q, 2); rows at or past S
+    keep m = -inf."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kf = k.to(torch.float32).repeat_interleave(G, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(G, dim=2)
+    nq, P = len(key_ranges), len(key_ranges[0])
+    part_o = torch.zeros((B, H, nq, P, block_q, hd), dtype=torch.float32, device=q.device)
+    part_ml = torch.zeros((B, H, nq, P, block_q, 2), dtype=torch.float32, device=q.device)
+    part_ml[..., 0] = -torch.inf
+    scale = hd ** -0.5 * 1.4426950408889634
+    for qt in range(nq):
+        r0, r1 = qt * block_q, min(S, (qt + 1) * block_q)
+        qi = torch.arange(r0, r1, device=q.device)[:, None]
+        for p, (lo, hi) in enumerate(key_ranges[qt]):
+            hi = min(hi, S)
+            if hi <= lo:
+                continue
+            ki = torch.arange(lo, hi, device=q.device)[None, :]
+            s = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:r1].to(torch.float32),
+                             kf[:, lo:hi]) * scale
+            live = torch.ones((r1 - r0, hi - lo), dtype=torch.bool, device=q.device)
+            if causal:
+                live &= ki <= qi
+            if window:
+                live &= ki > qi - window
+            s = torch.where(live, s, -torch.inf)
+            m = s.amax(dim=-1)
+            e = torch.exp2(s - torch.where(m == -torch.inf, 0.0, m)[..., None])
+            part_o[:, :, qt, p, :r1 - r0] = torch.einsum("bhqk,bkhd->bhqd", e, vf[:, lo:hi])
+            part_ml[:, :, qt, p, :r1 - r0, 0] = m
+            part_ml[:, :, qt, p, :r1 - r0, 1] = e.sum(dim=-1)
+    return part_o, part_ml
+
+
+def flash_attention_merge_ref(part_o, part_ml, S: int):
+    """The merge kernel's plain version: each row's parts of
+    ``flash_attention_partials_ref`` weighed by exp2(m - max m) and summed
+    over the parts in order, a part with m = -inf weighing 0 (so no
+    exp2(-inf - -inf) reaches the sums), then divided by the weighed l.
+    Returns (B, S, H, hd) float32."""
+    B, H, nq, P, bq, hd = part_o.shape
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    top = m.amax(dim=3, keepdim=True)
+    w = torch.where(m == -torch.inf, 0.0,
+                    torch.exp2(m - torch.where(top == -torch.inf, 0.0, top)))
+    o = (w[..., None] * part_o).sum(dim=3) / (w * l).sum(dim=3).clamp_min(1e-30)[..., None]
+    return o.reshape(B, H, nq * bq, hd)[:, :, :S].permute(0, 2, 1, 3).contiguous()
+
+
 def ssm_scan_ref(xd, logdecay, Bc, Cc, dtype=torch.float32):
     """Sequential (exact) SSD recurrence, one step per position:
     ``state = exp(l_t) * state + B_t (x) x_t``, ``y_t = C_t . state``.

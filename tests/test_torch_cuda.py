@@ -26,7 +26,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.compress import pack_codes, topk_decode, unpack_codes
 from repro_torch.kernels.defense_sim import sketch_similarity
 from repro_torch.kernels.fedavg_agg import fedavg_agg
-from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, flash_attention, tensor_core_attrs
+from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, flash_attention, fp32_attrs,
+                                                  fp32_plan, tensor_core_attrs)
 from repro_torch.kernels.local_sgd import local_sgd, local_sgd_ragged
 from repro_torch.kernels.ssm_scan import kernel_attrs, plan, ssm_scan
 from repro_torch.models.model import Model
@@ -943,6 +944,103 @@ def test_flash_attention_bf16_instances_spill_nothing(cuda_device, hdp):
     a = tensor_core_attrs(hdp)
     assert a["local_bytes"] == 0, a
     assert a["static_smem"] + a["dynamic_smem"] <= ops.MAX_SMEM_BYTES, a
+
+
+def _fp32_qkv(dev, B, S, H, K, hd, seed, v_mean=0.0):
+    gen = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen) for n in (H, K, K))
+    return q.to(dev), k.to(dev), (v + v_mean).to(dev)
+
+
+@pytest.mark.parametrize("hd", [1, 3, 61, 64, 96, 100, 112, 128, 200, 256])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_attention_fp32_over_head_dims(cuda_device, hd, window):
+    """The fp32 instances at every kind of head dim: 16-byte copies (hd %
+    4 == 0) and 4-byte ones (1, 3, 61), all three instances (hd <= 64, <=
+    128 and above), a ragged S and a GQA group of 2; rtol 1e-4 row by row,
+    one launch counted a call.  v has mean 2: at hd 1 or 3 a row of zero-mean
+    v is a weighted mean of a few values that can cancel to ~1e-4, where
+    fp32's rounding of the terms (~1e-7, in both versions) would pass a
+    tolerance relative to the row; with the mean no row nears 0, and a
+    wrong weight still moves it by ~p times v's spread of 1."""
+    q, k, v = _fp32_qkv(cuda_device, 2, 333, 4, 2, hd, seed=hd + window, v_mean=2.0)
+    assert fp32_plan(2, 333, 4, 2, hd, window).copy_bytes == (16 if hd % 4 == 0 else 4)
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == n0 + 1
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True, window=window), 1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,window,causal", [
+    (1, 1000, 4, 4, 64, 0, True),     # group of 1, ragged S
+    (2, 517, 16, 4, 112, 64, True),   # group of 4, a window of one key tile
+    (1, 700, 14, 2, 64, 0, True),     # group of 7 (internvl2-1b's)
+    (1, 1030, 8, 1, 128, 300, True),  # group of 8, a window across tiles
+    (2, 129, 8, 1, 256, 0, False),    # no causal mask, the 256 instance
+    (1, 200, 7, 7, 96, 48, False),    # a window without the causal mask
+    (3, 65, 2, 1, 40, 0, True),       # S one past a key tile
+])
+def test_flash_attention_fp32_gqa_windows_and_ragged_s(cuda_device, B, S, H, K, hd,
+                                                       window, causal):
+    q, k, v = _fp32_qkv(cuda_device, B, S, H, K, hd, seed=S + H)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=causal, window=window), 1e-4)
+
+
+@pytest.mark.parametrize("parts", [None, 1, 3, 16])
+def test_flash_attention_fp32_split_on_and_off(cuda_device, parts):
+    """gemma3-1b's route-check layer (1 x 1,024, 4 heads of 256 over one
+    kv head) with the plan's split (it engages here), none, and forced
+    splits (16 leaves parts with no key tile, and with the window rows
+    with no live key in a part); each within 1e-4 of the plain version,
+    with one launch counted for the two kernels."""
+    q, k, v = _fp32_qkv(cuda_device, 1, 1024, 4, 1, 256, seed=5)
+    assert fp32_plan(1, 1024, 4, 1, 256).parts > 1
+    for window in (0, 512, 100):
+        n0 = flash_attention.launches
+        got = flash_attention(q, k, v, causal=True, window=window, parts=parts)
+        assert flash_attention.launches == n0 + 1
+        assert torch.isfinite(got).all()
+        _close(got, ref.flash_attention_ref(q, k, v, causal=True, window=window), 1e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 4, 1, 256, 512), (2, 700, 8, 2, 112, 0),
+                                   (1, 300, 4, 4, 61, 0)])
+def test_flash_attention_fp32_is_bit_equal_run_to_run(cuda_device, shape):
+    """Two launches on the same input give the same bits, with the split
+    (the first shape) and without."""
+    B, S, H, K, hd, window = shape
+    q, k, v = _fp32_qkv(cuda_device, B, S, H, K, hd, seed=7)
+    a = flash_attention(q, k, v, causal=True, window=window)
+    b = flash_attention(q, k, v, causal=True, window=window)
+    assert torch.equal(a, b)
+
+
+def test_flash_attention_fp32_takes_unaligned_storage(cuda_device):
+    """Contiguous tensors 4 bytes past a 16-byte boundary take the 4-byte
+    copies at an hd that is a multiple of 4."""
+    B, S, H, hd = 1, 300, 4, 64
+    gen = torch.Generator().manual_seed(11)
+    flat = [torch.randn(B * S * H * hd + 1, generator=gen).to(cuda_device) for _ in range(3)]
+    q, k, v = (f[1:].view(B, S, H, hd) for f in flat)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=True), 1e-4)
+
+
+def test_flash_attention_fp32_instances_spill_nothing(cuda_device):
+    """Every fp32 instance (each with 16- and 4-byte copies) and the merge
+    kernel keep everything in registers (0 local bytes), and the shared
+    bytes the build reports at an hd are the plan's, within what a block
+    may take."""
+    for hd in (1, 61, 64, 112, 128, 200, 256):
+        attrs = fp32_attrs(hd)
+        for name, a in attrs.items():
+            assert a["local_bytes"] == 0, (name, a)
+        p = fp32_plan(1, 1024, 4, 1, hd)
+        a = attrs[f"{p.instance}, {p.copy_bytes}-byte copies"]
+        assert a["dynamic_smem"] == p.smem_bytes, a
+        assert a["static_smem"] + a["dynamic_smem"] <= ops.MAX_SMEM_BYTES, a
 
 
 def test_gemma3_shape_at_head_dim_256_launches_the_kernel_once_a_layer(cuda_device):
